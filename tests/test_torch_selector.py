@@ -1,0 +1,120 @@
+"""The whole slice: the binary GBT model-selection search, run by the JAX
+package and by the PyTorch port (float64, CPU) on the same data. The
+(folds, grid) metric matrices agree to 1e-9 and the same grid point wins;
+splitter and fold indices come from the same numpy seeds."""
+import numpy as np
+import pytest
+
+from transmogrifai_tpu.models.trees import GBTClassifier as JaxGBT
+from transmogrifai_tpu.selector import splitters as jsplit
+from transmogrifai_tpu.selector.factories import (
+    BinaryClassificationModelSelector as JaxSelector)
+from transmogrifai_tpu.selector.validator import CrossValidation as JaxCV
+from transmogrifai_tpu_torch.evaluators import BinaryClassificationEvaluator
+from transmogrifai_tpu_torch.models.registry import default_binary_models
+from transmogrifai_tpu_torch.models.trees import GBTClassifier
+from transmogrifai_tpu_torch.selector import (
+    BinaryClassificationModelSelector, CrossValidation, DataBalancer,
+    stratified_split)
+
+GRID = [{"max_depth": d, "min_child_weight": m}
+        for d in (3, 5) for m in (1.0, 10.0)]
+
+
+def _data(n=900, seed=1):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6))
+    y = (X[:, 0] - 0.7 * X[:, 2] + 0.6 * rng.logistic(size=n) > 0
+         ).astype(float)
+    return X, y
+
+
+def _matrix(selected):
+    res = sorted(selected.summary.validation_results,
+                 key=lambda r: r.grid_index)
+    return np.array([r.metric_values for r in res]).T
+
+
+@pytest.fixture(scope="module")
+def searches():
+    X, y = _data()
+    ref = JaxSelector.with_cross_validation(
+        num_folds=3, seed=7, stratify=True,
+        splitter=jsplit.DataBalancer(reserve_test_fraction=0.1, seed=7),
+        models=[(JaxGBT(num_rounds=3), GRID)], mesh=None).fit_arrays(X, y)
+    got = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=7, stratify=True,
+        splitter=DataBalancer(reserve_test_fraction=0.1, seed=7),
+        models=[(GBTClassifier(num_rounds=3, device="cpu"), GRID)],
+        device="cpu").fit_arrays(X, y)
+    return ref, got
+
+
+def test_metric_matrix_matches_jax(searches):
+    ref, got = searches
+    a, b = _matrix(ref), _matrix(got)
+    assert a.shape == b.shape == (3, len(GRID))
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-9)
+
+
+def test_winner_matches_jax(searches):
+    ref, got = searches
+    assert got.summary.best_model_name == ref.summary.best_model_name
+    assert got.summary.best_model_params == ref.summary.best_model_params
+    assert int(np.argmax(_matrix(got).mean(0))) == int(
+        np.argmax(_matrix(ref).mean(0)))
+    assert abs(got.summary.best_validation_metric
+               - ref.summary.best_validation_metric) <= 1e-9
+
+
+def test_holdout_evaluation_matches_jax(searches):
+    ref, got = searches
+    for which in ("train_evaluation", "holdout_evaluation"):
+        a = getattr(ref.summary, which)
+        b = getattr(got.summary, which)
+        for metric in ("AuPR", "AuROC", "Error"):
+            assert abs(getattr(a, metric) - getattr(b, metric)) <= 1e-9
+    assert set(got.summary.timings) == {"prepare", "validate", "refit",
+                                        "evaluate"}
+
+
+@pytest.mark.parametrize("stratify", [False, True])
+def test_fold_assignments_match_jax(stratify):
+    _, y = _data(n=301)
+    ref = JaxCV(None, num_folds=3, seed=11, stratify=stratify,
+                mesh=None)._assignments(y, 3)
+    got = CrossValidation(BinaryClassificationEvaluator(), num_folds=3,
+                          seed=11, stratify=stratify)._assignments(y, 3)
+    np.testing.assert_array_equal(ref, got)
+
+
+def test_splitters_match_jax():
+    _, y = _data(n=401)
+    y[:300] = 0.0                                 # imbalanced: resamples
+    for a, b in zip(stratified_split(y, 0.2, np.random.default_rng(3)),
+                    jsplit.stratified_split(y, 0.2,
+                                            np.random.default_rng(3))):
+        np.testing.assert_array_equal(a, b)
+    ours = DataBalancer(sample_fraction=0.3, seed=5)
+    theirs = jsplit.DataBalancer(sample_fraction=0.3, seed=5)
+    np.testing.assert_array_equal(ours.prepare(y), theirs.prepare(y))
+    assert ours.summary.results == theirs.summary.results
+
+
+def test_default_grid_is_the_reference_grid():
+    from transmogrifai_tpu.models.registry import default_binary_models as ref
+    (est, grid), = default_binary_models(device="cpu")
+    ref_grid = [g for e, g in ref() if type(e).__name__ == "GBTClassifier"]
+    assert grid == ref_grid[0] and len(grid) == 18
+    assert est.num_rounds == 20
+
+
+def test_unported_families_are_named():
+    with pytest.raises(NotImplementedError, match="LogisticRegression"):
+        BinaryClassificationModelSelector.with_cross_validation(device="cpu")
+    with pytest.raises(NotImplementedError, match="LinearSVC"):
+        BinaryClassificationModelSelector.with_cross_validation(
+            model_types_to_use=["GBTClassifier", "LinearSVC"], device="cpu")
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["GBTClassifier"], device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == ["GBTClassifier"]

@@ -1,0 +1,102 @@
+"""On-device validation metrics for the selector search (binary part).
+
+Counterpart of ``transmogrifai_tpu/evaluators/device_metrics.py``. The
+search computes each candidate's metric where the candidate was fitted,
+so only one float per candidate reaches the host. Semantics match the host
+evaluator exactly (tie-aware Spark ``BinaryClassificationMetrics`` curves,
+``evaluators/binary.py`` ``_curve_points``): every position's cumulative
+counts are replaced by the counts at the end of its score-tie run (a
+reversed running minimum over end-of-run indices), so duplicated curve
+points add zero-width trapezoids.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["BINARY_METRICS", "binary_from_sigmoid", "binary_metric",
+           "metric_fn"]
+
+BINARY_METRICS = ("AuPR", "AuROC", "Precision", "Recall", "F1", "Error")
+
+
+def binary_from_sigmoid(margin: torch.Tensor):
+    """(score, plabel) from GBT margins — the twin of
+    ``GBTClassifierModel.raw_to_probability`` (p = sigmoid(margin), label
+    = argmax of [1 - p, p])."""
+    p = 1.0 / (1.0 + torch.exp(-margin))
+    return p, (p > 1.0 - p).to(margin.dtype)
+
+
+def _tie_grouped_curve(pos: torch.Tensor, margin: torch.Tensor):
+    """Cumulative (tp, fp) per position, each taken at the END of its
+    score-tie run (descending order), plus the positive and negative
+    totals. ``pos`` is the 0/1 positive indicator."""
+    n = margin.shape[0]
+    order = torch.argsort(-margin, stable=True)
+    ys = pos[order]
+    ss = margin[order]
+    tp = torch.cumsum(ys, 0)
+    fp = torch.cumsum(1.0 - ys, 0)
+    idx = torch.arange(n, device=margin.device)
+    is_end = torch.cat([ss[1:] != ss[:-1],
+                        torch.ones(1, dtype=torch.bool, device=ss.device)])
+    # smallest j >= i with is_end[j]: running minimum from the right
+    run_end = torch.flip(torch.cummin(torch.flip(
+        torch.where(is_end, idx, n - 1), (0,)), 0).values, (0,))
+    return tp[run_end], fp[run_end], tp[-1], fp[-1]
+
+
+def binary_metric(y: torch.Tensor, score: torch.Tensor,
+                  plabel: torch.Tensor, metric: str) -> torch.Tensor:
+    """Scalar binary metric from the ranking score (the host's
+    positive-class probability) and the 0/1 hard label; matches
+    ``evaluators.binary.binary_metrics`` (curve metrics are 0 for
+    single-class ``y``)."""
+    if metric not in BINARY_METRICS:
+        raise ValueError(f"unsupported binary device metric {metric!r}")
+    pos = (y == 1).to(score.dtype)
+    n = y.shape[0]
+    if metric in ("AuPR", "AuROC"):
+        tp_a, fp_a, npos, nneg = _tie_grouped_curve(pos, score)
+        tpr = tp_a / torch.clamp(npos, min=1.0)
+        zero = torch.zeros(1, dtype=tpr.dtype, device=tpr.device)
+        if metric == "AuROC":
+            fpr = fp_a / torch.clamp(nneg, min=1.0)
+            xs = torch.cat([zero, fpr, zero + 1.0])
+            ys_ = torch.cat([zero, tpr, zero + 1.0])
+        else:
+            prec = tp_a / torch.clamp(tp_a + fp_a, min=1.0)
+            xs = torch.cat([zero, tpr])
+            ys_ = torch.cat([prec[:1], prec])
+        area = torch.sum(torch.diff(xs) * (ys_[1:] + ys_[:-1]) * 0.5)
+        return torch.where((npos > 0) & (nneg > 0), area,
+                           torch.zeros((), dtype=area.dtype,
+                                       device=area.device))
+    predicted = (plabel == 1).to(score.dtype)
+    tp = torch.sum(predicted * pos)
+    fp = torch.sum(predicted * (1.0 - pos))
+    fn = torch.sum((1.0 - predicted) * pos)
+    if metric == "Error":
+        return (fp + fn) / max(n, 1)
+    precision = torch.where(tp + fp > 0, tp / torch.clamp(tp + fp, min=1.0),
+                            0.0)
+    recall = torch.where(tp + fn > 0, tp / torch.clamp(tp + fn, min=1.0),
+                         0.0)
+    if metric == "Precision":
+        return precision
+    if metric == "Recall":
+        return recall
+    return torch.where(precision + recall > 0,
+                       2.0 * precision * recall
+                       / torch.clamp(precision + recall, min=1e-300), 0.0)
+
+
+def metric_fn(kind: str, metric: str) -> Callable:
+    """(y_val, scores) -> scalar for a validator metric spec; ``scores``
+    is a (score, plabel) pair from :func:`binary_from_sigmoid`. Only the
+    binary kind is ported."""
+    if kind == "binary":
+        return lambda y, s: binary_metric(y, s[0], s[1], metric)
+    raise NotImplementedError(f"metric kind {kind!r} is not ported yet")

@@ -1,0 +1,82 @@
+"""Problem-typed selector factory with the default model grids.
+
+Counterpart of ``transmogrifai_tpu/selector/factories.py``
+(``BinaryClassificationModelSelector.with_cross_validation``). Only the
+binary problem type and the GBT family are ported: asking for the default
+pool, or for a family that is not ported, raises an error that names the
+missing families instead of dropping them silently.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..evaluators import BinaryClassificationEvaluator, Evaluator
+from ..models import registry
+from ..models.base import Predictor
+from ..utils.device import resolve_device
+from .selector import ModelSelector
+from .splitters import DataBalancer, Splitter
+from .validator import CrossValidation
+
+__all__ = ["BinaryClassificationModelSelector"]
+
+
+def _filter_models(models, model_types_to_use):
+    """``models`` narrowed to ``model_types_to_use`` (all of them for
+    None)."""
+    if model_types_to_use is None:
+        return list(models)
+    allowed = {t.__name__ if isinstance(t, type) else str(t)
+               for t in model_types_to_use}
+    kept = [(est, grid) for est, grid in models
+            if type(est).__name__ in allowed]
+    if not kept:
+        raise ValueError(f"No candidate models left after filtering to "
+                         f"{sorted(allowed)}")
+    return kept
+
+
+def _binary_pool(model_types_to_use, device
+                 ) -> List[Tuple[Predictor, List[Dict]]]:
+    """The default binary pool narrowed to ``model_types_to_use``; raises
+    if that asks for a family the port does not have yet."""
+    if model_types_to_use is None:
+        missing = list(registry.UNPORTED_BINARY_FAMILIES)
+    else:
+        names = {t.__name__ if isinstance(t, type) else str(t)
+                 for t in model_types_to_use}
+        missing = sorted(names & set(registry.UNPORTED_BINARY_FAMILIES))
+    if missing:
+        raise NotImplementedError(
+            f"model families not ported to PyTorch yet: {missing}; pass "
+            f"model_types_to_use=['GBTClassifier'] or models=[...]")
+    return _filter_models(registry.default_binary_models(device),
+                          model_types_to_use)
+
+
+class BinaryClassificationModelSelector:
+    problem_type = "BinaryClassification"
+
+    @classmethod
+    def with_cross_validation(cls, num_folds: int = 3, seed: int = 42,
+                              evaluator: Optional[Evaluator] = None,
+                              splitter: Optional[Splitter] = None,
+                              models: Optional[Sequence] = None,
+                              model_types_to_use: Optional[Sequence] = None,
+                              stratify: bool = False,
+                              device="cuda") -> ModelSelector:
+        """Selector over ``models`` (or the default pool narrowed to
+        ``model_types_to_use``) under ``num_folds``-fold CV, ranking by
+        the evaluator's metric (AuPR by default), on ``device``."""
+        dev = resolve_device(device)
+        pool = (_filter_models(list(models), model_types_to_use)
+                if models is not None
+                else _binary_pool(model_types_to_use, dev))
+        return ModelSelector(
+            models=pool,
+            validator=CrossValidation(
+                evaluator or BinaryClassificationEvaluator(),
+                num_folds=num_folds, seed=seed, stratify=stratify),
+            splitter=(splitter if splitter is not None
+                      else DataBalancer(seed=seed)),
+            problem_type=cls.problem_type, device=dev)

@@ -1,0 +1,152 @@
+"""ModelSelector: automated model selection over the ported families.
+
+Counterpart of ``transmogrifai_tpu/selector/selector.py``
+(``ModelSelector.fit_arrays``, ``SelectedModel``, ``ModelSelectorSummary``):
+prepare the data with the splitter (holdout reserve, balancing), validate
+every candidate (family x grid point) under cross-validation, refit the
+winner on the full prepared training set, and evaluate it on the training
+set and the holdout.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..evaluators.base import EvaluationMetrics
+from ..models.base import PredictionColumn, PredictionModel, Predictor
+from ..utils.device import resolve_device
+from .splitters import Splitter, SplitterSummary
+from .validator import BestEstimator, CrossValidation, ValidationResult
+
+__all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary"]
+
+
+@dataclass
+class ModelSelectorSummary:
+    """Full validation record."""
+    validation_type: str = ""
+    validation_parameters: Dict = field(default_factory=dict)
+    data_prep_parameters: Dict = field(default_factory=dict)
+    data_prep_results: Dict = field(default_factory=dict)
+    evaluation_metric: str = ""
+    problem_type: str = ""
+    best_model_name: str = ""
+    best_model_uid: str = ""
+    best_model_params: Dict = field(default_factory=dict)
+    best_validation_metric: float = 0.0
+    validation_results: List[ValidationResult] = field(default_factory=list)
+    train_evaluation: Optional[EvaluationMetrics] = None
+    holdout_evaluation: Optional[EvaluationMetrics] = None
+    metric_larger_better: bool = True
+    #: host seconds of each stage of ``fit_arrays`` (prepare, validate,
+    #: refit, evaluate); each stage ends in a read-back from the device
+    timings: Dict[str, float] = field(default_factory=dict)
+
+
+class SelectedModel(PredictionModel):
+    """The winning fitted model with its selection summary; prediction
+    delegates to the winner."""
+
+    def __init__(self, inner: PredictionModel,
+                 summary: ModelSelectorSummary, uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.inner = inner
+        self.summary = summary
+
+    def predict_arrays(self, X: np.ndarray) -> PredictionColumn:
+        return self.inner.predict_arrays(X)
+
+
+class ModelSelector(Predictor):
+    """Run candidates x grids under a validator and pick the winner. Every
+    candidate must compute on the selector's ``device``."""
+
+    def __init__(self,
+                 models: Sequence[Tuple[Predictor, Sequence[Dict]]] = (),
+                 validator: Optional[CrossValidation] = None,
+                 splitter: Optional[Splitter] = None,
+                 problem_type: str = "", device="cuda",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.device = resolve_device(device)
+        for est, _ in models:
+            est_dev = getattr(est, "device", None)
+            if est_dev is not None and est_dev != self.device:
+                raise ValueError(
+                    f"{type(est).__name__} computes on {est_dev}, the "
+                    f"selector on {self.device}")
+        self.models = list(models)
+        self.validator = validator
+        self.splitter = splitter
+        self.problem_type = problem_type
+
+    def fit_arrays(self, X: np.ndarray, y: np.ndarray) -> SelectedModel:
+        if not self.models:
+            raise ValueError("ModelSelector has no candidate models")
+        if self.validator is None:
+            raise ValueError("ModelSelector requires a validator")
+        X = np.asarray(X)
+        y = np.asarray(y, dtype=np.float64)
+
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        # 1. data prep: reserve a holdout, then resample the training part
+        prep_params: Dict = {}
+        prep_results: Dict = {}
+        X_hold = y_hold = None
+        if self.splitter is not None:
+            self.splitter.reset_plan()
+            train_idx, test_idx = self.splitter.split(y)
+            if len(test_idx):
+                X_hold, y_hold = X[test_idx], y[test_idx]
+            X_tr, y_tr = X[train_idx], y[train_idx]
+            idx = self.splitter.prepare(y_tr)
+            Xp, yp = X_tr[idx], y_tr[idx]
+            summ = self.splitter.summary or SplitterSummary()
+            prep_params = summ.parameters
+            prep_results = summ.results
+        else:
+            Xp, yp = X, y
+
+        t1 = time.perf_counter()
+        timings["prepare"] = t1 - t0
+        # 2. validation
+        best: BestEstimator = self.validator.validate(self.models, Xp, yp)
+        t2 = time.perf_counter()
+        timings["validate"] = t2 - t1
+
+        # 3. refit the winner on the full prepared training set
+        inner = best.estimator.fit_arrays(Xp, yp)
+        t3 = time.perf_counter()
+        timings["refit"] = t3 - t2
+
+        # 4. training-set and holdout evaluation
+        evaluator = self.validator.evaluator
+        train_eval = evaluator.evaluate_arrays(yp, inner.predict_arrays(Xp))
+        holdout_eval = None
+        if X_hold is not None:
+            holdout_eval = evaluator.evaluate_arrays(
+                y_hold, inner.predict_arrays(X_hold))
+        timings["evaluate"] = time.perf_counter() - t3
+
+        summary = ModelSelectorSummary(
+            validation_type=type(self.validator).__name__,
+            validation_parameters=self.validator.get_params(),
+            data_prep_parameters=prep_params,
+            data_prep_results=prep_results,
+            evaluation_metric=evaluator.default_metric,
+            problem_type=self.problem_type,
+            best_model_name=best.name,
+            best_model_uid=best.estimator.uid,
+            best_model_params=best.params,
+            best_validation_metric=best.metric,
+            validation_results=best.results,
+            train_evaluation=train_eval,
+            holdout_evaluation=holdout_eval,
+            metric_larger_better=evaluator.is_larger_better,
+            timings=timings,
+        )
+        return SelectedModel(inner=inner, summary=summary)

@@ -1,0 +1,155 @@
+"""k-fold cross-validation over model families (device-resident search).
+
+Counterpart of ``transmogrifai_tpu/selector/validator.py``
+(``CrossValidation``: ``_assignments``, ``_build_fold_arrays``,
+``_try_device_eval``, ``_results_from_matrix``, ``_pick_best``,
+``ValidationResult``, ``BestEstimator``). Each family evaluates its whole
+fold x grid on its device and returns one (folds, grid) metric matrix.
+The reference's journal, retries, deadlines, mesh, concurrent family
+dispatch, racing and host evaluation path are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..evaluators.base import Evaluator
+from ..models.base import Predictor
+
+__all__ = ["ValidationResult", "BestEstimator", "CrossValidation"]
+
+
+@dataclass
+class ValidationResult:
+    """Metric record for one (model family, grid point)."""
+    model_name: str
+    model_uid: str
+    grid_index: int
+    params: Dict
+    metric_values: List[float] = field(default_factory=list)
+
+    @property
+    def mean_metric(self) -> float:
+        return float(np.mean(self.metric_values))
+
+
+@dataclass
+class BestEstimator:
+    """Winner of validation."""
+    estimator: Predictor
+    name: str
+    params: Dict
+    metric: float
+    results: List[ValidationResult] = field(default_factory=list)
+
+
+class CrossValidation:
+    """k-fold CV with equal-sized folds."""
+
+    def __init__(self, evaluator: Evaluator, num_folds: int = 3,
+                 seed: int = 42, stratify: bool = False):
+        if num_folds < 2:
+            raise ValueError("num_folds must be >= 2")
+        self.evaluator = evaluator
+        self.num_folds = num_folds
+        self.seed = seed
+        self.stratify = stratify
+
+    def get_params(self) -> Dict:
+        return {"numFolds": self.num_folds, "seed": self.seed,
+                "stratify": self.stratify}
+
+    def _assignments(self, y: np.ndarray, k: int) -> np.ndarray:
+        """Fold id per row; -1 = dropped. Folds are exactly equal-sized
+        (up to k-1 remainder rows per stratum are dropped), as in the
+        reference, so the validation folds stack."""
+        rng = np.random.default_rng(self.seed)
+        assign = np.full(len(y), -1, dtype=np.int64)
+
+        def round_robin(idx: np.ndarray):
+            m = (len(idx) // k) * k
+            perm = rng.permutation(idx)
+            assign[perm[:m]] = np.arange(m) % k
+
+        if self.stratify:
+            for cls in np.unique(y):
+                round_robin(np.nonzero(y == cls)[0])
+        else:
+            round_robin(np.arange(len(y)))
+        return assign
+
+    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
+        assign = self._assignments(y, self.num_folds)
+        return [(np.nonzero((assign != f) & (assign >= 0))[0],
+                 np.nonzero(assign == f)[0])
+                for f in range(self.num_folds)]
+
+    def _build_fold_arrays(self, X, y: np.ndarray):
+        """(masks (F, n), spec, X_val_st (F, nv, d), y_val_st (F, nv)):
+        fold train masks over the prepared matrix and the stacked
+        validation folds."""
+        splits = self._splits(y)
+        masks = np.zeros((len(splits), len(y)))
+        for f, (train_idx, _) in enumerate(splits):
+            masks[f, train_idx] = 1.0
+        spec = self.evaluator.device_metric_spec()
+        X_val_st = np.stack([X[va] for _, va in splits])
+        y_val_st = np.stack([y[va] for _, va in splits])
+        return masks, spec, X_val_st, y_val_st
+
+    def _try_device_eval(self, estimator, grid, X, y, masks, X_val_st,
+                         y_val_st, spec) -> Optional[np.ndarray]:
+        """(F, G) metric matrix from the family's fused fit+metric path,
+        or None when the family or metric has none."""
+        if spec is None or not hasattr(estimator, "eval_fold_grid_arrays"):
+            return None
+        try:
+            return estimator.eval_fold_grid_arrays(
+                X, y, masks, grid, X_val_st, y_val_st, spec)
+        except NotImplementedError:
+            return None
+
+    def _results_from_matrix(self, estimator, grid, mm
+                             ) -> List[ValidationResult]:
+        return [
+            ValidationResult(
+                model_name=type(estimator).__name__,
+                model_uid=estimator.uid, grid_index=gi,
+                params=dict(params),
+                metric_values=[float(v) for v in mm[:, gi]])
+            for gi, params in enumerate(grid)]
+
+    def validate(self, models: Sequence[Tuple[Predictor, Sequence[Dict]]],
+                 X, y: np.ndarray) -> BestEstimator:
+        models = [(est, list(grid) or [{}]) for est, grid in models]
+        masks, spec, X_val_st, y_val_st = self._build_fold_arrays(X, y)
+        results: List[ValidationResult] = []
+        for estimator, grid in models:
+            mm = self._try_device_eval(estimator, grid, X, y, masks,
+                                       X_val_st, y_val_st, spec)
+            if mm is None:
+                raise NotImplementedError(
+                    f"{type(estimator).__name__} with metric "
+                    f"{self.evaluator.default_metric!r} has no device "
+                    f"search path, and the host path is not ported yet")
+            results.extend(self._results_from_matrix(estimator, grid, mm))
+        return self._pick_best(models, results)
+
+    def _pick_best(self, models, results: List[ValidationResult]
+                   ) -> BestEstimator:
+        """Winner by mean metric; the first candidate wins a tie."""
+        sign = 1.0 if self.evaluator.is_larger_better else -1.0
+        finite = [r for r in results if np.isfinite(r.mean_metric)]
+        if not finite:
+            raise ValueError(
+                "all validation metrics are non-finite; cannot select a "
+                "model (check for degenerate folds — e.g. a fold with a "
+                "single class; stratify=True may help)")
+        best = max(finite, key=lambda r: sign * r.mean_metric)
+        by_uid = {est.uid: est for est, _ in models}
+        winner = by_uid[best.model_uid].with_params(**best.params)
+        return BestEstimator(estimator=winner, name=best.model_name,
+                             params=best.params, metric=best.mean_metric,
+                             results=results)
