@@ -2,17 +2,24 @@
 """Smoke run of the PyTorch port (``transmogrifai_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
+[--out FILE] [--k1-only]
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the main
-     path's shapes (1M x 100 packed design, S = 2, C = 1, 32, 256, with
-     sentinel-slot and zero-stats cases); kernel, plain and ``index_add_``
-     times and the memory bound of the rows each input makes add;
+     path's shapes (1M x 100 design, compact uint8 ids, S = 2, C = 1, 4,
+     32, 128, 256, with sentinel-slot and zero-stats cases, the latter at
+     C = 32 and through the bucketed rows at C = 256), on a wide
+     design and on a design with uint16 ids; kernel, plain and
+     ``index_add_`` times, the memory bound of the rows each input makes
+     add (for the compact ids and for int32 packed ids), whether two runs
+     agree bit for bit, and K1's time alone at every slot count the
+     search launches;
   4. the main path: the binary GBT model-selection search (3 folds x
      18 grid points, then the winner's refit) on 1M x 100 rows after a
-     stratified 90/10 holdout split, with K1's launch count;
+     stratified 90/10 holdout split, with K1's launches by slot count and
+     their time estimated from phase 3;
   5. the same search at 20,000 x 100 rows with a 4-point grid on the card
      (float32) and on the CPU (float64): metric matrices within 2e-3;
   6. single-record scoring through the winner equals batch scoring;
@@ -37,7 +44,7 @@ sys.path.insert(0, ROOT)
 
 from transmogrifai_tpu_torch import _build  # noqa: E402
 from transmogrifai_tpu_torch.models.hist_kernel import (  # noqa: E402
-    HistPlan, hist_bytes, level_hist, level_hist_plain)
+    HistPlan, _packed, compact_ids, hist_bytes, level_hist, level_hist_plain)
 from transmogrifai_tpu_torch.models.trees import (  # noqa: E402
     GBTClassifier, _PackedDesign, clear_design_cache)
 from transmogrifai_tpu_torch.selector import (  # noqa: E402
@@ -52,6 +59,8 @@ K1_SOURCE = "transmogrifai_tpu_torch/csrc/level_hist.cu"
 K1_REPLACES = "transmogrifai_tpu/models/pallas_hist.py:124"
 #: features of BASELINE config 4 (20 numeric, 80 binary); never cut
 COLS = 100
+#: slot counts the search launches K1 at (depths 3, 6, 12; cap 256)
+SEARCH_SLOTS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 #: the 4-point grid of the card-against-CPU phase
 SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
               for d in (3, 6) for m in (1.0, 10.0)]
@@ -124,17 +133,33 @@ def phase_build() -> None:
     for line in out.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
+    # which atomic instructions the shared and global adds compiled to
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build._target(
+                _build.CSRC / "level_hist.cu"))],
+            capture_output=True, text=True, timeout=120).stdout
+        ops: dict = {}
+        for line in sass.splitlines():
+            for tok in line.replace(";", " ").split():
+                if tok.startswith(("ATOMS", "ATOMG", "RED", "ATOM.")):
+                    ops[tok] = ops.get(tok, 0) + 1
+        log(f"[build]   SASS atomics: {json.dumps(ops, sort_keys=True)}")
 
 
-def k1_case(label: str, packed, slot, st, C: int, TB: int, plan) -> dict:
+def k1_case(label: str, ids, offsets, slot, st, C: int, TB: int,
+            plan) -> dict:
     """K1 against its plain version on one input: agreement (fails the
     run outside the tolerance), kernel, plain and ``index_add_`` times,
-    and the memory bound."""
-    n, d = packed.shape
+    and the memory bounds for the compact ids and for int32 packed ids."""
+    n = ids.shape[0]
+    d = offsets.shape[0]
     S = st.shape[1]
-    got = level_hist(packed, slot, st, C, TB, plan)
-    ref = level_hist_plain(packed, slot, st, C, TB)
-    mag = level_hist_plain(packed, slot, st.abs(), C, TB)
+    got = level_hist(ids, offsets, slot, st, C, TB, plan)
+    again = level_hist(ids, offsets, slot, st, C, TB, plan)
+    ref = level_hist_plain(ids, offsets, slot, st, C, TB)
+    mag = level_hist_plain(ids, offsets, slot, st.abs(), C, TB)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     # float32 sums in two orders: allow 1e-5 of the summed magnitudes
@@ -143,15 +168,16 @@ def k1_case(label: str, packed, slot, st, C: int, TB: int, plan) -> dict:
                              f"({label}): max abs err {float(err.max())}")
     max_abs = float(err.max())
     max_rel = float((err / mag.clamp(min=1e-6)).max())
-    del got, ref, mag, err
-    ms = cuda_ms(lambda: level_hist(packed, slot, st, C, TB, plan), 20)
-    plain_ms = cuda_ms(lambda: level_hist_plain(packed, slot, st, C, TB), 3,
-                       warmup=1)
+    bitwise = bool(torch.equal(got, again))
+    del got, again, ref, mag, err
+    ms = cuda_ms(lambda: level_hist(ids, offsets, slot, st, C, TB, plan), 20)
+    plain_ms = cuda_ms(lambda: level_hist_plain(ids, offsets, slot, st, C,
+                                                TB), 3, warmup=1)
     seg = torch.where((slot >= 0)[:, None] & (slot < C)[:, None],
-                      slot.long()[:, None] * TB + packed.long(),
+                      slot.long()[:, None] * TB + _packed(ids, offsets),
                       C * TB).reshape(-1)
     vals = st[:, None, :].expand(n, d, S).reshape(n * d, S).contiguous()
-    acc = torch.zeros((C * TB + 1, S), device=packed.device)
+    acc = torch.zeros((C * TB + 1, S), device=ids.device)
     library_ms = cuda_ms(lambda: acc.index_add_(0, seg, vals), 3, warmup=1)
     del seg, vals, acc
     # this input's work: stats only of rows slotted in [0, C), bin ids and
@@ -159,37 +185,60 @@ def k1_case(label: str, packed, slot, st, C: int, TB: int, plan) -> dict:
     slotted = (slot >= 0) & (slot < C)
     n_slotted = int(slotted.sum())
     n_live = int((slotted & (st != 0).any(dim=1)).sum())
-    bound_ms = max(hist_bytes(n, d, S, C, TB, n_slotted, n_live)
-                   / PEAK_BYTES_PER_S,
-                   n_live * d * S / PEAK_F32_OPS_PER_S) * 1e3
+    ops_ms = n_live * d * S / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms = max(hist_bytes(n, d, S, C, TB, n_slotted, n_live,
+                              id_bytes=ids.element_size())
+                   / PEAK_BYTES_PER_S * 1e3, ops_ms)
+    bound_int32 = max(hist_bytes(n, d, S, C, TB, n_slotted, n_live)
+                      / PEAK_BYTES_PER_S * 1e3, ops_ms)
+    c_tile, stages, copies = plan.launch(C)
     log(f"[k1] {label}: max_abs_err={max_abs:.3e} max_rel_err="
         f"{max_rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={library_ms:.3f} bound_ms={bound_ms:.4f}")
+        f"library_ms={library_ms:.3f} bound_ms={bound_ms:.4f} "
+        f"bound_ms_int32_ids={bound_int32:.4f} bitwise_repeat={bitwise} "
+        f"(groups={plan.n_groups} c_tile={c_tile} copies={copies} "
+        f"stages={stages} "
+        f"rows={plan.rows} smem={plan.smem_bytes(C)})")
     return {"case": label, "n": n, "d": d, "TB": TB, "S": S, "C": C,
+            "id_bytes": ids.element_size(), "stride": ids.shape[1],
             "rows_slotted": n_slotted, "rows_live": n_live,
-            "groups": plan.n_groups,
+            "groups": plan.n_groups, "c_tile": c_tile, "copies": copies,
+            "stages": stages,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms}
+            "bound_ms": bound_ms, "bound_ms_int32_ids": bound_int32,
+            "bitwise_repeat": bitwise}
+
+
+def synthetic_ids(gen, n: int, widths, device):
+    """(ids, offsets) of ``n`` rows with uniform local bins."""
+    w = torch.as_tensor(widths, device=device, dtype=torch.int64)
+    local = (torch.rand((n, len(widths)), generator=gen, device=device)
+             * w).long()
+    local = torch.minimum(local, w - 1).to(torch.int32)
+    return compact_ids(local, widths)
 
 
 def phase_k1(device: torch.device, X: np.ndarray) -> dict:
     """K1 against its plain version on the main path's design, then on a
-    design too wide for one block (feature groups)."""
+    wide design and on one with uint16 ids; then K1 alone at every slot
+    count the search launches."""
     design = _PackedDesign(X, 32, device)
-    packed, TB = design.packed, design.total_bins
-    n, d = packed.shape
+    ids, offsets, TB = design.ids, design.offsets, design.total_bins
+    n, d = design.n, design.d
     S = 2
     plan = design.hist_plan(S)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     stats = torch.randn((n, S), generator=gen, device=device)
-    log(f"[k1] design n={n} d={d} TB={TB} groups={plan.n_groups}")
+    log(f"[k1] design n={n} d={d} TB={TB} ids {ids.dtype} stride "
+        f"{ids.shape[1]} groups={plan.n_groups} w_max={plan.w_max}")
     cases = []
-    for label, C, kind in (("C=1", 1, ""), ("C=32", 32, ""),
-                           ("C=256", 256, ""),
+    for label, C, kind in (("C=1", 1, ""), ("C=4", 4, ""), ("C=32", 32, ""),
+                           ("C=128", 128, ""), ("C=256", 256, ""),
                            ("C=256 sentinel", 256, "sentinel"),
-                           ("C=32 zero-stats", 32, "zero")):
+                           ("C=32 zero-stats", 32, "zero"),
+                           ("C=256 zero-stats", 256, "zero")):
         slot = torch.randint(0, C, (n,), generator=gen, device=device,
                              dtype=torch.int32)
         st = stats.clone()
@@ -197,22 +246,32 @@ def phase_k1(device: torch.device, X: np.ndarray) -> dict:
             slot[::4] = C                      # parked rows add nothing
         if kind == "zero":
             st[::3] = 0.0                      # masked rows add nothing
-        cases.append(k1_case(label, packed, slot, st, C, TB, plan))
-    del design, packed, stats
+        cases.append(k1_case(label, ids, offsets, slot, st, C, TB, plan))
+    ms_by_c = {}
+    for C in SEARCH_SLOTS:
+        slot = torch.randint(0, C, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+        ms_by_c[C] = cuda_ms(lambda: level_hist(ids, offsets, slot, stats, C,
+                                                TB, plan), 20)
+    log("[k1] K1 ms by slot count: " + " ".join(
+        f"C={c}:{ms:.4f}" for c, ms in ms_by_c.items()))
+    del design, ids, stats
     clear_design_cache()
-    # 500 features x 32 bins = 16,000 bins: two feature groups
-    widths = [32] * 500
-    wide = HistPlan(widths, S, device)
-    n_w = 100_000
-    offsets = torch.arange(0, 32 * 500, 32, device=device, dtype=torch.int32)
-    packed_w = (torch.randint(0, 32, (n_w, 500), generator=gen,
-                              device=device, dtype=torch.int32) + offsets)
-    slot_w = torch.randint(0, 8, (n_w,), generator=gen, device=device,
-                           dtype=torch.int32)
-    st_w = torch.randn((n_w, S), generator=gen, device=device)
-    extra = k1_case(f"wide C=8 groups={wide.n_groups}", packed_w, slot_w,
-                    st_w, 8, sum(widths), wide)
-    return {"cases": cases, "extra": [extra]}
+    extra = []
+    # 500 features x 32 bins = 16,000 bins; and a uint16 design: one
+    # 1000-bin feature beside 999 of 32 bins (two feature groups)
+    for label, n_x, widths, C in (("wide 500x32 C=8", 100_000, [32] * 500, 8),
+                                  ("uint16 1000 feats C=4", 50_000,
+                                   [1000] + [32] * 999, 4)):
+        ids_x, off_x = synthetic_ids(gen, n_x, widths, device)
+        plan_x = HistPlan(widths, S, device)
+        slot_x = torch.randint(0, C, (n_x,), generator=gen, device=device,
+                               dtype=torch.int32)
+        st_x = torch.randn((n_x, S), generator=gen, device=device)
+        extra.append(k1_case(label, ids_x, off_x, slot_x, st_x, C,
+                             sum(widths), plan_x))
+        del ids_x, off_x, slot_x, st_x
+    return {"cases": cases, "extra": extra, "ms_by_c": ms_by_c}
 
 
 def metric_matrix(selected) -> np.ndarray:
@@ -237,10 +296,12 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, grid=None,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     level_hist.launches = 0
+    level_hist.launches_by_c.clear()
     t0 = time.perf_counter()
     selected = sel.fit_arrays(X, y)
     wall = time.perf_counter() - t0
     launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
     s = selected.summary
     mm = metric_matrix(selected)
     G = len(s.validation_results)
@@ -256,7 +317,8 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, grid=None,
            "models_x_folds_per_s": mm.size / wall,
            "timings_s": dict(s.timings),
            "search_models_x_folds_per_s": mm.size / s.timings["validate"],
-           "k1_launches": launches, "winner": s.best_model_name,
+           "k1_launches": launches, "k1_launches_by_c": by_c,
+           "winner": s.best_model_name,
            "winner_params": s.best_model_params,
            "winner_index": int(np.argmax(mm.mean(axis=0))),
            "best_metric": s.best_validation_metric,
@@ -272,6 +334,9 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, grid=None,
         f"{hold.AuPR:.6f} AuROC {hold.AuROC:.6f}; K1 launches {launches}"
         + (f"; max_memory_allocated {out['max_memory_allocated']}"
            if "max_memory_allocated" in out else ""))
+    if by_c:
+        log(f"[{tag}] K1 launches by slot count: "
+            + " ".join(f"C={c}:{k}" for c, k in by_c.items()))
     log(f"[{tag}] metric matrix (folds x grid):")
     for row in mm:
         log(f"[{tag}]   " + " ".join(f"{v:.6f}" for v in row))
@@ -383,11 +448,24 @@ def phase_profile(device: torch.device, X: np.ndarray, y: np.ndarray,
     return out
 
 
+def write_out(path, result: dict) -> None:
+    """Every measurement as JSON at ``path``, when one is given."""
+    if not path:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(result, fh, indent=1, default=str)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--k1-only", action="store_true",
+                    help="stop after phase 3 and print its JSON last: "
+                         "times K1 alone, e.g. in edited copies of a "
+                         "checkout run in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -398,8 +476,21 @@ def main(argv=None) -> int:
     phase_build()
     X, y = make_data(args.rows, COLS)
     k1 = phase_k1(device, X)
+    if args.k1_only:
+        write_out(args.out, {"device": info, "k1": k1})
+        log(info["smi"])
+        print(json.dumps({"k1": k1}))
+        return 0
     main_run = phase_main(device, X, y)
     selected = main_run.pop("selected")
+    # K1's share of the search: launches at each C times its time there
+    by_c, ms_by_c = main_run["k1_launches_by_c"], k1["ms_by_c"]
+    if set(by_c) - set(ms_by_c):
+        raise AssertionError(f"K1 ran at untimed slot counts {sorted(by_c)}")
+    k1_s = sum(k * ms_by_c[c] for c, k in by_c.items()) / 1e3
+    main_run["k1_seconds_estimate"] = k1_s
+    log(f"[main] K1 time in the run, launches x ms per C: {k1_s:.3f} s of "
+        f"{main_run['wall_s']:.2f} s")
     phase_serve(selected, X[-1000:])
     agree = phase_card_vs_cpu(device, 20_000, COLS)
     prof = phase_profile(device, X, y)
@@ -410,16 +501,13 @@ def main(argv=None) -> int:
                                 for c in k1["cases"] + k1["extra"]),
              "ms": worst["ms"], "plain_ms": worst["plain_ms"],
              "bound_ms": worst["bound_ms"], "bound_by": "bytes",
+             "bound_ms_int32_ids": worst["bound_ms_int32_ids"],
              "library_ms": worst["library_ms"], "ok": True,
+             "launches_by_c": by_c,
              "cases": k1["cases"] + k1["extra"]}
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fh:
-            json.dump({"device": info, "k1": k1, "main": main_run,
-                       "agree": agree, "profile": prof,
-                       "seconds": time.perf_counter() - t_start}, fh,
-                      indent=1, default=str)
+    write_out(args.out, {"device": info, "k1": k1, "main": main_run,
+                         "agree": agree, "profile": prof,
+                         "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(info["smi"])
     print(json.dumps({"kernels": [entry]}))

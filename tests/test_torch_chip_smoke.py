@@ -44,6 +44,19 @@ def test_card_vs_cpu_phase():
     assert got["max_abs_diff"] == 0.0 and got["same_winner"]
 
 
+def test_write_out(tmp_path):
+    """--out writes every measurement as JSON (into a new directory, values
+    JSON cannot hold as strings); no path writes nothing."""
+    import json
+    path = tmp_path / "new" / "k1.json"
+    chip_smoke.write_out(str(path), {"k1": {"ms_by_c": {1: 0.5}},
+                                     "dtype": np.dtype("uint8")})
+    assert json.loads(path.read_text()) == {"k1": {"ms_by_c": {"1": 0.5}},
+                                            "dtype": "uint8"}
+    chip_smoke.write_out(None, {"k1": {}})
+    assert sorted(p.name for p in tmp_path.rglob("*")) == ["k1.json", "new"]
+
+
 def test_refuses_without_a_card(tmp_path):
     """No card: exit non-zero and print no result. Alone in a directory
     (no package beside it) it cannot even import."""

@@ -15,6 +15,7 @@ from transmogrifai_tpu.models import trees as jt
 from transmogrifai_tpu.models.trees import GBTClassifier as JaxGBT
 from transmogrifai_tpu_torch.models import trees as tt
 from transmogrifai_tpu_torch.models.convert import gbt_from_numpy
+from transmogrifai_tpu_torch.models.hist_kernel import compact_ids
 from transmogrifai_tpu_torch.models.trees import GBTClassifier, _gbt_margins
 
 
@@ -126,3 +127,43 @@ def test_subsample_draws_from_seeded_generator():
     a, b, c = fit(1), fit(1), fit(2)
     assert torch.equal(a.leaves, b.leaves)
     assert not torch.equal(a.leaves, c.leaves)
+
+
+def _ids_rebuild_packed(ids, offsets, packed):
+    """offsets + the compact ids equal the int32 packed ids exactly, the
+    pad columns are 0 and a row is a multiple of 16 bytes."""
+    d = offsets.shape[0]
+    local = ids[:, :d].long()
+    if ids.dtype == torch.int16:
+        local = local & 0xFFFF
+    assert torch.equal(local + offsets.long(), packed.long())
+    assert ids.shape[1] * ids.element_size() % 16 == 0
+    assert ids.shape[1] * ids.element_size() < d * ids.element_size() + 16
+    assert not torch.any(ids[:, d:])
+
+
+@pytest.mark.parametrize("d", [6, 16, 21])
+def test_compact_ids_host_binning(d):
+    """A CPU design's compact ids (host binning) rebuild its packed ids."""
+    X, _ = _data(n=300, d=d, seed=d)
+    design = tt._PackedDesign(X, 32, torch.device("cpu"))
+    assert design.ids.dtype == torch.uint8 and design.ids.is_contiguous()
+    assert design.ids.shape == (300, -(-d // 16) * 16)
+    _ids_rebuild_packed(design.ids, design.offsets, design.packed)
+
+
+def test_compact_ids_device_binning():
+    """The device binning path (``_bin_device``), run on CPU tensors,
+    gives local bins whose compact ids rebuild the packed ids; a feature
+    wider than 256 bins switches the ids to uint16 bit patterns."""
+    X, _ = _data(n=400, d=5, seed=3)
+    thr, widths, binned = tt._PackedDesign._bin_device(torch.as_tensor(X), 32)
+    ids, offsets = compact_ids(binned, widths)
+    assert ids.dtype == torch.uint8 and ids.shape == (400, 16)
+    packed = binned + offsets
+    _ids_rebuild_packed(ids, offsets, packed)
+    wide = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 300, size=(50, 3)).astype(np.int32))
+    ids, offsets = compact_ids(wide, [300, 300, 300])
+    assert ids.dtype == torch.int16 and ids.shape == (50, 8)
+    _ids_rebuild_packed(ids, offsets, wide + offsets)

@@ -13,7 +13,8 @@ Where the JAX package jit-compiles and vmaps, the port runs eagerly:
   value back to the host (no ``.item()``, no Python branch on a tensor),
   so the host only enqueues work;
 - the per-level histogram is kernel K1 (``models/hist_kernel.py``) on
-  CUDA and its plain ``index_add_`` version on the CPU;
+  CUDA and its plain ``index_add_`` version on the CPU, both over the
+  design's compact bin ids;
 - the fold x grid candidates run one after another (the vmap becomes a
   Python loop); only the (folds, grid) metric matrix reaches the host.
 
@@ -32,7 +33,7 @@ import torch
 
 from ..utils.device import resolve_device, working_dtype
 from .base import ClassifierModel, Predictor, subset_grid
-from .hist_kernel import HistPlan, level_hist
+from .hist_kernel import HistPlan, compact_ids, level_hist
 
 __all__ = ["GBTClassifier", "GBTClassifierModel", "clear_design_cache"]
 
@@ -55,7 +56,12 @@ class _PackedDesign:
 
     Attributes (n rows, d features, TB = sum of per-feature bin counts):
       packed      (n, d) int32 — packed bin id of row i, feature f
-                  (feature f's block spans [offset_f, offset_f + B_f))
+                  (feature f's block spans [offset_f, offset_f + B_f));
+                  row routing reads it
+      ids         (n, stride) uint8 (int16 holding uint16 bits when a
+                  feature has more than 256 bins) — the local bin
+                  packed - offset_f, rows padded to 16 bytes; K1 reads it
+      offsets     (d,) int32 — offset_f
       feat_of     (TB,) int64 — feature id of each packed bin
       prev_bin    (TB,) int64 — packed index before the owning block's
                   start (clamped at 0); ``has_prev`` says if there is one
@@ -66,7 +72,7 @@ class _PackedDesign:
     elements, else as the exact f64 numpy loop.
     """
 
-    __slots__ = ("packed", "feat_of", "prev_bin", "has_prev", "packed_thr",
+    __slots__ = ("packed", "ids", "offsets", "feat_of", "prev_bin", "has_prev", "packed_thr",
                  "not_a_split", "widths", "n", "d", "total_bins", "device",
                  "dtype", "_plans")
 
@@ -81,15 +87,15 @@ class _PackedDesign:
                                                        max_bins)
             binned = torch.as_tensor(binned, device=device)
         widths = np.asarray(widths, dtype=np.int64)
-        offsets = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int32)
+        self.ids, self.offsets = compact_ids(binned, widths)
+        offsets = self.offsets.cpu().numpy()
         block_start = np.repeat(offsets, widths).astype(np.int64)
         self.n, self.d = n, d
         self.device = device
         self.dtype = working_dtype(device)
         self.total_bins = int(np.sum(widths))
         self.widths = widths
-        self.packed = (binned + torch.as_tensor(offsets, device=device)
-                       ).to(torch.int32).contiguous()
+        self.packed = (binned + self.offsets).to(torch.int32).contiguous()
         self.feat_of = torch.as_tensor(
             np.repeat(np.arange(d, dtype=np.int64), widths), device=device)
         self.prev_bin = torch.as_tensor(np.maximum(block_start - 1, 0),
@@ -257,7 +263,7 @@ def _level_histograms(design: _PackedDesign, slot: torch.Tensor,
                       stats: torch.Tensor, num_slots: int) -> torch.Tensor:
     """(num_slots, TB, S) histograms: K1 on CUDA, its plain version on
     the CPU (``level_hist`` decides by the tensors' device)."""
-    return level_hist(design.packed, slot, stats, num_slots,
+    return level_hist(design.ids, design.offsets, slot, stats, num_slots,
                       design.total_bins, design.hist_plan(stats.shape[1]))
 
 
