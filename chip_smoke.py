@@ -7,29 +7,39 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
-  3. K1 (level histogram) against its plain PyTorch version at the main
+  3. K1 (level histogram) against its plain PyTorch version at the GBT
      path's shapes (1M x 100 design, compact uint8 ids, S = 2, C = 1, 4,
      32, 128, 256, with sentinel-slot and zero-stats cases, the latter at
      C = 32 and through the bucketed rows at C = 256), on a wide
-     design and on a design with uint16 ids; kernel, plain and
-     ``index_add_`` times, the memory bound of the rows each input makes
-     add (for the compact ids and for int32 packed ids), whether two runs
-     agree bit for bit, and K1's time alone at every slot count the
-     search launches;
-  4. the main path: the binary GBT model-selection search (3 folds x
-     18 grid points, then the winner's refit) on 1M x 100 rows after a
-     stratified 90/10 holdout split, with K1's launches by slot count and
-     their time estimated from phase 3;
-  5. the same search at 20,000 x 100 rows with a 4-point grid on the card
-     (float32) and on the CPU (float64): metric matrices within 2e-3;
-  6. single-record scoring through the winner equals batch scoring;
-  7. a torch.profiler window over one fit: device busy and idle share.
+     design and on a design with uint16 ids, and at the forest path's
+     shape (one tree's 40-feature pool of the same design, TB = 320,
+     one-hot labels times Poisson weights times a fold mask, C = 1, 32,
+     256: exact, and equal in two runs); kernel, plain and ``index_add_``
+     times, the memory bound of the rows each input makes add (for the
+     compact ids and for int32 packed ids), whether two runs agree bit
+     for bit, and K1's time alone at every slot count the searches
+     launch, at both shapes;
+  4. the main path: the binary model-selection search over the
+     RandomForestClassifier and GBTClassifier families of the default
+     pool (3 folds x (18 RF points at 50 trees + 18 GBT points), then the
+     winner's refit) on 1M x 100 rows after a stratified 90/10 holdout
+     split; per family its seconds, models x folds/s and K1's launches by
+     slot count, with their time estimated from phase 3;
+  5. the same two families with 4-point grids (RF at 5 trees) at
+     20,000 x 100 rows on the card (float32) and on the CPU (float64),
+     draws from the same CPU generators: metric matrices within 2e-3;
+  6. single-record scoring equals batch scoring, through the winner and
+     through a fitted 50-tree forest;
+  7. torch.profiler windows over one GBT fit, one 50-tree, depth-6 RF
+     fit and the RF search's depth-12 group cut to 5 trees: device busy
+     and idle share, top device ops, host syncs of the fits' tree loops.
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -45,8 +55,10 @@ sys.path.insert(0, ROOT)
 from transmogrifai_tpu_torch import _build  # noqa: E402
 from transmogrifai_tpu_torch.models.hist_kernel import (  # noqa: E402
     HistPlan, _packed, compact_ids, hist_bytes, level_hist, level_hist_plain)
+from transmogrifai_tpu_torch.models.draws import TorchDraws  # noqa: E402
 from transmogrifai_tpu_torch.models.trees import (  # noqa: E402
-    GBTClassifier, _PackedDesign, clear_design_cache)
+    GBTClassifier, RandomForestClassifier, _ForestPool, _PackedDesign, _on,
+    _pool_plan, _resolve_max_features, clear_design_cache)
 from transmogrifai_tpu_torch.selector import (  # noqa: E402
     BinaryClassificationModelSelector, DataBalancer)
 from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
@@ -61,9 +73,13 @@ K1_REPLACES = "transmogrifai_tpu/models/pallas_hist.py:124"
 COLS = 100
 #: slot counts the search launches K1 at (depths 3, 6, 12; cap 256)
 SEARCH_SLOTS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
-#: the 4-point grid of the card-against-CPU phase
+#: families of the main path, in the default pool's order
+FAMILIES = ("RandomForestClassifier", "GBTClassifier")
+#: the 4-point grids of the card-against-CPU phase
 SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
               for d in (3, 6) for m in (1.0, 10.0)]
+RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
+                  "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
 
 
@@ -149,10 +165,11 @@ def phase_build() -> None:
 
 
 def k1_case(label: str, ids, offsets, slot, st, C: int, TB: int,
-            plan) -> dict:
+            plan, exact: bool = False) -> dict:
     """K1 against its plain version on one input: agreement (fails the
-    run outside the tolerance), kernel, plain and ``index_add_`` times,
-    and the memory bounds for the compact ids and for int32 packed ids."""
+    run outside the tolerance; with ``exact``, unless equal bit for bit
+    and equal in two runs), kernel, plain and ``index_add_`` times, and
+    the memory bounds for the compact ids and for int32 packed ids."""
     n = ids.shape[0]
     d = offsets.shape[0]
     S = st.shape[1]
@@ -169,6 +186,10 @@ def k1_case(label: str, ids, offsets, slot, st, C: int, TB: int,
     max_abs = float(err.max())
     max_rel = float((err / mag.clamp(min=1e-6)).max())
     bitwise = bool(torch.equal(got, again))
+    equal = bool(torch.equal(got, ref))
+    if exact and not (equal and bitwise):
+        raise AssertionError(f"K1 is not exact on integer stats ({label}): "
+                             f"equal to plain {equal}, repeats {bitwise}")
     del got, again, ref, mag, err
     ms = cuda_ms(lambda: level_hist(ids, offsets, slot, st, C, TB, plan), 20)
     plain_ms = cuda_ms(lambda: level_hist_plain(ids, offsets, slot, st, C,
@@ -196,6 +217,7 @@ def k1_case(label: str, ids, offsets, slot, st, C: int, TB: int,
         f"{max_rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.3f} bound_ms={bound_ms:.4f} "
         f"bound_ms_int32_ids={bound_int32:.4f} bitwise_repeat={bitwise} "
+        f"equal_to_plain={equal} "
         f"(groups={plan.n_groups} c_tile={c_tile} copies={copies} "
         f"stages={stages} "
         f"rows={plan.rows} smem={plan.smem_bytes(C)})")
@@ -207,7 +229,7 @@ def k1_case(label: str, ids, offsets, slot, st, C: int, TB: int,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_ms_int32_ids": bound_int32,
-            "bitwise_repeat": bitwise}
+            "bitwise_repeat": bitwise, "equal_to_plain": equal}
 
 
 def synthetic_ids(gen, n: int, widths, device):
@@ -274,23 +296,111 @@ def phase_k1(device: torch.device, X: np.ndarray) -> dict:
     return {"cases": cases, "extra": extra, "ms_by_c": ms_by_c}
 
 
+def forest_k1_inputs(device, X: np.ndarray, y: np.ndarray, seed: int = 42):
+    """Tree 0's pooled design of the main path's forests (the default
+    pool's RF: sqrt feature subsets, so a 40-feature pool of the 100 at
+    1M x 100) and its statistics: one-hot labels times Poisson(1) weights
+    times a fold mask that drops a third of the rows. Returns (pooled
+    design, stats (n, 2) in the working dtype)."""
+    design = _PackedDesign(X, 32, resolve_device(device))
+    mf = _resolve_max_features("auto", design.d, True)
+    classes, cfg, _ = _pool_plan(design.widths, mf)
+    if cfg is None:
+        raise AssertionError("the forest path's design is not pooled")
+    draws = TorchDraws(seed, 1)
+    tree = _ForestPool(design, classes, cfg).tree(0, draws)
+    w = draws.poisson(0, 1.0, design.n) * (torch.arange(design.n) % 3 != 0)
+    onehot = np.eye(2)[np.asarray(y).astype(np.int64)]
+    stats = _on(onehot * w[:, None].numpy(), design.dtype, design.device)
+    return tree, stats.contiguous()
+
+
+def phase_k1_forest(device: torch.device, X: np.ndarray,
+                    y: np.ndarray) -> dict:
+    """K1 at the forest path's shape against its plain version (integer
+    statistics: exact, and equal in two runs), then K1 alone at every
+    slot count the forest search launches."""
+    tree, stats = forest_k1_inputs(device, X, y)
+    plan = tree.hist_plan(2)
+    n, TB = tree.n, tree.total_bins
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    log(f"[k1-forest] pooled design n={n} d={tree.d} TB={TB} ids "
+        f"{tree.ids.dtype} stride {tree.ids.shape[1]} groups="
+        f"{plan.n_groups} w_max={plan.w_max}; rows with stats "
+        f"{int((stats != 0).any(dim=1).sum())}")
+    cases = []
+    for C in (1, 32, 256):
+        slot = torch.randint(0, C, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+        cases.append(k1_case(f"forest C={C}", tree.ids, tree.offsets, slot,
+                             stats, C, TB, plan, exact=True))
+    ms_by_c = {}
+    for C in SEARCH_SLOTS:
+        slot = torch.randint(0, C, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+        ms_by_c[C] = cuda_ms(lambda: level_hist(tree.ids, tree.offsets, slot,
+                                                stats, C, TB, plan), 20)
+    log("[k1-forest] K1 ms by slot count: " + " ".join(
+        f"C={c}:{ms:.4f}" for c, ms in ms_by_c.items()))
+    del tree, stats
+    clear_design_cache()
+    return {"cases": cases, "ms_by_c": ms_by_c}
+
+
 def metric_matrix(selected) -> np.ndarray:
-    """(folds, grid) validation metrics of a fitted selector."""
-    res = sorted(selected.summary.validation_results,
-                 key=lambda r: r.grid_index)
-    return np.array([r.metric_values for r in res]).T
+    """(folds, candidates) validation metrics of a fitted selector, the
+    families in pool order and each family's grid in order."""
+    return np.array([r.metric_values
+                     for r in selected.summary.validation_results]).T
 
 
-def phase_main(device, X: np.ndarray, y: np.ndarray, grid=None,
-               num_rounds: int = 20, tag: str = "main") -> dict:
-    """The binary GBT search: default 18-point grid unless ``grid``."""
+def small_models(device, num_rounds: int = 20, num_trees: int = 5,
+                 families=FAMILIES):
+    """The card-against-CPU pool: each family with its 4-point grid."""
     dev = resolve_device(device)
-    models = (None if grid is None else
-              [(GBTClassifier(num_rounds=num_rounds, device=dev), grid)])
+    pool = {"RandomForestClassifier": (
+                RandomForestClassifier(num_trees=num_trees, device=dev),
+                RF_SMALL_GRID),
+            "GBTClassifier": (GBTClassifier(num_rounds=num_rounds,
+                                            device=dev), SMALL_GRID)}
+    return [pool[f] for f in families]
+
+
+def time_family(est, record: dict) -> None:
+    """Wrap ``est``'s search so that each call records its seconds, its
+    candidates and the K1 launches by slot count it made (the call ends
+    in the read-back of its metric matrix)."""
+    search = est.eval_fold_grid_arrays
+
+    def timed(*args, **kwargs):
+        before = collections.Counter(level_hist.launches_by_c)
+        t0 = time.perf_counter()
+        mm = search(*args, **kwargs)
+        seconds = time.perf_counter() - t0
+        by_c = collections.Counter(level_hist.launches_by_c) - before
+        record[type(est).__name__] = {
+            "seconds": seconds, "candidates": int(mm.size),
+            "models_x_folds_per_s": mm.size / seconds,
+            "k1_launches": sum(by_c.values()),
+            "k1_launches_by_c": dict(sorted(by_c.items()))}
+        return mm
+    est.eval_fold_grid_arrays = timed
+
+
+def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
+               tag: str = "main") -> dict:
+    """The binary search over ``models`` (default: the default pool's
+    FAMILIES with their 18-point grids), per family timed."""
+    dev = resolve_device(device)
     sel = BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, stratify=True,
         splitter=DataBalancer(reserve_test_fraction=0.1, seed=42),
-        models=models, model_types_to_use=["GBTClassifier"], device=dev)
+        models=models, model_types_to_use=None if models else FAMILIES,
+        device=dev)
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families)
     clear_design_cache()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -307,52 +417,65 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, grid=None,
     G = len(s.validation_results)
     if mm.shape != (3, G) or not np.all(np.isfinite(mm)):
         raise AssertionError(f"[{tag}] bad metric matrix {mm}")
-    if dev.type == "cuda" and launches == 0:
-        raise AssertionError(f"[{tag}] the search never launched K1")
+    if dev.type == "cuda":
+        idle = [f for f, rec in families.items() if rec["k1_launches"] == 0]
+        if launches == 0 or idle:
+            raise AssertionError(f"[{tag}] K1 never launched by {idle or 'the search'}")
     hold = s.holdout_evaluation
     if hold is None or not 0.5 < hold.AuROC <= 1.0:
         raise AssertionError(f"[{tag}] holdout evaluation is off: {hold}")
+    winner_index = int(np.argmax(mm.mean(axis=0)))
     out = {"rows": int(X.shape[0]), "cols": int(X.shape[1]),
            "candidates": int(mm.size), "wall_s": wall,
            "models_x_folds_per_s": mm.size / wall,
            "timings_s": dict(s.timings),
            "search_models_x_folds_per_s": mm.size / s.timings["validate"],
+           "families": families,
            "k1_launches": launches, "k1_launches_by_c": by_c,
+           "k1_launches_refit": launches - sum(
+               f["k1_launches"] for f in families.values()),
            "winner": s.best_model_name,
            "winner_params": s.best_model_params,
-           "winner_index": int(np.argmax(mm.mean(axis=0))),
+           "winner_index": winner_index,
            "best_metric": s.best_validation_metric,
            "holdout_AuPR": hold.AuPR, "holdout_AuROC": hold.AuROC,
            "metric_matrix": mm.tolist(), "selected": selected}
+    if s.validation_results[winner_index].model_name != s.best_model_name:
+        raise AssertionError(f"[{tag}] the selector's winner is not the "
+                             f"best mean of its matrix")
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"[{tag}] {X.shape[0]}x{X.shape[1]} on {dev}: {mm.size} "
         f"models x folds in {wall:.2f} s ({out['models_x_folds_per_s']:.3f}"
         f"/s), stages {json.dumps(out['timings_s'])}")
+    for name, rec in families.items():
+        log(f"[{tag}] {name}: {rec['candidates']} models x folds in "
+            f"{rec['seconds']:.2f} s ({rec['models_x_folds_per_s']:.3f}/s); "
+            f"K1 launches {rec['k1_launches']}: " + " ".join(
+                f"C={c}:{k}" for c, k in rec["k1_launches_by_c"].items()))
     log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} "
         f"mean AuPR {s.best_validation_metric:.6f}; holdout AuPR "
-        f"{hold.AuPR:.6f} AuROC {hold.AuROC:.6f}; K1 launches {launches}"
+        f"{hold.AuPR:.6f} AuROC {hold.AuROC:.6f}; K1 launches {launches} "
+        f"(refit {out['k1_launches_refit']})"
         + (f"; max_memory_allocated {out['max_memory_allocated']}"
            if "max_memory_allocated" in out else ""))
-    if by_c:
-        log(f"[{tag}] K1 launches by slot count: "
-            + " ".join(f"C={c}:{k}" for c, k in by_c.items()))
-    log(f"[{tag}] metric matrix (folds x grid):")
+    log(f"[{tag}] metric matrix (folds x candidates):")
     for row in mm:
         log(f"[{tag}]   " + " ".join(f"{v:.6f}" for v in row))
     return out
 
 
-def phase_card_vs_cpu(device, rows: int, cols: int,
-                      num_rounds: int = 20) -> dict:
-    """The same small search on ``device`` (float32 on a card) and on the
-    CPU (float64): metric matrices within AGREE_TOL, same winner unless
-    the CPU's top two means lie within AGREE_TOL."""
+def phase_card_vs_cpu(device, rows: int, cols: int, num_rounds: int = 20,
+                      num_trees: int = 5) -> dict:
+    """The same small RF + GBT search on ``device`` (float32 on a card)
+    and on the CPU (float64), the forests' draws from the same CPU
+    generators: metric matrices within AGREE_TOL, same winner unless the
+    CPU's top two means lie within AGREE_TOL."""
     X, y = make_data(rows, cols, seed=1)
-    card = phase_main(device, X, y, grid=SMALL_GRID, num_rounds=num_rounds,
-                      tag="agree-card")
-    cpu = phase_main("cpu", X, y, grid=SMALL_GRID, num_rounds=num_rounds,
-                     tag="agree-cpu")
+    card = phase_main(device, X, y, models=small_models(
+        device, num_rounds, num_trees), tag="agree-card")
+    cpu = phase_main("cpu", X, y, models=small_models(
+        "cpu", num_rounds, num_trees), tag="agree-cpu")
     a, b = np.asarray(card["metric_matrix"]), np.asarray(cpu["metric_matrix"])
     diff = float(np.abs(a - b).max())
     means = np.sort(b.mean(axis=0))[::-1]
@@ -363,13 +486,24 @@ def phase_card_vs_cpu(device, rows: int, cols: int,
         f"{' (top two within tol)' if close else ''}")
     if diff > AGREE_TOL or not (same or close):
         raise AssertionError("card and CPU searches disagree")
-    return {"max_abs_diff": diff, "same_winner": same}
+    by_family = {}
+    for name in FAMILIES:
+        cols_f = [i for i, r in enumerate(
+            card["selected"].summary.validation_results)
+            if r.model_name == name]
+        by_family[name] = float(np.abs(a[:, cols_f] - b[:, cols_f]).max())
+    log(f"[agree] max |card - cpu| by family: {json.dumps(by_family)}; "
+        f"seconds card {card['wall_s']:.2f} cpu {cpu['wall_s']:.2f}")
+    return {"max_abs_diff": diff, "same_winner": same,
+            "max_abs_diff_by_family": by_family,
+            "card_s": card["wall_s"], "cpu_s": cpu["wall_s"]}
 
 
-def phase_serve(selected, X: np.ndarray, count: int = 8) -> float:
-    """Score ``count`` records one at a time through the winner; they must
-    equal the batch scores (probabilities within 1e-6: the card may sum
-    the 20 trees in another order at another batch width)."""
+def phase_serve(selected, X: np.ndarray, count: int = 8,
+                tag: str = "serve") -> float:
+    """Score ``count`` records one at a time through a fitted model; they
+    must equal the batch scores (probabilities within 1e-6: the card may
+    sum the trees in another order at another batch width)."""
     batch = selected.predict_arrays(X[:count])
     worst = 0.0
     for i in range(count):
@@ -382,44 +516,82 @@ def phase_serve(selected, X: np.ndarray, count: int = 8) -> float:
     if worst > 1e-6:
         raise AssertionError(f"single-record scores differ from batch "
                              f"scores by {worst}")
-    log(f"[serve] {count} single records equal the batch "
+    log(f"[{tag}] {count} single records equal the batch "
         f"(max prob diff {worst:.2e})")
     return worst
 
 
-def count_syncs(est, X: np.ndarray, y: np.ndarray) -> int:
-    """Host synchronizations that the boosting loop (all rounds, all
-    levels, on a binned design) asks of the card, as CUDA's sync debug
-    mode reports them; the loop is written to need none."""
+def count_syncs(loop) -> int:
+    """Host synchronizations that ``loop()`` asks of the card, as CUDA's
+    sync debug mode reports them; the tree loops are written to need
+    none."""
     import warnings
-    from transmogrifai_tpu_torch.models.trees import _design_args, _gbt_body
-    design = _design_args(X, est.max_bins, est.device)
-    y_t = torch.as_tensor(y, dtype=design.dtype, device=est.device)
-    mask = torch.ones_like(y_t)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _gbt_body(design, y_t, mask, **est._fit_kwargs())
+            loop()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
-def phase_profile(device: torch.device, X: np.ndarray, y: np.ndarray,
-                  depth: int = 6) -> dict:
-    """One 20-round fit under torch.profiler: kernel time over wall."""
+def tree_loop(est, X: np.ndarray, y: np.ndarray):
+    """The fit's tree loop alone, on a binned design: every boosting round
+    of a GBT, every tree of a forest (binning and the model's read-back
+    excluded)."""
+    from transmogrifai_tpu_torch.models.trees import (
+        _design_args, _forest_setup, _forest_trees, _gbt_body)
+    if isinstance(est, GBTClassifier):
+        design = _design_args(X, est.max_bins, est.device)
+        y_t = torch.as_tensor(y, dtype=design.dtype, device=est.device)
+        return lambda: _gbt_body(design, y_t, torch.ones_like(y_t),
+                                 **est._fit_kwargs())
+    design, onehot, pool, mf, draws = _forest_setup(est, X, y, est.device)
+    lane = (torch.ones(design.n, dtype=design.dtype, device=est.device),
+            float(est.min_instances_per_node), float(est.min_info_gain),
+            float(est.subsampling_rate))
+    return lambda: list(_forest_trees(
+        design, onehot, [lane], draws, depth=est.max_depth,
+        num_trees=est.num_trees, impurity=est.impurity,
+        bootstrap=est.bootstrap, max_features=mf, pool=pool))
+
+
+def search_slice(device, X: np.ndarray, y: np.ndarray, num_trees: int = 5,
+                 depth: int = 12):
+    """One static group of the main path's RF search (its ``depth`` grid
+    points, 3 stratified folds of the whole matrix), cut to ``num_trees``
+    trees: a callable that runs it and returns its metric matrix."""
+    from transmogrifai_tpu_torch.evaluators import (
+        BinaryClassificationEvaluator)
+    from transmogrifai_tpu_torch.models.registry import default_binary_models
+    from transmogrifai_tpu_torch.selector import CrossValidation
+    masks, spec, X_val, y_val = CrossValidation(
+        BinaryClassificationEvaluator(), num_folds=3, seed=42,
+        stratify=True)._build_fold_arrays(X, y)
+    rf, grid = next((e, g) for e, g in default_binary_models(device)
+                    if isinstance(e, RandomForestClassifier))
+    est = rf.with_params(num_trees=num_trees)
+    grid = [p for p in grid if p["max_depth"] == depth]
+    return lambda: est.eval_fold_grid_arrays(X, y, masks, grid, X_val,
+                                             y_val, spec)
+
+
+def phase_profile(label: str, run, loop=None) -> tuple:
+    """``run()`` under torch.profiler after one warm-up run: kernel time
+    over wall and the top device ops; with ``loop`` (a function of no
+    arguments, made after the warm-up), the host syncs it asks for.
+    Returns the measurements and the profiled run's result."""
     from torch.profiler import ProfilerActivity, profile
-    est = GBTClassifier(num_rounds=20, max_depth=depth, device=device)
-    est.fit_arrays(X, y)                       # bins and warms
+    run()                                      # bins and warms
     torch.cuda.synchronize()
-    syncs = count_syncs(est, X, y)
+    syncs = count_syncs(loop()) if loop is not None else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.fit_arrays(X, y)
+        result = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device time = the kernels (and copies) the CUDA activity recorded;
@@ -431,21 +603,21 @@ def phase_profile(device: torch.device, X: np.ndarray, y: np.ndarray,
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    out = {"depth": depth, "wall_ms": wall_us / 1e3,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"run": label, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
-           "kernel_launches": len(kernels), "host_syncs_in_fit": syncs,
+           "kernel_launches": len(kernels), "host_syncs_in_loop": syncs,
            "top": [(name[:60], t / 1e3, c) for name, (t, c) in top]}
-    log(f"[profile] depth-{depth} 20-round fit: wall {out['wall_ms']:.1f} "
+    log(f"[profile] {label}: wall {out['wall_ms']:.1f} "
         f"ms, device busy {out['device_busy_ms']:.1f} ms, idle share "
         f"{out['idle_share'] if busy_us else 'not measured'}; "
-        f"{len(kernels)} device ops; host syncs inside the boosting "
-        f"loop: {syncs}")
+        f"{len(kernels)} device ops"
+        + ("" if syncs is None else f"; host syncs inside the tree loop: "
+           f"{syncs}"))
     for key, ms, count in out["top"]:
         log(f"[profile]   {ms:9.2f} ms  x{count:<6d} {key}")
-    clear_design_cache()
-    return out
+    return out, result
 
 
 def write_out(path, result: dict) -> None:
@@ -476,6 +648,7 @@ def main(argv=None) -> int:
     phase_build()
     X, y = make_data(args.rows, COLS)
     k1 = phase_k1(device, X)
+    k1["forest"] = phase_k1_forest(device, X, y)
     if args.k1_only:
         write_out(args.out, {"device": info, "k1": k1})
         log(info["smi"])
@@ -483,28 +656,50 @@ def main(argv=None) -> int:
         return 0
     main_run = phase_main(device, X, y)
     selected = main_run.pop("selected")
-    # K1's share of the search: launches at each C times its time there
-    by_c, ms_by_c = main_run["k1_launches_by_c"], k1["ms_by_c"]
-    if set(by_c) - set(ms_by_c):
-        raise AssertionError(f"K1 ran at untimed slot counts {sorted(by_c)}")
-    k1_s = sum(k * ms_by_c[c] for c, k in by_c.items()) / 1e3
+    # K1's share of the search: launches at each C times its time there,
+    # at each family's shape (the refit at the winner's)
+    ms_by_family = {"RandomForestClassifier": k1["forest"]["ms_by_c"],
+                    "GBTClassifier": k1["ms_by_c"]}
+    k1_s = {}
+    for name, rec in main_run["families"].items():
+        ms_by_c, by_c = ms_by_family[name], rec["k1_launches_by_c"]
+        if set(by_c) - set(ms_by_c):
+            raise AssertionError(f"K1 ran at untimed slot counts "
+                                 f"{sorted(by_c)}")
+        k1_s[name] = sum(k * ms_by_c[c] for c, k in by_c.items()) / 1e3
+        log(f"[main] {name}: K1 time, launches x ms per C: "
+            f"{k1_s[name]:.3f} s of {rec['seconds']:.2f} s")
     main_run["k1_seconds_estimate"] = k1_s
-    log(f"[main] K1 time in the run, launches x ms per C: {k1_s:.3f} s of "
-        f"{main_run['wall_s']:.2f} s")
     phase_serve(selected, X[-1000:])
     agree = phase_card_vs_cpu(device, 20_000, COLS)
-    prof = phase_profile(device, X, y)
+    prof = {}
+    gbt = GBTClassifier(num_rounds=20, max_depth=6, device=device)
+    prof["gbt"], _ = phase_profile("depth-6 20-round GBT fit",
+                                   lambda: gbt.fit_arrays(X, y),
+                                   lambda: tree_loop(gbt, X, y))
+    rf = RandomForestClassifier(num_trees=50, max_depth=6, device=device)
+    prof["rf"], forest = phase_profile("depth-6 50-tree RF fit",
+                                       lambda: rf.fit_arrays(X, y),
+                                       lambda: tree_loop(rf, X, y))
+    phase_serve(forest, X[-1000:], tag="serve-rf")
+    prof["rf_search"], _ = phase_profile(
+        "RF search, depth-12 group (6 points x 3 folds), 5 trees",
+        search_slice(device, X, y))
+    clear_design_cache()
+    cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
-             "max_abs_err": max(c["max_abs_err"]
-                                for c in k1["cases"] + k1["extra"]),
+             "max_abs_err": max(c["max_abs_err"] for c in cases),
              "ms": worst["ms"], "plain_ms": worst["plain_ms"],
              "bound_ms": worst["bound_ms"], "bound_by": "bytes",
              "bound_ms_int32_ids": worst["bound_ms_int32_ids"],
              "library_ms": worst["library_ms"], "ok": True,
-             "launches_by_c": by_c,
-             "cases": k1["cases"] + k1["extra"]}
+             "launches_by_c": main_run["k1_launches_by_c"],
+             "launches_by_family": {
+                 name: rec["k1_launches"]
+                 for name, rec in main_run["families"].items()},
+             "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "agree": agree, "profile": prof,
                          "seconds": time.perf_counter() - t_start})

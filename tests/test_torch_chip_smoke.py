@@ -1,6 +1,7 @@
-"""CPU rehearsal of chip_smoke.py: the main-path, card-against-CPU and
-single-record phases at a tiny size on an explicit CPU device, and the
-script's refusal to run without a card."""
+"""CPU rehearsal of chip_smoke.py: the main-path (GBT alone, and RF with
+GBT), card-against-CPU and single-record phases and the forest-shape K1
+inputs at a tiny size on an explicit CPU device, and the script's refusal
+to run without a card."""
 import os
 import subprocess
 import sys
@@ -8,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -18,8 +20,8 @@ import chip_smoke  # noqa: E402
 @pytest.fixture(scope="module")
 def tiny():
     X, y = chip_smoke.make_data(1500, 12)
-    out = chip_smoke.phase_main("cpu", X, y, grid=chip_smoke.SMALL_GRID,
-                                num_rounds=2, tag="rehearse")
+    out = chip_smoke.phase_main("cpu", X, y, models=chip_smoke.small_models(
+        "cpu", num_rounds=2, families=("GBTClassifier",)), tag="rehearse")
     return X, y, out
 
 
@@ -40,8 +42,51 @@ def test_serve_phase(tiny):
 
 
 def test_card_vs_cpu_phase():
-    got = chip_smoke.phase_card_vs_cpu("cpu", 900, 10, num_rounds=2)
+    got = chip_smoke.phase_card_vs_cpu("cpu", 900, 10, num_rounds=2,
+                                       num_trees=2)
     assert got["max_abs_diff"] == 0.0 and got["same_winner"]
+    assert got["max_abs_diff_by_family"] == {
+        "RandomForestClassifier": 0.0, "GBTClassifier": 0.0}
+
+
+def test_main_phase_rf_and_gbt():
+    """The main path's two families, each timed, in the pool's order; a
+    fitted forest scores single records as in a batch."""
+    X, y = chip_smoke.make_data(1200, 20, seed=2)
+    out = chip_smoke.phase_main("cpu", X, y, models=chip_smoke.small_models(
+        "cpu", num_rounds=2, num_trees=3), tag="rehearse-rf")
+    assert list(out["families"]) == list(chip_smoke.FAMILIES)
+    for rec in out["families"].values():
+        assert rec["candidates"] == 12 and rec["seconds"] > 0
+        assert rec["k1_launches"] == 0       # the CPU takes the plain path
+    mm = np.asarray(out["metric_matrix"])
+    assert mm.shape == (3, 8) and np.all(np.isfinite(mm))
+    grids = chip_smoke.RF_SMALL_GRID + chip_smoke.SMALL_GRID
+    assert out["winner_params"] == grids[out["winner_index"]]
+    assert out["winner"] == chip_smoke.FAMILIES[out["winner_index"] // 4]
+    forest = chip_smoke.RandomForestClassifier(
+        num_trees=3, max_depth=4, device="cpu").fit_arrays(X, y)
+    assert chip_smoke.phase_serve(forest, X, tag="rehearse-rf") <= 1e-6
+    mm = chip_smoke.search_slice("cpu", X, y, num_trees=2, depth=3)()
+    assert mm.shape == (3, 6) and np.all(np.isfinite(mm))
+
+
+def test_forest_k1_inputs():
+    """The forest-shape K1 input: tree 0's 40-feature pool of a 100-column
+    design (32 narrow at 2 bins, 8 wide at 32: TB = 320, uint8 ids at a
+    48-byte stride), with integer class-weight stats, a third of the rows
+    masked out; K1's plain version sums them exactly."""
+    X, y = chip_smoke.make_data(3000, chip_smoke.COLS, seed=3)
+    tree, stats = chip_smoke.forest_k1_inputs("cpu", X, y)
+    assert (tree.d, tree.total_bins, tree.ids.shape) == (40, 320, (3000, 48))
+    assert tree.ids.dtype == torch.uint8 and stats.shape == (3000, 2)
+    assert torch.equal(stats, stats.round()) and not stats[::3].any()
+    assert torch.all((stats != 0).sum(dim=1) <= 1)
+    slot = torch.randint(0, 32, (3000,), dtype=torch.int32)
+    hist = chip_smoke.level_hist(tree.ids, tree.offsets, slot, stats, 32,
+                                 tree.total_bins)
+    assert torch.equal(hist.sum(dim=1), 40 * torch.zeros(
+        (32, 2), dtype=stats.dtype).index_add_(0, slot.long(), stats))
 
 
 def test_write_out(tmp_path):

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 import transmogrifai_tpu_torch
-from transmogrifai_tpu_torch.models.trees import (GBTClassifier,
-                                                  GBTClassifierModel)
+from transmogrifai_tpu_torch.models.trees import (
+    DecisionTreeClassifier, GBTClassifier, GBTClassifierModel,
+    RandomForestClassifier, TreeEnsembleClassifierModel)
 from transmogrifai_tpu_torch.selector import (
     BinaryClassificationModelSelector, ModelSelector)
 from transmogrifai_tpu_torch.utils.device import resolve_device, working_dtype
@@ -37,6 +38,12 @@ def _no_card(monkeypatch):
     lambda: ModelSelector(),
     lambda: BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["GBTClassifier"]),
+    lambda: RandomForestClassifier(),
+    lambda: DecisionTreeClassifier(),
+    lambda: TreeEnsembleClassifierModel(np.zeros((1, 1)), np.zeros((1, 1)),
+                                        np.zeros((1, 2, 2)), depth=1),
+    lambda: BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["RandomForestClassifier", "GBTClassifier"]),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)

@@ -102,11 +102,16 @@ def test_splitters_match_jax():
 
 
 def test_default_grid_is_the_reference_grid():
+    """The ported families of the default pool, in the reference's order
+    (RF before GBT: the first candidate wins a tie), with its grids."""
     from transmogrifai_tpu.models.registry import default_binary_models as ref
-    (est, grid), = default_binary_models(device="cpu")
-    ref_grid = [g for e, g in ref() if type(e).__name__ == "GBTClassifier"]
-    assert grid == ref_grid[0] and len(grid) == 18
-    assert est.num_rounds == 20
+    pool = default_binary_models(device="cpu")
+    names = [type(e).__name__ for e, _ in pool]
+    assert names == ["RandomForestClassifier", "GBTClassifier"]
+    ref_grids = {type(e).__name__: g for e, g in ref()}
+    for est, grid in pool:
+        assert grid == ref_grids[type(est).__name__] and len(grid) == 18
+    assert pool[0][0].num_trees == 50 and pool[1][0].num_rounds == 20
 
 
 def test_unported_families_are_named():
@@ -118,3 +123,8 @@ def test_unported_families_are_named():
     sel = BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["GBTClassifier"], device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == ["GBTClassifier"]
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["RandomForestClassifier", "GBTClassifier"],
+        device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == [
+        "RandomForestClassifier", "GBTClassifier"]

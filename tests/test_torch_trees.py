@@ -87,8 +87,9 @@ def test_compressed_levels_match_jax(node_cap):
         jnp.asarray(stats), depth=6, gain_fn=jt._xgb_gain(1.0, 0.0, 1.0),
         min_info_gain=0.0, node_cap=node_cap, hist_mode="scatter")
     got = tt._grow_tree(tt._PackedDesign(X, 32, torch.device("cpu")),
-                        torch.as_tensor(stats), depth=6, reg_lambda=1.0,
-                        gamma=0.0, min_child_weight=1.0, node_cap=node_cap)
+                        torch.as_tensor(stats), depth=6,
+                        gain_fn=tt._xgb_gain(1.0, 0.0, 1.0),
+                        node_cap=node_cap)
     np.testing.assert_array_equal(np.asarray(feat), got[0].numpy())
     np.testing.assert_array_equal(np.asarray(thr), got[1].numpy())
     np.testing.assert_allclose(got[2].numpy(), np.asarray(leaf), rtol=0,

@@ -15,8 +15,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["BINARY_METRICS", "binary_from_sigmoid", "binary_metric",
-           "metric_fn"]
+__all__ = ["BINARY_METRICS", "binary_from_sigmoid", "binary_from_votes",
+           "binary_metric", "metric_fn", "vote_probability"]
 
 BINARY_METRICS = ("AuPR", "AuROC", "Precision", "Recall", "F1", "Error")
 
@@ -27,6 +27,20 @@ def binary_from_sigmoid(margin: torch.Tensor):
     = argmax of [1 - p, p])."""
     p = 1.0 / (1.0 + torch.exp(-margin))
     return p, (p > 1.0 - p).to(margin.dtype)
+
+
+def vote_probability(votes: torch.Tensor) -> torch.Tensor:
+    """(n, K) vote masses normalized by their row sums — the twin of
+    ``TreeEnsembleClassifierModel.raw_to_probability``."""
+    s = torch.sum(votes, dim=1, keepdim=True)
+    return votes / torch.where(s > 0, s, 1.0)
+
+
+def binary_from_votes(votes: torch.Tensor):
+    """(score, plabel) from (n, 2) forest vote masses: the normalized
+    positive share and the argmax of the two."""
+    p = vote_probability(votes)
+    return p[:, 1], (p[:, 1] > p[:, 0]).to(votes.dtype)
 
 
 def _tie_grouped_curve(pos: torch.Tensor, margin: torch.Tensor):
@@ -95,7 +109,8 @@ def binary_metric(y: torch.Tensor, score: torch.Tensor,
 
 def metric_fn(kind: str, metric: str) -> Callable:
     """(y_val, scores) -> scalar for a validator metric spec; ``scores``
-    is a (score, plabel) pair from :func:`binary_from_sigmoid`. Only the
+    is a (score, plabel) pair from :func:`binary_from_sigmoid` or
+    :func:`binary_from_votes`. Only the
     binary kind is ported."""
     if kind == "binary":
         return lambda y, s: binary_metric(y, s[0], s[1], metric)

@@ -1,6 +1,9 @@
-"""Models of the PyTorch port (the binary GBT family so far)."""
+"""Models of the PyTorch port (the binary tree families so far)."""
 from .base import ClassifierModel, PredictionColumn, PredictionModel, Predictor
-from .trees import GBTClassifier, GBTClassifierModel
+from .trees import (DecisionTreeClassifier, GBTClassifier, GBTClassifierModel,
+                    RandomForestClassifier, TreeEnsembleClassifierModel)
 
 __all__ = ["ClassifierModel", "PredictionColumn", "PredictionModel",
-           "Predictor", "GBTClassifier", "GBTClassifierModel"]
+           "Predictor", "DecisionTreeClassifier", "GBTClassifier",
+           "GBTClassifierModel", "RandomForestClassifier",
+           "TreeEnsembleClassifierModel"]

@@ -1,16 +1,18 @@
 """Carry fitted models across from the JAX package.
 
 The JAX package's fitted ``GBTClassifierModel`` holds numpy arrays
-(``feats``, ``thrs``, ``leaves``, ``depth``, ``base``, ``n_features``);
-the port's model built from them predicts the same probabilities.
+(``feats``, ``thrs``, ``leaves``, ``depth``, ``base``, ``n_features``), and
+its ``TreeEnsembleClassifierModel`` (random forests, decision trees) the
+same without ``base``; the port's models built from them predict the same
+probabilities.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .trees import GBTClassifierModel
+from .trees import GBTClassifierModel, TreeEnsembleClassifierModel
 
-__all__ = ["gbt_from_numpy"]
+__all__ = ["forest_from_numpy", "gbt_from_numpy"]
 
 
 def gbt_from_numpy(feats: np.ndarray, thrs: np.ndarray, leaves: np.ndarray,
@@ -24,3 +26,17 @@ def gbt_from_numpy(feats: np.ndarray, thrs: np.ndarray, leaves: np.ndarray,
                               np.asarray(leaves, dtype=np.float64),
                               depth=int(depth), base=float(base),
                               n_features=int(n_features), device=device)
+
+
+def forest_from_numpy(feats: np.ndarray, thrs: np.ndarray,
+                      leaves: np.ndarray, depth: int, n_features: int,
+                      device="cuda") -> TreeEnsembleClassifierModel:
+    """Port-side ``TreeEnsembleClassifierModel`` from the reference
+    model's arrays: ``feats`` and ``thrs`` (T, 2^depth - 1), ``leaves``
+    (T, 2^depth, K) leaf class distributions."""
+    return TreeEnsembleClassifierModel(np.asarray(feats, dtype=np.int32),
+                                       np.asarray(thrs, dtype=np.float64),
+                                       np.asarray(leaves, dtype=np.float64),
+                                       depth=int(depth),
+                                       n_features=int(n_features),
+                                       device=device)

@@ -1,11 +1,14 @@
-"""Gradient-boosted binary trees in PyTorch (the GBT slice of the port).
+"""Tree families in PyTorch: gradient-boosted trees, random forests and
+decision trees (binary classification).
 
 Counterpart of ``transmogrifai_tpu/models/trees.py`` restricted to the
-binary GBT family on the logistic objective: packed binning
+classifiers of the default binary pool: packed binning
 (``_PackedDesign``), the level-wise builder (``_grow_tree``) with
-active-node slot compression, boosting (``_gbt_body``), traversal, the
-estimator and its model, and the fold x grid search that fits every
-(fold, grid point) candidate and scores it with the on-device metric.
+active-node slot compression and per-node feature subsets, the gini,
+entropy and second-order gains, boosting (``_gbt_body``), bagged forests
+over per-tree stratified feature pools (``_forest_trees``), traversal,
+the estimators and their models, and the fold x grid searches that fit
+every (fold, grid point) candidate and score it with the on-device metric.
 
 Where the JAX package jit-compiles and vmaps, the port runs eagerly:
 
@@ -16,26 +19,32 @@ Where the JAX package jit-compiles and vmaps, the port runs eagerly:
   CUDA and its plain ``index_add_`` version on the CPU, both over the
   design's compact bin ids;
 - the fold x grid candidates run one after another (the vmap becomes a
-  Python loop); only the (folds, grid) metric matrix reaches the host.
+  Python loop); a forest's trees run one after another, each tree's
+  pool and draws shared by every candidate of its static group; only the
+  (folds, grid) metric matrix reaches the host.
 
-Numbers: float32 on CUDA, float64 on the CPU (``utils/device.py``). The
-row subsample draws from a ``torch.Generator`` seeded with ``seed``; at the
-default ``subsample=1.0`` it draws nothing, so trees equal the JAX
-package's exactly in float64.
+Numbers: float32 on CUDA, float64 on the CPU (``utils/device.py``). Random
+draws (feature pools, bootstrap weights, node feature subsets, the GBT
+row subsample) come from a draws provider (``models/draws.py``); with one
+that replays the JAX package's key chain, trees equal the JAX package's
+exactly in float64. At the GBT default ``subsample=1.0`` nothing is drawn.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device, working_dtype
-from .base import ClassifierModel, Predictor, subset_grid
-from .hist_kernel import HistPlan, compact_ids, level_hist
+from .base import ClassifierModel, Predictor, num_classes, subset_grid
+from .draws import TorchDraws
+from .hist_kernel import HistPlan, compact_ids, level_hist, padded_stride
 
-__all__ = ["GBTClassifier", "GBTClassifierModel", "clear_design_cache"]
+__all__ = ["DecisionTreeClassifier", "GBTClassifier", "GBTClassifierModel",
+           "RandomForestClassifier", "TreeEnsembleClassifierModel",
+           "clear_design_cache"]
 
 #: matrix element count (rows x features) from which a design on CUDA
 #: is binned on the card (f32 sorts) instead of by the exact f64 host
@@ -67,14 +76,16 @@ class _PackedDesign:
                   start (clamped at 0); ``has_prev`` says if there is one
       packed_thr  (TB,) working dtype — split threshold "x <= thr" at this
                   bin; +inf marks last and padded bins (not a split)
+      col_thr     (d, max width) working dtype — feature f's thresholds,
+                  +inf padded (what a per-tree feature pool gathers)
     Binning runs on the card (f32 column sorts, quantile gathers,
     ``searchsorted``) for a CUDA design of >= _DEVICE_BIN_MIN_ELEMS
     elements, else as the exact f64 numpy loop.
     """
 
-    __slots__ = ("packed", "ids", "offsets", "feat_of", "prev_bin", "has_prev", "packed_thr",
-                 "not_a_split", "widths", "n", "d", "total_bins", "device",
-                 "dtype", "_plans")
+    __slots__ = ("packed", "ids", "offsets", "feat_of", "prev_bin",
+                 "has_prev", "packed_thr", "col_thr", "not_a_split", "widths",
+                 "n", "d", "total_bins", "device", "dtype", "_plans")
 
     def __init__(self, X, max_bins: int, device: torch.device):
         n, d = X.shape
@@ -103,8 +114,17 @@ class _PackedDesign:
         self.has_prev = torch.as_tensor(block_start > 0, device=device)
         self.packed_thr = torch.as_tensor(np.concatenate(thr_parts),
                                           dtype=self.dtype, device=device)
+        col_thr = np.full((d, int(widths.max())), np.inf)
+        for f, t in enumerate(thr_parts):
+            col_thr[f, :len(t)] = t
+        self.col_thr = torch.as_tensor(col_thr, dtype=self.dtype,
+                                       device=device)
         self.not_a_split = ~torch.isfinite(self.packed_thr)
         self._plans: Dict[int, HistPlan] = {}
+
+    def row_bins(self, feat: torch.Tensor) -> torch.Tensor:
+        """(n,) packed bin of each row at its feature ``feat`` (n,)."""
+        return torch.gather(self.packed, 1, feat[:, None])[:, 0]
 
     def hist_plan(self, S: int) -> HistPlan:
         """K1's feature groups for ``S`` statistics (made once)."""
@@ -290,39 +310,88 @@ def _bin_cumsum(hist: torch.Tensor) -> torch.Tensor:
     return (inner + carry[:, :, None, :]).reshape(C, -1, S)[:, :L]
 
 
-def _xgb_gain(left, right, total, reg_lambda: float, gamma: float,
-              min_child_weight: float):
+def _xgb_gain(reg_lambda: float, gamma: float, min_child_weight: float):
     """Second-order gain (stats = [grad, hess]); XGBoost objective, -inf
     where a child is lighter than ``min_child_weight``."""
     def score(s):
         return s[..., 0] ** 2 / (s[..., 1] + reg_lambda)
-    g = 0.5 * (score(left) + score(right) - score(total)) - gamma
-    ok = ((left[..., 1] >= min_child_weight)
-          & (right[..., 1] >= min_child_weight))
-    return torch.where(ok, g, -torch.inf)
+
+    def gain(left, right, total):
+        g = 0.5 * (score(left) + score(right) - score(total)) - gamma
+        ok = ((left[..., 1] >= min_child_weight)
+              & (right[..., 1] >= min_child_weight))
+        return torch.where(ok, g, -torch.inf)
+    return gain
 
 
-def _grow_tree(design: _PackedDesign, stats: torch.Tensor, *, depth: int,
-               reg_lambda: float, gamma: float, min_child_weight: float,
+def _impurity_gain(impurity_weighted, min_instances: float):
+    """Weighted impurity decrease over per-class weight statistics, -inf
+    where a child weighs less than ``min_instances``."""
+    def gain(left, right, total):
+        wl = torch.sum(left, dim=-1)
+        wr = torch.sum(right, dim=-1)
+        wp = torch.clamp(torch.sum(total, dim=-1), min=1e-12)
+        g = (impurity_weighted(total) - impurity_weighted(left)
+             - impurity_weighted(right)) / wp
+        ok = (wl >= min_instances) & (wr >= min_instances)
+        return torch.where(ok, g, -torch.inf)
+    return gain
+
+
+def _gini_gain(min_instances: float):
+    """MLlib 'gini': w - sum_c s_c^2 / w per node."""
+    def impurity_weighted(s):
+        w = torch.sum(s, dim=-1)
+        return w - torch.sum(s * s, dim=-1) / torch.clamp(w, min=1e-12)
+    return _impurity_gain(impurity_weighted, min_instances)
+
+
+def _entropy_gain(min_instances: float):
+    """MLlib 'entropy': w * -sum_c p_c log p_c per node."""
+    def impurity_weighted(s):
+        w = torch.clamp(torch.sum(s, dim=-1, keepdim=True), min=1e-12)
+        p = s / w
+        ent = -torch.sum(torch.where(s > 0, p * torch.log(p), 0.0), dim=-1)
+        return w[..., 0] * ent
+    return _impurity_gain(impurity_weighted, min_instances)
+
+
+def _grow_tree(design, stats: torch.Tensor, *, depth: int, gain_fn,
+               min_info_gain: float = 0.0,
+               max_features: Optional[int] = None,
+               node_u: Optional[Callable[[int, Tuple[int, int]],
+                                         torch.Tensor]] = None,
+               feat_map: Optional[torch.Tensor] = None,
                node_cap: int = _DEFAULT_NODE_CAP):
-    """Grow one complete tree of static ``depth`` (see _PackedDesign).
+    """Grow one complete tree of static ``depth`` over a binned design (a
+    _PackedDesign or a tree's _PooledDesign).
 
     Levels whose node ids all fit the slot cap use the ids as slots (the
     identity path: no sort); deeper levels rank-compress the occupied
     nodes into at most ``cap`` slots and deny splits beyond the next
-    level's budget (the budget mask). A split needs a gain of at least
-    1e-12. A denied split writes (0, +inf) and routes every row left.
+    level's budget (the budget mask). ``gain_fn(left, right, total)``
+    scores every (slot, bin) split; a split needs a gain of at least
+    max(min_info_gain, 1e-12). A denied split writes (0, +inf) and routes
+    every row left.
+
+    With ``max_features`` below the design's feature count, each node
+    keeps the gains of the ``max_features`` features whose uniforms are
+    smallest; ``node_u(level, shape)`` gives a level's uniforms, drawn
+    per slot (C, d) at identity levels and at levels past 2^level > cap,
+    and per node (2^level, d) at the compressed levels below, gathered by
+    each slot's node. ``feat_map`` translates the design's feature ids to
+    the heap's (a pooled design's pool).
 
     Returns (feat_heap (2^depth - 1,) int32, thr_heap (2^depth - 1,),
     leaf_stats (2^depth, S), final node id per row (n,) int32).
     """
-    packed = design.packed
-    dev = packed.device
-    n = packed.shape[0]
+    dev = design.device
+    n = design.n
     TB = design.total_bins
     S = stats.shape[1]
     cap = min(n, node_cap)
     H = 2 ** depth - 1
+    subset = max_features is not None and max_features < design.d
     node = torch.zeros(n, dtype=torch.int32, device=dev)
     # one extra entry at index H takes the writes of unused slots
     feat_heap = torch.zeros(H + 1, dtype=torch.int32, device=dev)
@@ -359,12 +428,23 @@ def _grow_tree(design: _PackedDesign, stats: torch.Tensor, *, depth: int,
         else:
             total = torch.zeros((C, S), dtype=stats.dtype, device=dev
                                 ).index_add_(0, slot_l, stats)[:, None, :]
-        gain = _xgb_gain(left, total - left, total, reg_lambda, gamma,
-                         min_child_weight)
+        gain = gain_fn(left, total - left, total)
         gain = torch.where(design.not_a_split[None, :], -torch.inf, gain)
+        if subset:
+            if identity or 2 ** level > cap:
+                u = node_u(level, (C, design.d))
+            else:
+                # node-keyed: a sentinel slot clamps onto the last node's
+                # row; its outputs never reach the heap or the routing
+                u = node_u(level, (2 ** level, design.d))[
+                    torch.clamp(node_of_slot, 0, 2 ** level - 1).long()]
+            kth = torch.sort(u, dim=1).values[:, max_features - 1:
+                                              max_features]
+            gain = torch.where((u <= kth)[:, design.feat_of], gain,
+                               -torch.inf)
         best = torch.argmax(gain, dim=1)           # first maximum, (C,)
         best_gain = torch.gather(gain, 1, best[:, None])[:, 0]
-        split_ok = best_gain >= 1e-12
+        split_ok = best_gain >= max(min_info_gain, 1e-12)
         if identity:
             split_ok &= nonempty
         elif level + 1 < depth:
@@ -376,13 +456,15 @@ def _grow_tree(design: _PackedDesign, stats: torch.Tensor, *, depth: int,
         thr = torch.where(split_ok, design.packed_thr[best], torch.inf)
         heap_pos = torch.where(node_of_slot == _SLOT_SENTINEL, H,
                                2 ** level - 1 + node_of_slot).long()
-        feat_heap[heap_pos] = bfeat.to(torch.int32)
+        heap_feat = bfeat if feat_map is None else torch.where(
+            split_ok, feat_map[bfeat], 0)
+        feat_heap[heap_pos] = heap_feat.to(torch.int32)
         thr_heap[heap_pos] = thr.to(thr_heap.dtype)
         # route rows: bin <= best <=> go left; a denied split sends every
         # row left through the TB sentinel
         best_r = torch.where(split_ok, best, TB)
-        row_bin = torch.gather(packed, 1, bfeat[slot_l][:, None])[:, 0]
-        go_right = (row_bin > best_r[slot_l]).to(torch.int32)
+        go_right = (design.row_bins(bfeat[slot_l]) > best_r[slot_l]
+                    ).to(torch.int32)
         node = 2 * node + go_right                 # within-level index
     leaf_stats = torch.zeros((2 ** depth, S), dtype=stats.dtype, device=dev
                              ).index_add_(0, node.long(), stats)
@@ -414,34 +496,35 @@ def _predict_leaves(X: torch.Tensor, feats: torch.Tensor,
 def _gbt_body(design: _PackedDesign, y: torch.Tensor, mask: torch.Tensor,
               *, depth: int, num_rounds: int, step_size: float,
               reg_lambda: float, gamma: float, min_child_weight: float,
-              subsample: float, seed: int):
+              subsample: float, seed: int, draws=None):
     """Logistic boosting with row-mask semantics: masked rows get zero
     gradient and hessian; the base margin is the log-odds of the masked
-    mean label. Returns (feats (R, H), thrs (R, H), leaves (R, L), base
-    0-d tensor)."""
+    mean label. Below ``subsample=1`` each round r keeps the rows of
+    ``bernoulli(r, subsample, n)`` from the draws provider (``draws``, a
+    factory of ``models/draws.py``, TorchDraws by default). Returns
+    (feats (R, H), thrs (R, H), leaves (R, L), base 0-d tensor)."""
     n = design.n
     msum = torch.clamp(torch.sum(mask), min=1.0)
     mean_y = torch.sum(mask * y) / msum
     p0 = torch.clamp(mean_y, 1e-6, 1 - 1e-6)
     base = torch.log(p0 / (1 - p0))
     margins = base.expand(n)
-    gen = None
+    rows = None
     if subsample < 1.0:
-        gen = torch.Generator(device=design.device)
-        gen.manual_seed(int(seed))
+        rows = (draws or TorchDraws)(seed, num_rounds)
+    gain_fn = _xgb_gain(reg_lambda, gamma, min_child_weight)
     feats, thrs, leaves = [], [], []
-    for _ in range(num_rounds):
+    for r in range(num_rounds):
         p = torch.sigmoid(margins)
         g = p - y
         h = torch.clamp(p * (1 - p), min=1e-12)
         m = mask
-        if gen is not None:
-            m = (torch.rand(n, generator=gen, device=design.device,
-                            dtype=y.dtype) < subsample).to(y.dtype) * mask
+        if rows is not None:
+            m = _on(rows.bernoulli(r, subsample, n), y.dtype,
+                    design.device) * mask
         feat, thr, leaf_stats, node = _grow_tree(
             design, torch.stack([g * m, h * m], dim=1), depth=depth,
-            reg_lambda=reg_lambda, gamma=gamma,
-            min_child_weight=min_child_weight)
+            gain_fn=gain_fn)
         vals = -step_size * leaf_stats[:, 0] / (leaf_stats[:, 1] + reg_lambda)
         vals = torch.where(torch.sum(torch.abs(leaf_stats), dim=1) > 0,
                            vals, 0.0)
@@ -460,10 +543,15 @@ def _gbt_margins(X: torch.Tensor, feats, thrs, leaves, base, depth: int):
 
 def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``x`` (tensor or array) as a tensor of ``dtype`` on ``device``;
-    arrays are copied, so a read-only numpy buffer is never aliased."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    arrays are copied, so a read-only numpy buffer is never aliased. A
+    host tensor goes to a card through pinned memory, so the copy is
+    queued on the stream and the host does not wait for the card (draws
+    arrive this way inside the tree loops)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.to(dtype).pin_memory().to(device, non_blocking=True)
+    return x.to(device=device, dtype=dtype)
 
 
 class GBTClassifierModel(ClassifierModel):
@@ -516,14 +604,27 @@ def _check_binary(y) -> None:
                          f"only; got extra labels {bad.tolist()}")
 
 
-def _candidate_groups(est, grid) -> List[List[Tuple[int, "GBTClassifier"]]]:
-    """Grid points partitioned into static shape groups (depth, rounds,
-    bins, seed), in first-seen order — the grouping of the JAX package's
+def _check_grid(grid, allowed: Sequence[str], family: str) -> List[Dict]:
+    """The grid as a list of dicts; raises for a parameter the family's
+    search cannot vary."""
+    grid = [dict(p) for p in (list(grid) or [{}])]
+    for p in grid:
+        extra = set(p) - set(allowed)
+        if extra:
+            raise NotImplementedError(
+                f"the {family} search cannot vary {sorted(extra)}")
+    return grid
+
+
+def _candidate_groups(est, grid, skey: Sequence[str]
+                      ) -> List[List[Tuple[int, Predictor]]]:
+    """Grid points partitioned into static shape groups (the ``skey``
+    fields), in first-seen order — the grouping of the JAX package's
     ``_candidate_groups`` with static depth."""
     groups: Dict[tuple, list] = {}
     for gi, p in enumerate(grid):
         cand = est.with_params(**p)
-        key = tuple(getattr(cand, f) for f in _GBT_SKEY)
+        key = tuple(getattr(cand, f) for f in skey)
         groups.setdefault(key, []).append((gi, cand))
     return list(groups.values())
 
@@ -536,13 +637,7 @@ def _gbt_fold_grid(est: "GBTClassifier", X, y, masks, grid, X_val, y_val,
     then the on-device metric on the fold's validation rows. Fold-major
     within each static group; only the matrix reaches the host."""
     from ..evaluators.device_metrics import binary_from_sigmoid, metric_fn
-    grid = [dict(p) for p in (list(grid) or [{}])]
-    allowed = set(_GBT_TRACED) | set(_GBT_SKEY)
-    for p in grid:
-        extra = set(p) - allowed
-        if extra:
-            raise NotImplementedError(
-                f"the GBT search cannot vary {sorted(extra)}")
+    grid = _check_grid(grid, _GBT_TRACED + _GBT_SKEY, "GBT")
     dev, dtype = est.device, working_dtype(est.device)
     masks = np.asarray(masks, dtype=np.float64)
     F = masks.shape[0]
@@ -552,7 +647,7 @@ def _gbt_fold_grid(est: "GBTClassifier", X, y, masks, grid, X_val, y_val,
     Xv = torch.as_tensor(np.asarray(X_val), dtype=dtype, device=dev)
     yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
     mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
-    for members in _candidate_groups(est, grid):
+    for members in _candidate_groups(est, grid, _GBT_SKEY):
         design = _design_args(X, members[0][1].max_bins, dev)
         for f in range(F):
             for gi, cand in members:
@@ -570,13 +665,17 @@ class GBTClassifier(Predictor):
 
     param_names = ("num_rounds", "max_depth", "step_size", "max_bins",
                    "reg_lambda", "gamma", "min_child_weight", "subsample",
-                   "seed", "device")
+                   "seed", "device", "draws")
 
     def __init__(self, num_rounds: int = 20, max_depth: int = 5,
                  step_size: float = 0.1, max_bins: int = 32,
                  reg_lambda: float = 1.0, gamma: float = 0.0,
                  min_child_weight: float = 1.0, subsample: float = 1.0,
-                 seed: int = 42, device="cuda", uid: Optional[str] = None):
+                 seed: int = 42, device="cuda", draws=None,
+                 uid: Optional[str] = None):
+        """``draws``: optional factory ``draws(seed, num_rounds)`` of the
+        row-subsample provider (``models/draws.py``; TorchDraws when
+        None)."""
         super().__init__(uid=uid)
         self.num_rounds = num_rounds
         self.max_depth = max_depth
@@ -588,6 +687,7 @@ class GBTClassifier(Predictor):
         self.subsample = subsample
         self.seed = seed
         self.device = resolve_device(device)
+        self.draws = draws
 
     def _fit_kwargs(self) -> dict:
         return dict(depth=int(self.max_depth),
@@ -596,7 +696,8 @@ class GBTClassifier(Predictor):
                     reg_lambda=float(self.reg_lambda),
                     gamma=float(self.gamma),
                     min_child_weight=float(self.min_child_weight),
-                    subsample=float(self.subsample), seed=int(self.seed))
+                    subsample=float(self.subsample), seed=int(self.seed),
+                    draws=self.draws)
 
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:
@@ -619,3 +720,386 @@ class GBTClassifier(Predictor):
         return GBTClassifierModel(feats, thrs, leaves, depth=self.max_depth,
                                   base=float(base), n_features=X.shape[1],
                                   device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# random forests and decision trees
+# ---------------------------------------------------------------------------
+
+#: feature widths <= this form the "narrow" pool class (one-hot-ish
+#: columns), wider ones the "wide" class; each class packs at its own
+#: uniform width, so a pool's bins scale with its features
+_NARROW_WIDTH = 4
+
+
+def _resolve_max_features(strategy: str, d: int, classification: bool
+                          ) -> Optional[int]:
+    """MLlib featureSubsetStrategy (RandomForestParams)."""
+    s = str(strategy).lower()
+    if s == "auto":
+        s = "sqrt" if classification else "onethird"
+    if s == "all":
+        return None
+    if s == "sqrt":
+        return max(1, int(np.sqrt(d)))
+    if s == "log2":
+        return max(1, int(np.log2(d)))
+    if s == "onethird":
+        return max(1, d // 3)
+    return max(1, min(d, int(float(s) * d) if "." in s else int(s)))
+
+
+def _pool_size(d: int, mf: Optional[int]) -> Optional[int]:
+    """Per-tree feature-pool size: 4x the per-node sample, at least 8."""
+    if mf is None or mf >= d:
+        return None
+    return min(d, max(4 * mf, 8))
+
+
+def _pool_classes(widths: np.ndarray, pool_size: int, max_features: int):
+    """Stratified pool plan from per-feature bin widths: ((narrow_idx,
+    wide_idx), (p_n, p_w, b_n, b_w), effective max_features). The pool is
+    split in proportion (Python's ``round``), but every non-empty class
+    keeps at least one slot."""
+    narrow = np.nonzero(widths <= _NARROW_WIDTH)[0].astype(np.int64)
+    wide = np.nonzero(widths > _NARROW_WIDTH)[0].astype(np.int64)
+    d = len(widths)
+    p_n = min(len(narrow), int(round(pool_size * len(narrow) / d)))
+    if len(narrow):
+        p_n = max(p_n, 1)
+    p_w = min(len(wide), pool_size - p_n)
+    if len(wide):
+        p_w = max(p_w, 1)
+    p_n = min(len(narrow), max(pool_size - p_w, 1 if len(narrow) else 0))
+    b_n = int(widths[narrow].max()) if len(narrow) and p_n else 0
+    b_w = int(widths[wide].max()) if len(wide) and p_w else 0
+    return ((narrow, wide), (p_n, p_w, b_n, b_w),
+            min(max_features, p_n + p_w))
+
+
+def _pool_plan(widths: np.ndarray, mf: Optional[int]):
+    """(class indices, pool_cfg, effective max_features), or (None, None,
+    mf) when a pool would hold every feature (the shared design is then
+    used as it is)."""
+    pool = _pool_size(len(widths), mf)
+    if pool is None or pool >= len(widths):
+        return None, None, mf
+    return _pool_classes(np.asarray(widths), pool, mf)
+
+
+class _ForestPool:
+    """The per-tree stratified feature pools of one static group.
+
+    Every tree's pool packs p_n narrow features at width b_n and p_w wide
+    ones at width b_w, so what depends only on those counts (offsets, bin
+    ownership, K1's launch plan) is built once here; :meth:`tree` gathers
+    one tree's columns. A narrower feature keeps padded bins whose
+    thresholds are +inf: never occupied, never a split."""
+
+    def __init__(self, design: _PackedDesign, classes, cfg):
+        p_n, p_w, b_n, b_w = cfg
+        dev = design.device
+        self.design = design
+        self.classes = [(torch.as_tensor(idx, device=dev), p, b)
+                        for idx, p, b in zip(classes, (p_n, p_w), (b_n, b_w))]
+        self.widths = np.array([b_n] * p_n + [b_w] * p_w, dtype=np.int64)
+        self.n, self.d, self.device = design.n, p_n + p_w, dev
+        self.total_bins = int(self.widths.sum())
+        offsets = np.concatenate([[0], np.cumsum(self.widths)[:-1]])
+        block_start = np.repeat(offsets, self.widths)
+        self.offsets = torch.as_tensor(offsets.astype(np.int32), device=dev)
+        self.feat_of = torch.as_tensor(
+            np.repeat(np.arange(self.d, dtype=np.int64), self.widths),
+            device=dev)
+        self.prev_bin = torch.as_tensor(np.maximum(block_start - 1, 0),
+                                        device=dev)
+        self.has_prev = torch.as_tensor(block_start > 0, device=dev)
+        self.stride = padded_stride(self.d, design.ids.element_size())
+        self._plans: Dict[int, HistPlan] = {}
+
+    def hist_plan(self, S: int) -> HistPlan:
+        plan = self._plans.get(S)
+        if plan is None:
+            plan = self._plans[S] = HistPlan(self.widths, S, self.device)
+        return plan
+
+    def tree(self, t: int, draws) -> "_PooledDesign":
+        """Tree ``t``'s pooled design from ``draws.pool``."""
+        picks = draws.pool(t, [(len(idx), p) for idx, p, _ in self.classes])
+        sel, thr = [], []
+        for (idx, p, b), pos in zip(self.classes, picks):
+            if p == 0:
+                continue
+            f = idx[_on(pos, torch.int64, self.device)]
+            sel.append(f)
+            thr.append(self.design.col_thr[f][:, :b].reshape(-1))
+        return _PooledDesign(self, torch.cat(sel), torch.cat(thr))
+
+
+class _PooledDesign:
+    """One tree's design over its pool: the pool's columns of the compact
+    ids gathered into a new (n, stride) matrix, the pooled thresholds, and
+    ``feat_map`` (pooled feature -> original column). Routing reads the
+    compact ids, so no (n, pool) int32 matrix is made."""
+
+    def __init__(self, pool: _ForestPool, sel: torch.Tensor,
+                 packed_thr: torch.Tensor):
+        src = pool.design.ids
+        self.ids = torch.zeros((pool.n, pool.stride), dtype=src.dtype,
+                               device=pool.device)
+        self.ids[:, :pool.d] = src.index_select(1, sel)
+        self.feat_map = sel
+        self.packed_thr = packed_thr
+        self.not_a_split = ~torch.isfinite(packed_thr)
+        self.n, self.d, self.device = pool.n, pool.d, pool.device
+        self.total_bins, self.offsets = pool.total_bins, pool.offsets
+        self.feat_of, self.prev_bin = pool.feat_of, pool.prev_bin
+        self.has_prev, self.hist_plan = pool.has_prev, pool.hist_plan
+
+    def row_bins(self, feat: torch.Tensor) -> torch.Tensor:
+        """(n,) packed bin of each row at its pooled feature ``feat``."""
+        local = torch.gather(self.ids, 1, feat[:, None])[:, 0].long()
+        if self.ids.dtype == torch.int16:           # uint16 bit patterns
+            local = local & 0xFFFF
+        return local + self.offsets[feat]
+
+
+def _node_uniforms(draws, t: int, device: torch.device):
+    """``node_u`` of tree ``t`` for _grow_tree: each level drawn once and
+    kept, so every candidate grown on the tree gets the same subsets.
+    Float64 on every device, so the card picks the CPU's subsets."""
+    cache: Dict[int, torch.Tensor] = {}
+
+    def node_u(level: int, shape) -> torch.Tensor:
+        u = cache.get(level)
+        if u is None:
+            u = cache[level] = _on(draws.node_uniform(t, level, shape),
+                                   torch.float64, device)
+        return u
+    return node_u
+
+
+def _forest_trees(design: _PackedDesign, onehot: torch.Tensor, lanes,
+                  draws, *, depth: int, num_trees: int, impurity: str,
+                  bootstrap: bool, max_features: Optional[int],
+                  pool: Optional[_ForestPool]):
+    """Grow one forest per lane, tree by tree; yields (tree, lane, feat
+    heap, thr heap, leaf class distributions (2^depth, K)).
+
+    ``lanes`` holds (mask (n,), min_instances, min_info_gain,
+    subsampling_rate) per candidate. Tree t's pool, Poisson weights and
+    node uniforms depend only on (draws, t, rate), so they are drawn once
+    and shared by every lane. Statistics are one-hot labels times
+    (weight x mask); a leaf holds its class distribution, 1/K when
+    empty."""
+    dev = design.device
+    K = onehot.shape[1]
+    gain = _gini_gain if impurity == "gini" else _entropy_gain
+    for t in range(num_trees):
+        tree_design = design if pool is None else pool.tree(t, draws)
+        feat_map = None if pool is None else tree_design.feat_map
+        node_u = None
+        if max_features is not None and max_features < tree_design.d:
+            node_u = _node_uniforms(draws, t, dev)
+        weights: Dict[float, torch.Tensor] = {}
+        for i, (mask, min_inst, min_gain, rate) in enumerate(lanes):
+            w = mask
+            if bootstrap:
+                if rate not in weights:
+                    weights[rate] = _on(draws.poisson(t, rate, design.n),
+                                        onehot.dtype, dev)
+                w = weights[rate] * mask
+            feat, thr, leaf_stats, _ = _grow_tree(
+                tree_design, onehot * w[:, None], depth=depth,
+                gain_fn=gain(min_inst), min_info_gain=min_gain,
+                max_features=max_features, node_u=node_u, feat_map=feat_map)
+            lw = torch.sum(leaf_stats, dim=-1, keepdim=True)
+            leaf = torch.where(lw > 0, leaf_stats / torch.clamp(lw, min=1e-12),
+                               1.0 / K)
+            yield t, i, feat, thr, leaf
+
+
+class TreeEnsembleClassifierModel(ClassifierModel):
+    """Random-forest / decision-tree classifier: the mean over trees of
+    the leaf class distributions (the reference's normalized vote
+    averaging). ``leaves`` is (T, 2^depth, K); the trees live on
+    ``device``."""
+
+    def __init__(self, feats, thrs, leaves, depth: int, n_features: int = 0,
+                 device="cuda", uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device)
+        self.feats = _on(feats, torch.int32, self.device)
+        self.thrs = _on(thrs, self.dtype, self.device)
+        self.leaves = _on(leaves, self.dtype, self.device)
+        self.depth = int(depth)
+        self.n_features = int(n_features)
+
+    def predict_raw(self, X) -> np.ndarray:
+        Xt = torch.as_tensor(np.asarray(X), dtype=self.dtype,
+                             device=self.device)
+        leaf = _predict_leaves(Xt, self.feats, self.thrs, self.depth)
+        tree = torch.arange(leaf.shape[0], device=self.device)[:, None]
+        votes = torch.mean(self.leaves[tree, leaf], dim=0)      # (n, K)
+        return votes.cpu().numpy().astype(np.float64)
+
+    def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
+        s = np.sum(raw, axis=1, keepdims=True)
+        return raw / np.where(s > 0, s, 1.0)
+
+
+#: grid parameters that vary per candidate vs those that fix a shape group
+_FOREST_TRACED = ("min_instances_per_node", "min_info_gain",
+                  "subsampling_rate")
+_FOREST_STATIC = ("max_depth", "num_trees", "max_bins", "impurity",
+                  "feature_subset_strategy", "seed")
+
+
+def _forest_setup(est, X, y, device: torch.device):
+    """(design, one-hot labels, pool or None, max_features, draws) of a
+    static group: per-node subsets (and so pools) only with bootstrap."""
+    design = _design_args(X, est.max_bins, device)
+    onehot = _on(np.eye(num_classes(y))[np.asarray(y).astype(np.int64)],
+                 design.dtype, device)
+    mf = (_resolve_max_features(est.feature_subset_strategy, design.d, True)
+          if est.bootstrap else None)
+    classes, cfg, mf = _pool_plan(design.widths, mf)
+    pool = None if cfg is None else _ForestPool(design, classes, cfg)
+    # K1's plan uploads its tables (a wait for the card): before the loop
+    (design if pool is None else pool).hist_plan(onehot.shape[1])
+    draws = (est.draws or TorchDraws)(est.seed, est.num_trees)
+    return design, onehot, pool, mf, draws
+
+
+def _forest_fold_grid(est, X, y, masks, grid, X_val, y_val,
+                      spec) -> np.ndarray:
+    """(F, G) validation metrics of every (fold, grid point) forest
+    candidate: masked fits on the whole prepared matrix, grown tree by
+    tree for every lane of a static group at once, each lane's votes on
+    its fold's validation rows summed as its trees come; then the mean
+    over trees and the on-device metric. Only the matrix reaches the
+    host."""
+    from ..evaluators.device_metrics import binary_from_votes, metric_fn
+    grid = _check_grid(grid, _FOREST_TRACED + _FOREST_STATIC, "forest")
+    dev, dtype = est.device, working_dtype(est.device)
+    masks = np.asarray(masks, dtype=np.float64)
+    F = masks.shape[0]
+    mfn = metric_fn(*spec)
+    masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
+    Xv = torch.as_tensor(np.asarray(X_val), dtype=dtype, device=dev)
+    yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
+    mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
+    for members in _candidate_groups(est, grid, _FOREST_STATIC):
+        cand0 = members[0][1]
+        design, onehot, pool, mf, draws = _forest_setup(cand0, X, y, dev)
+        lanes = [(masks_t[f], float(c.min_instances_per_node),
+                  float(c.min_info_gain), float(c.subsampling_rate))
+                 for f in range(F) for _, c in members]
+        votes: List[Optional[torch.Tensor]] = [None] * len(lanes)
+        depth = cand0.max_depth
+        for _, i, feat, thr, leaf in _forest_trees(
+                design, onehot, lanes, draws, depth=depth,
+                num_trees=cand0.num_trees, impurity=cand0.impurity,
+                bootstrap=cand0.bootstrap, max_features=mf, pool=pool):
+            f = i // len(members)
+            v = leaf[_predict_leaves(Xv[f], feat[None], thr[None], depth)[0]]
+            votes[i] = v if votes[i] is None else votes[i] + v
+        for i, v in enumerate(votes):
+            f, j = divmod(i, len(members))
+            # the mean as XLA computes it: times the reciprocal of T
+            mm[f, members[j][0]] = mfn(
+                yv[f], binary_from_votes(v * (1.0 / cand0.num_trees)))
+    return mm.cpu().numpy().astype(np.float64)
+
+
+class _ForestClassifierBase(Predictor):
+    """Shared search and fit of the tree-ensemble classifiers."""
+
+    num_trees = 1
+    bootstrap = False
+    subsampling_rate = 1.0
+    feature_subset_strategy = "all"
+    draws = None
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search: fused fit + validation metric, (F, G)
+        matrix out (see _forest_fold_grid)."""
+        if spec[0] != "binary" or num_classes(y) != 2:
+            raise NotImplementedError(
+                "the forest-classifier device eval is binary-only")
+        return _forest_fold_grid(self, X, y, masks,
+                                 subset_grid(grid, cand_idx), X_val, y_val,
+                                 spec)
+
+    def fit_arrays(self, X, y) -> TreeEnsembleClassifierModel:
+        design, onehot, pool, mf, draws = _forest_setup(self, X, y,
+                                                        self.device)
+        lane = (torch.ones(design.n, dtype=design.dtype, device=self.device),
+                float(self.min_instances_per_node), float(self.min_info_gain),
+                float(self.subsampling_rate))
+        trees = [(f, t, leaf) for _, _, f, t, leaf in _forest_trees(
+            design, onehot, [lane], draws, depth=int(self.max_depth),
+            num_trees=int(self.num_trees), impurity=self.impurity,
+            bootstrap=self.bootstrap, max_features=mf, pool=pool)]
+        feats, thrs, leaves = (torch.stack(a) for a in zip(*trees))
+        return TreeEnsembleClassifierModel(feats, thrs, leaves,
+                                           depth=self.max_depth,
+                                           n_features=X.shape[1],
+                                           device=self.device)
+
+
+class DecisionTreeClassifier(_ForestClassifierBase):
+    """Single CART tree, gini or entropy impurity, every feature at every
+    node; draws nothing."""
+
+    param_names = ("max_depth", "max_bins", "min_instances_per_node",
+                   "min_info_gain", "impurity", "seed", "device")
+
+    def __init__(self, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 impurity: str = "gini", seed: int = 42, device="cuda",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.impurity = impurity
+        self.seed = seed
+        self.device = resolve_device(device)
+
+
+class RandomForestClassifier(_ForestClassifierBase):
+    """Bagged trees with Poisson(subsampling_rate) row weights (MLlib's
+    BaggedPoint approximation of sampling with replacement), a stratified
+    feature pool per tree and a feature subset per node."""
+
+    bootstrap = True
+    param_names = ("num_trees", "max_depth", "max_bins",
+                   "min_instances_per_node", "min_info_gain",
+                   "subsampling_rate", "feature_subset_strategy", "impurity",
+                   "seed", "device", "draws")
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 max_bins: int = 32, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, subsampling_rate: float = 1.0,
+                 feature_subset_strategy: str = "auto", impurity: str = "gini",
+                 seed: int = 42, device="cuda", draws=None,
+                 uid: Optional[str] = None):
+        """``draws``: optional factory ``draws(seed, num_trees)`` of the
+        pool, bootstrap and node-subset provider (``models/draws.py``;
+        TorchDraws when None)."""
+        super().__init__(uid=uid)
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.subsampling_rate = subsampling_rate
+        self.feature_subset_strategy = feature_subset_strategy
+        self.impurity = impurity
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.draws = draws

@@ -2,9 +2,10 @@
 
 Counterpart of ``transmogrifai_tpu/selector/factories.py``
 (``BinaryClassificationModelSelector.with_cross_validation``). Only the
-binary problem type and the GBT family are ported: asking for the default
-pool, or for a family that is not ported, raises an error that names the
-missing families instead of dropping them silently.
+binary problem type and its tree families (RandomForestClassifier,
+GBTClassifier) are ported: asking for the default pool, or for a family
+that is not ported, raises an error that names the missing families
+instead of dropping them silently.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def _binary_pool(model_types_to_use, device
     if missing:
         raise NotImplementedError(
             f"model families not ported to PyTorch yet: {missing}; pass "
-            f"model_types_to_use=['GBTClassifier'] or models=[...]")
+            f"model_types_to_use=['RandomForestClassifier', "
+            f"'GBTClassifier'] or models=[...]")
     return _filter_models(registry.default_binary_models(device),
                           model_types_to_use)
 
