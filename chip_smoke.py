@@ -19,20 +19,33 @@ Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3):
      compact ids and for int32 packed ids), whether two runs agree bit
      for bit, and K1's time alone at every slot count the searches
      launch, at both shapes;
-  4. the main path: the binary model-selection search over the
-     RandomForestClassifier and GBTClassifier families of the default
-     pool (3 folds x (18 RF points at 50 trees + 18 GBT points), then the
-     winner's refit) on 1M x 100 rows after a stratified 90/10 holdout
-     split; per family its seconds, models x folds/s and K1's launches by
-     slot count, with their time estimated from phase 3;
-  5. the same two families with 4-point grids (RF at 5 trees) at
-     20,000 x 100 rows on the card (float32) and on the CPU (float64),
-     draws from the same CPU generators: metric matrices within 2e-3;
-  6. single-record scoring equals batch scoring, through the winner and
-     through a fitted 50-tree forest;
-  7. torch.profiler windows over one GBT fit, one 50-tree, depth-6 RF
-     fit and the RF search's depth-12 group cut to 5 trees: device busy
-     and idle share, top device ops, host syncs of the fits' tree loops.
+     The forest shape also runs real levels' slots: level 8 (C = 256)
+     of the RF search's depth-12 trees, recorded as the search grows
+     them (the tree with the fewest and the one with the most occupied
+     slots);
+  4. the main path: the binary model-selection search over the whole
+     default pool (3 folds x (8 LogisticRegression points + 18 RF points
+     at 50 trees + 18 GBT points + 4 LinearSVC points) = 144 candidates,
+     then the winner's refit) on 1M x 100 rows after a stratified 90/10
+     holdout split; per family its seconds, models x folds/s and K1's
+     launches by slot count (the tree families), with their time
+     estimated from phase 3;
+  5. the linear search's two products (X @ V and X^T @ R) at its shapes
+     (the search's own ~900K training rows), timed against their bounds;
+     a LinearSVC fit (L-BFGS) on the 1M rows;
+  6. the same four families with the linear ones' full grids and 4-point
+     tree grids (RF at 5 trees) at 20,000 x 100 rows on the card
+     (float32) and on the CPU (float64), draws from the same CPU
+     generators: metric matrices within 2e-3, and the L-BFGS LinearSVC
+     fit on both (the same iteration count, coefficients within 1e-5);
+  7. single-record scoring equals batch scoring, through the winner, the
+     LinearSVC, and the GBT and the 50-tree forest fitted in phase 8;
+  8. torch.profiler windows over the LogisticRegression search (at 250
+     and at 200 FISTA iterations, whose difference is FISTA's own cost),
+     one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
+     depth-12 group cut to 5 trees, the searches on their own training
+     rows: device busy and idle share, top device ops, host syncs of
+     the fits' tree loops.
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
 """
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -55,12 +69,19 @@ sys.path.insert(0, ROOT)
 from transmogrifai_tpu_torch import _build  # noqa: E402
 from transmogrifai_tpu_torch.models.hist_kernel import (  # noqa: E402
     HistPlan, _packed, compact_ids, hist_bytes, level_hist, level_hist_plain)
+from transmogrifai_tpu_torch.models import linear, trees  # noqa: E402
 from transmogrifai_tpu_torch.models.draws import TorchDraws  # noqa: E402
+from transmogrifai_tpu_torch.models.linear import (  # noqa: E402
+    LinearSVC, LogisticRegression)
+from transmogrifai_tpu_torch.models.registry import (  # noqa: E402
+    default_binary_models)
 from transmogrifai_tpu_torch.models.trees import (  # noqa: E402
     GBTClassifier, RandomForestClassifier, _ForestPool, _PackedDesign, _on,
     _pool_plan, _resolve_max_features, clear_design_cache)
+from transmogrifai_tpu_torch.evaluators import (  # noqa: E402
+    BinaryClassificationEvaluator)
 from transmogrifai_tpu_torch.selector import (  # noqa: E402
-    BinaryClassificationModelSelector, DataBalancer)
+    BinaryClassificationModelSelector, CrossValidation, DataBalancer)
 from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 #: H100 SXM published peaks: HBM bytes/s and
@@ -74,13 +95,20 @@ COLS = 100
 #: slot counts the search launches K1 at (depths 3, 6, 12; cap 256)
 SEARCH_SLOTS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 #: families of the main path, in the default pool's order
-FAMILIES = ("RandomForestClassifier", "GBTClassifier")
+FAMILIES = ("LogisticRegression", "RandomForestClassifier", "GBTClassifier",
+            "LinearSVC")
+#: the families that launch K1
+TREE_FAMILIES = ("RandomForestClassifier", "GBTClassifier")
 #: the 4-point grids of the card-against-CPU phase
 SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
               for d in (3, 6) for m in (1.0, 10.0)]
 RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
                   "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
+#: card (float32) against CPU (float64) L-BFGS coefficients at 20K rows:
+#: measured 2.8e-8 on an H100, this leaves float32 rounding a 300x margin
+#: and still fails a line search that fell back to its safe step
+LBFGS_COEF_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -315,11 +343,36 @@ def forest_k1_inputs(device, X: np.ndarray, y: np.ndarray, seed: int = 42):
     return tree, stats.contiguous()
 
 
+def real_level_inputs(device, X: np.ndarray, y: np.ndarray,
+                      level: int = 8, num_trees: int = 3) -> list:
+    """K1's inputs at ``level`` of every tree the RF search grows at depth
+    12 for the default pool's first depth-12 point over 3 folds, cut to
+    ``num_trees`` trees, as the search launches them: a list of (pooled
+    design, slot, stats, C), one per (tree, fold)."""
+    seen = []
+    calls = []
+    real = trees._level_histograms
+
+    def record(design, slot, stats, num_slots):
+        if len(calls) % 12 == level:
+            seen.append((design, slot.clone(), stats.clone(), num_slots))
+        calls.append(num_slots)
+        return real(design, slot, stats, num_slots)
+    trees._level_histograms = record
+    try:
+        search_slice(device, X, y, num_trees=num_trees, depth=12,
+                     points=1)()
+    finally:
+        trees._level_histograms = real
+    return seen
+
+
 def phase_k1_forest(device: torch.device, X: np.ndarray,
                     y: np.ndarray) -> dict:
     """K1 at the forest path's shape against its plain version (integer
-    statistics: exact, and equal in two runs), then K1 alone at every
-    slot count the forest search launches."""
+    statistics: exact, and equal in two runs), on random slots and on a
+    real level's, then K1 alone at every slot count the forest search
+    launches."""
     tree, stats = forest_k1_inputs(device, X, y)
     plan = tree.hist_plan(2)
     n, TB = tree.n, tree.total_bins
@@ -335,6 +388,24 @@ def phase_k1_forest(device: torch.device, X: np.ndarray,
                              dtype=torch.int32)
         cases.append(k1_case(f"forest C={C}", tree.ids, tree.offsets, slot,
                              stats, C, TB, plan, exact=True))
+    # level 8 of the search's trees: the unsplit one (a tree whose pool
+    # misses the informative features keeps every row in one node) and
+    # the one with the most occupied slots
+    levels = real_level_inputs(device, X, y)
+    occupied = [int(torch.unique(slot[slot < C]).numel())
+                for _, slot, _, C in levels]
+    log(f"[k1-forest] real level 8 of the RF search, occupied slots by "
+        f"(tree, fold): {occupied}")
+    for label, i in (("unsplit", int(np.argmin(occupied))),
+                     ("fullest", int(np.argmax(occupied)))):
+        real, slot, real_stats, C = levels[i]
+        crowd = int(torch.bincount(slot[slot < C].long()).max())
+        log(f"[k1-forest] real level 8 {label}: C={C}, {occupied[i]} "
+            f"occupied slots, the largest holds {crowd} rows")
+        cases.append(k1_case(f"forest real level 8 {label} C={C}", real.ids,
+                             real.offsets, slot, real_stats, C,
+                             real.total_bins, real.hist_plan(2), exact=True))
+    del levels, real, slot, real_stats
     ms_by_c = {}
     for C in SEARCH_SLOTS:
         slot = torch.randint(0, C, (n,), generator=gen, device=device,
@@ -357,13 +428,17 @@ def metric_matrix(selected) -> np.ndarray:
 
 def small_models(device, num_rounds: int = 20, num_trees: int = 5,
                  families=FAMILIES):
-    """The card-against-CPU pool: each family with its 4-point grid."""
+    """The card-against-CPU pool: the linear families with their default
+    grids (8 and 4 points), the tree families with 4-point grids."""
     dev = resolve_device(device)
-    pool = {"RandomForestClassifier": (
-                RandomForestClassifier(num_trees=num_trees, device=dev),
-                RF_SMALL_GRID),
-            "GBTClassifier": (GBTClassifier(num_rounds=num_rounds,
-                                            device=dev), SMALL_GRID)}
+    pool = {type(est).__name__: (est, grid)
+            for est, grid in default_binary_models(dev)
+            if type(est).__name__ not in TREE_FAMILIES}
+    pool["RandomForestClassifier"] = (
+        RandomForestClassifier(num_trees=num_trees, device=dev),
+        RF_SMALL_GRID)
+    pool["GBTClassifier"] = (GBTClassifier(num_rounds=num_rounds,
+                                           device=dev), SMALL_GRID)
     return [pool[f] for f in families]
 
 
@@ -390,14 +465,13 @@ def time_family(est, record: dict) -> None:
 
 def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
                tag: str = "main") -> dict:
-    """The binary search over ``models`` (default: the default pool's
-    FAMILIES with their 18-point grids), per family timed."""
+    """The binary search over ``models`` (default: the default pool),
+    per family timed."""
     dev = resolve_device(device)
     sel = BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, stratify=True,
         splitter=DataBalancer(reserve_test_fraction=0.1, seed=42),
-        models=models, model_types_to_use=None if models else FAMILIES,
-        device=dev)
+        models=models, device=dev)
     families: dict = {}
     for est, _ in sel.models:
         time_family(est, families)
@@ -407,9 +481,10 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
         torch.cuda.reset_peak_memory_stats()
     level_hist.launches = 0
     level_hist.launches_by_c.clear()
-    t0 = time.perf_counter()
-    selected = sel.fit_arrays(X, y)
-    wall = time.perf_counter() - t0
+    with iterations_of("fista_minimize") as fista:
+        t0 = time.perf_counter()
+        selected = sel.fit_arrays(X, y)
+        wall = time.perf_counter() - t0
     launches = level_hist.launches
     by_c = dict(sorted(level_hist.launches_by_c.items()))
     s = selected.summary
@@ -418,9 +493,11 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
     if mm.shape != (3, G) or not np.all(np.isfinite(mm)):
         raise AssertionError(f"[{tag}] bad metric matrix {mm}")
     if dev.type == "cuda":
-        idle = [f for f, rec in families.items() if rec["k1_launches"] == 0]
+        idle = [f for f, rec in families.items()
+                if f in TREE_FAMILIES and rec["k1_launches"] == 0]
         if launches == 0 or idle:
-            raise AssertionError(f"[{tag}] K1 never launched by {idle or 'the search'}")
+            raise AssertionError(
+                f"[{tag}] K1 never launched by {idle or 'the search'}")
     hold = s.holdout_evaluation
     if hold is None or not 0.5 < hold.AuROC <= 1.0:
         raise AssertionError(f"[{tag}] holdout evaluation is off: {hold}")
@@ -439,6 +516,7 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
            "winner_index": winner_index,
            "best_metric": s.best_validation_metric,
            "holdout_AuPR": hold.AuPR, "holdout_AuROC": hold.AuROC,
+           "fista_iterations": [int(i.max()) for i in fista],
            "metric_matrix": mm.tolist(), "selected": selected}
     if s.validation_results[winner_index].model_name != s.best_model_name:
         raise AssertionError(f"[{tag}] the selector's winner is not the "
@@ -458,7 +536,8 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
         f"{hold.AuPR:.6f} AuROC {hold.AuROC:.6f}; K1 launches {launches} "
         f"(refit {out['k1_launches_refit']})"
         + (f"; max_memory_allocated {out['max_memory_allocated']}"
-           if "max_memory_allocated" in out else ""))
+           if "max_memory_allocated" in out else "")
+        + f"; FISTA iterations by call {out['fista_iterations']}")
     log(f"[{tag}] metric matrix (folds x candidates):")
     for row in mm:
         log(f"[{tag}]   " + " ".join(f"{v:.6f}" for v in row))
@@ -466,16 +545,18 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
 
 
 def phase_card_vs_cpu(device, rows: int, cols: int, num_rounds: int = 20,
-                      num_trees: int = 5) -> dict:
-    """The same small RF + GBT search on ``device`` (float32 on a card)
-    and on the CPU (float64), the forests' draws from the same CPU
-    generators: metric matrices within AGREE_TOL, same winner unless the
-    CPU's top two means lie within AGREE_TOL."""
+                      num_trees: int = 5, families=FAMILIES) -> dict:
+    """The same small search on ``device`` (float32 on a card) and on the
+    CPU (float64), the forests' draws from the same CPU generators:
+    metric matrices within AGREE_TOL, same winner unless the CPU's top
+    two means lie within AGREE_TOL. Then a LinearSVC L-BFGS fit on both:
+    the same iteration count, coefficients within LBFGS_COEF_TOL and AuPR
+    on the rows within AGREE_TOL."""
     X, y = make_data(rows, cols, seed=1)
     card = phase_main(device, X, y, models=small_models(
-        device, num_rounds, num_trees), tag="agree-card")
+        device, num_rounds, num_trees, families), tag="agree-card")
     cpu = phase_main("cpu", X, y, models=small_models(
-        "cpu", num_rounds, num_trees), tag="agree-cpu")
+        "cpu", num_rounds, num_trees, families), tag="agree-cpu")
     a, b = np.asarray(card["metric_matrix"]), np.asarray(cpu["metric_matrix"])
     diff = float(np.abs(a - b).max())
     means = np.sort(b.mean(axis=0))[::-1]
@@ -487,37 +568,152 @@ def phase_card_vs_cpu(device, rows: int, cols: int, num_rounds: int = 20,
     if diff > AGREE_TOL or not (same or close):
         raise AssertionError("card and CPU searches disagree")
     by_family = {}
-    for name in FAMILIES:
+    for name in card["families"]:
         cols_f = [i for i, r in enumerate(
             card["selected"].summary.validation_results)
             if r.model_name == name]
         by_family[name] = float(np.abs(a[:, cols_f] - b[:, cols_f]).max())
     log(f"[agree] max |card - cpu| by family: {json.dumps(by_family)}; "
         f"seconds card {card['wall_s']:.2f} cpu {cpu['wall_s']:.2f}")
+    (m_card, s_card, it_card), (m_cpu, s_cpu, it_cpu) = (
+        lbfgs_fit(where, X, y) for where in (device, "cpu"))
+    evaluator = BinaryClassificationEvaluator()
+    aupr = [evaluator.evaluate_arrays(y, m.predict_arrays(X)).AuPR
+            for m in (m_card, m_cpu)]
+    coef_diff = float(np.abs(m_card.coefficients.cpu().numpy()
+                             - m_cpu.coefficients.cpu().numpy()).max())
+    log(f"[agree] LinearSVC L-BFGS fit at {rows} rows: card {s_card:.3f} s "
+        f"{it_card} iterations, cpu {s_cpu:.3f} s {it_cpu} iterations; "
+        f"max |coef diff| {coef_diff:.3e}; AuPR card {aupr[0]:.6f} cpu "
+        f"{aupr[1]:.6f}")
+    if (it_card != it_cpu or coef_diff > LBFGS_COEF_TOL
+            or abs(aupr[0] - aupr[1]) > AGREE_TOL):
+        raise AssertionError(
+            f"card and CPU L-BFGS fits disagree: iterations {it_card} vs "
+            f"{it_cpu} (must be equal), max |coef diff| {coef_diff:.3e} "
+            f"(tol {LBFGS_COEF_TOL}), AuPR {aupr[0]} vs {aupr[1]}")
     return {"max_abs_diff": diff, "same_winner": same,
             "max_abs_diff_by_family": by_family,
-            "card_s": card["wall_s"], "cpu_s": cpu["wall_s"]}
+            "card_s": card["wall_s"], "cpu_s": cpu["wall_s"],
+            "lbfgs": {"card_s": s_card, "cpu_s": s_cpu,
+                      "card_iterations": it_card,
+                      "cpu_iterations": it_cpu, "max_coef_diff": coef_diff,
+                      "aupr_card": aupr[0], "aupr_cpu": aupr[1]}}
+
+
+@contextlib.contextmanager
+def iterations_of(solver: str):
+    """Record the iteration counts (the second result) of every call the
+    linear models make to ``solver`` ("fista_minimize": a tensor per call,
+    read only after the run; "lbfgs_minimize": an int)."""
+    seen = []
+    real = getattr(linear, solver)
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[1])
+        return out
+    setattr(linear, solver, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(linear, solver, real)
+
+
+def lbfgs_fit(device, X: np.ndarray, y: np.ndarray, reg: float = 0.01):
+    """A LinearSVC(reg_param=reg) fit, which runs L-BFGS: (model, seconds
+    to the read-back of its coefficients, L-BFGS iterations)."""
+    with iterations_of("lbfgs_minimize") as counts:
+        t0 = time.perf_counter()
+        model = LinearSVC(reg_param=reg, max_iter=50,
+                          device=resolve_device(device)).fit_arrays(X, y)
+        seconds = time.perf_counter() - t0
+    return model, seconds, counts[0]
+
+
+def phase_lbfgs(device, X: np.ndarray, y: np.ndarray) -> tuple:
+    """The LinearSVC L-BFGS fit on the main path's rows: seconds,
+    iterations, and a sane AuPR on the rows. Returns (record, model)."""
+    model, seconds, iters = lbfgs_fit(device, X, y)
+    coef = model.coefficients.cpu().numpy()
+    aupr = BinaryClassificationEvaluator().evaluate_arrays(
+        y, model.predict_arrays(X)).AuPR
+    if not (np.all(np.isfinite(coef)) and 0.5 < aupr <= 1.0):
+        raise AssertionError(f"[lbfgs] bad LinearSVC fit: AuPR {aupr}")
+    log(f"[lbfgs] LinearSVC(reg_param=0.01) fit on {X.shape[0]}x"
+        f"{X.shape[1]}: {seconds:.3f} s, {iters} L-BFGS iterations "
+        f"({seconds / iters * 1e3:.2f} ms each); AuPR on the rows "
+        f"{aupr:.6f}")
+    return {"seconds": seconds, "iterations": iters, "aupr": aupr}, model
+
+
+def phase_linear_ops(device, X: np.ndarray, y: np.ndarray) -> dict:
+    """The linear search's two products per solver iteration, X @ V (n,
+    C) and X^T @ R (d, C), at its shapes (C = 3 folds x the family's
+    grid), and one whole closed-form gradient, each against its bound:
+    every input read once and the output written once at the card's
+    memory rate, or 2 n d C float32 operations at its peak."""
+    masks, _, _, _ = fold_arrays(X, y)
+    design = linear._prep(X, masks, True, resolve_device(device))
+    Xc = design.Xc
+    n, d = Xc.shape
+    y_t = torch.as_tensor(y, dtype=Xc.dtype, device=Xc.device)
+    gen = torch.Generator(device=Xc.device)
+    gen.manual_seed(2)
+    out = {}
+    for family, G in (("LogisticRegression", 8), ("LinearSVC", 4)):
+        C = 3 * G
+        V = torch.randn((d, C), generator=gen, device=Xc.device)
+        R = torch.randn((n, C), generator=gen, device=Xc.device)
+        Z = torch.randn((C, d + 1), generator=gen, device=Xc.device) * 0.1
+        kind = "logistic" if family == "LogisticRegression" else "svc"
+        _, grad = linear._objective(kind, design, y_t,
+                                    torch.full((C,), 0.01,
+                                               device=Xc.device), True)
+        rec = {"C": C, "n": n, "d": d}
+        for op, fn, nbytes in (
+                ("X@V", lambda: Xc @ V, 4 * (n * d + d * C + n * C)),
+                ("X^T@R", lambda: Xc.T @ R, 4 * (n * d + n * C + d * C)),
+                ("gradient", lambda: grad(Z),
+                 4 * (n * d + 4 * n + 2 * C * (d + 1)))):
+            ms = cuda_ms(fn, 20)
+            flops = 2 * n * d * C * (2 if op == "gradient" else 1)
+            bound = max(nbytes / PEAK_BYTES_PER_S,
+                        flops / PEAK_F32_OPS_PER_S) * 1e3
+            rec[op] = {"ms": ms, "bound_ms": bound,
+                       "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                                    >= flops / PEAK_F32_OPS_PER_S
+                                    else "operations")}
+            log(f"[linear] {family} C={C} n={n} d={d} {op}: ms={ms:.4f} "
+                f"bound_ms={bound:.4f} ({rec[op]['bound_by']})")
+        out[family] = rec
+    del design, Xc
+    return out
 
 
 def phase_serve(selected, X: np.ndarray, count: int = 8,
                 tag: str = "serve") -> float:
     """Score ``count`` records one at a time through a fitted model; they
     must equal the batch scores (probabilities within 1e-6: the card may
-    sum the trees in another order at another batch width)."""
+    sum the trees, or a product, in another order at another batch
+    width; a model without probabilities, LinearSVC, by its raw margins
+    within 1e-5)."""
     batch = selected.predict_arrays(X[:count])
+    scores = "probability" if batch.probability.shape[1] else "raw_prediction"
+    tol = 1e-6 if scores == "probability" else 1e-5
     worst = 0.0
     for i in range(count):
         one = selected.predict_arrays(X[i:i + 1])
         if one.data[0] != batch.data[i]:
             raise AssertionError(f"record {i}: label {one.data[0]} vs "
                                  f"batch {batch.data[i]}")
-        worst = max(worst, float(np.abs(one.probability[0]
-                                        - batch.probability[i]).max()))
-    if worst > 1e-6:
+        worst = max(worst, float(np.abs(getattr(one, scores)[0]
+                                        - getattr(batch, scores)[i]).max()))
+    if worst > tol:
         raise AssertionError(f"single-record scores differ from batch "
                              f"scores by {worst}")
     log(f"[{tag}] {count} single records equal the batch "
-        f"(max prob diff {worst:.2e})")
+        f"(max {scores} diff {worst:.2e})")
     return worst
 
 
@@ -559,24 +755,88 @@ def tree_loop(est, X: np.ndarray, y: np.ndarray):
         bootstrap=est.bootstrap, max_features=mf, pool=pool))
 
 
+def fold_arrays(X: np.ndarray, y: np.ndarray):
+    """(masks, spec, X_val, y_val) of the main path's 3 stratified folds
+    over the whole matrix."""
+    return CrossValidation(BinaryClassificationEvaluator(), num_folds=3,
+                           seed=42, stratify=True)._build_fold_arrays(X, y)
+
+
+def search_rows(X: np.ndarray, y: np.ndarray):
+    """(X, y) of the rows the main path's search runs on: the training
+    part of its stratified 90/10 holdout split, as the selector prepares
+    it."""
+    splitter = DataBalancer(reserve_test_fraction=0.1, seed=42)
+    train_idx, _ = splitter.split(y)
+    idx = splitter.prepare(y[train_idx])
+    return X[train_idx][idx], y[train_idx][idx]
+
+
 def search_slice(device, X: np.ndarray, y: np.ndarray, num_trees: int = 5,
-                 depth: int = 12):
+                 depth: int = 12, points=None):
     """One static group of the main path's RF search (its ``depth`` grid
-    points, 3 stratified folds of the whole matrix), cut to ``num_trees``
-    trees: a callable that runs it and returns its metric matrix."""
-    from transmogrifai_tpu_torch.evaluators import (
-        BinaryClassificationEvaluator)
-    from transmogrifai_tpu_torch.models.registry import default_binary_models
-    from transmogrifai_tpu_torch.selector import CrossValidation
-    masks, spec, X_val, y_val = CrossValidation(
-        BinaryClassificationEvaluator(), num_folds=3, seed=42,
-        stratify=True)._build_fold_arrays(X, y)
+    points, or the first ``points`` of them, 3 stratified folds of the
+    whole matrix), cut to ``num_trees`` trees: a callable that runs it
+    and returns its metric matrix."""
+    masks, spec, X_val, y_val = fold_arrays(X, y)
     rf, grid = next((e, g) for e, g in default_binary_models(device)
                     if isinstance(e, RandomForestClassifier))
     est = rf.with_params(num_trees=num_trees)
-    grid = [p for p in grid if p["max_depth"] == depth]
+    grid = [p for p in grid if p["max_depth"] == depth][:points]
     return lambda: est.eval_fold_grid_arrays(X, y, masks, grid, X_val,
                                              y_val, spec)
+
+
+def linear_search(device, X: np.ndarray, y: np.ndarray,
+                  family: str = "LogisticRegression", max_iter=None):
+    """The main path's search of one linear family (its default grid, 3
+    stratified folds of the whole matrix; 5 * ``max_iter`` FISTA
+    iterations, the pool's when None): a callable that runs it and
+    returns its metric matrix."""
+    masks, spec, X_val, y_val = fold_arrays(X, y)
+    est, grid = next((e, g) for e, g in default_binary_models(device)
+                     if type(e).__name__ == family)
+    if max_iter is not None:
+        est = est.with_params(max_iter=max_iter)
+    return lambda: est.eval_fold_grid_arrays(X, y, masks, grid, X_val,
+                                             y_val, spec)
+
+
+def profiled_estimators(device, num_rounds: int = 20, num_trees: int = 50):
+    """The single fits the profile windows time and whose models then
+    score single records: a depth-6 GBT and a depth-6 forest."""
+    return (GBTClassifier(num_rounds=num_rounds, max_depth=6, device=device),
+            RandomForestClassifier(num_trees=num_trees, max_depth=6,
+                                   device=device))
+
+
+def phase_fista_profile(device, X: np.ndarray, y: np.ndarray,
+                        max_iter: int = 50, fewer: int = 40) -> dict:
+    """The LogisticRegression search under the profiler at the pool's
+    5 * ``max_iter`` FISTA iterations and at 5 * ``fewer``: the
+    differences over the 5 * (max_iter - fewer) iterations between them
+    are FISTA's own device ops and device time an iteration, without the
+    search's fixed work (upload, statistics, power iteration, metrics)."""
+    full, _ = phase_profile(
+        f"LogisticRegression search (8 points x 3 folds, {5 * max_iter} "
+        f"FISTA iterations)", linear_search(device, X, y, max_iter=max_iter))
+    short, _ = phase_profile(
+        f"LogisticRegression search at {5 * fewer} FISTA iterations",
+        linear_search(device, X, y, max_iter=fewer))
+    iters = 5 * (max_iter - fewer)
+    full["device_ops_per_fista_iteration"] = (
+        full["kernel_launches"] - short["kernel_launches"]) / iters
+    full["device_ms_per_fista_iteration"] = (
+        full["device_busy_ms"] - short["device_busy_ms"]) / iters
+    full["wall_ms_per_fista_iteration"] = (
+        full["wall_ms"] - short["wall_ms"]) / iters
+    full["at_fewer_iterations"] = short
+    log(f"[profile]   per FISTA iteration (the difference of the two "
+        f"windows over {iters} iterations): "
+        f"{full['device_ops_per_fista_iteration']:.2f} device ops, device "
+        f"busy {full['device_ms_per_fista_iteration']:.4f} ms, wall "
+        f"{full['wall_ms_per_fista_iteration']:.4f} ms")
+    return full
 
 
 def phase_profile(label: str, run, loop=None) -> tuple:
@@ -661,7 +921,8 @@ def main(argv=None) -> int:
     ms_by_family = {"RandomForestClassifier": k1["forest"]["ms_by_c"],
                     "GBTClassifier": k1["ms_by_c"]}
     k1_s = {}
-    for name, rec in main_run["families"].items():
+    for name in TREE_FAMILIES:
+        rec = main_run["families"][name]
         ms_by_c, by_c = ms_by_family[name], rec["k1_launches_by_c"]
         if set(by_c) - set(ms_by_c):
             raise AssertionError(f"K1 ran at untimed slot counts "
@@ -671,20 +932,27 @@ def main(argv=None) -> int:
             f"{k1_s[name]:.3f} s of {rec['seconds']:.2f} s")
     main_run["k1_seconds_estimate"] = k1_s
     phase_serve(selected, X[-1000:])
+    # the linear products and the search profiles run on the search's
+    # own rows
+    X_s, y_s = search_rows(X, y)
+    linear_ops = phase_linear_ops(device, X_s, y_s)
+    lbfgs, svc = phase_lbfgs(device, X, y)
+    phase_serve(svc, X[-1000:], tag="serve-svc")
     agree = phase_card_vs_cpu(device, 20_000, COLS)
     prof = {}
-    gbt = GBTClassifier(num_rounds=20, max_depth=6, device=device)
-    prof["gbt"], _ = phase_profile("depth-6 20-round GBT fit",
-                                   lambda: gbt.fit_arrays(X, y),
-                                   lambda: tree_loop(gbt, X, y))
-    rf = RandomForestClassifier(num_trees=50, max_depth=6, device=device)
+    prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
+    gbt, rf = profiled_estimators(device)
+    prof["gbt"], gbt_model = phase_profile(
+        "depth-6 20-round GBT fit", lambda: gbt.fit_arrays(X, y),
+        lambda: tree_loop(gbt, X, y))
+    phase_serve(gbt_model, X[-1000:], tag="serve-gbt")
     prof["rf"], forest = phase_profile("depth-6 50-tree RF fit",
                                        lambda: rf.fit_arrays(X, y),
                                        lambda: tree_loop(rf, X, y))
     phase_serve(forest, X[-1000:], tag="serve-rf")
     prof["rf_search"], _ = phase_profile(
         "RF search, depth-12 group (6 points x 3 folds), 5 trees",
-        search_slice(device, X, y))
+        search_slice(device, X_s, y_s))
     clear_design_cache()
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
@@ -701,6 +969,7 @@ def main(argv=None) -> int:
                  for name, rec in main_run["families"].items()},
              "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
+                         "linear_ops": linear_ops, "lbfgs": lbfgs,
                          "agree": agree, "profile": prof,
                          "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
-"""CPU rehearsal of chip_smoke.py: the main-path (GBT alone, and RF with
-GBT), card-against-CPU and single-record phases and the forest-shape K1
-inputs at a tiny size on an explicit CPU device, and the script's refusal
-to run without a card."""
+"""CPU rehearsal of chip_smoke.py: the main-path (GBT alone, and the four
+families of the default pool), card-against-CPU, L-BFGS and
+single-record phases, the linear search slice and the forest-shape K1
+inputs (random and a real level's slots) at a tiny size on an explicit
+CPU device, and the script's refusal to run without a card."""
 import os
 import subprocess
 import sys
@@ -46,24 +47,37 @@ def test_card_vs_cpu_phase():
                                        num_trees=2)
     assert got["max_abs_diff"] == 0.0 and got["same_winner"]
     assert got["max_abs_diff_by_family"] == {
-        "RandomForestClassifier": 0.0, "GBTClassifier": 0.0}
+        "LogisticRegression": 0.0, "RandomForestClassifier": 0.0,
+        "GBTClassifier": 0.0, "LinearSVC": 0.0}
+    lbfgs = got["lbfgs"]
+    assert lbfgs["card_iterations"] == lbfgs["cpu_iterations"] >= 1
+    assert lbfgs["max_coef_diff"] == 0.0
+    assert lbfgs["aupr_card"] == lbfgs["aupr_cpu"] > 0.5
 
 
 def test_main_phase_rf_and_gbt():
-    """The main path's two families, each timed, in the pool's order; a
-    fitted forest scores single records as in a batch."""
+    """The main path's four families (the linear ones with their default
+    8- and 4-point grids), each timed, in the pool's order; a fitted
+    forest scores single records as in a batch."""
     X, y = chip_smoke.make_data(1200, 20, seed=2)
-    out = chip_smoke.phase_main("cpu", X, y, models=chip_smoke.small_models(
-        "cpu", num_rounds=2, num_trees=3), tag="rehearse-rf")
+    models = chip_smoke.small_models("cpu", num_rounds=2, num_trees=3)
+    out = chip_smoke.phase_main("cpu", X, y, models=models,
+                                tag="rehearse-rf")
     assert list(out["families"]) == list(chip_smoke.FAMILIES)
-    for rec in out["families"].values():
-        assert rec["candidates"] == 12 and rec["seconds"] > 0
+    for (_, grid), rec in zip(models, out["families"].values()):
+        assert rec["candidates"] == 3 * len(grid) and rec["seconds"] > 0
         assert rec["k1_launches"] == 0       # the CPU takes the plain path
+    assert [len(g) for _, g in models] == [8, 4, 4, 4]
     mm = np.asarray(out["metric_matrix"])
-    assert mm.shape == (3, 8) and np.all(np.isfinite(mm))
-    grids = chip_smoke.RF_SMALL_GRID + chip_smoke.SMALL_GRID
-    assert out["winner_params"] == grids[out["winner_index"]]
-    assert out["winner"] == chip_smoke.FAMILIES[out["winner_index"] // 4]
+    assert mm.shape == (3, 20) and np.all(np.isfinite(mm))
+    grids = [(type(est).__name__, p) for est, grid in models for p in grid]
+    assert (out["winner"], out["winner_params"]) == grids[
+        out["winner_index"]]
+    # the LR and SVC searches run the fixed 250 iterations; an L1
+    # logistic refit stops on its own
+    assert out["fista_iterations"][:2] == [250, 250]
+    if out["winner"] == "LogisticRegression":
+        assert len(out["fista_iterations"]) == 3
     forest = chip_smoke.RandomForestClassifier(
         num_trees=3, max_depth=4, device="cpu").fit_arrays(X, y)
     assert chip_smoke.phase_serve(forest, X, tag="rehearse-rf") <= 1e-6
@@ -87,6 +101,70 @@ def test_forest_k1_inputs():
                                  tree.total_bins)
     assert torch.equal(hist.sum(dim=1), 40 * torch.zeros(
         (32, 2), dtype=stats.dtype).index_add_(0, slot.long(), stats))
+
+
+def test_real_level_inputs():
+    """The real-slot K1 cases: level 8 of the RF search's depth-12 trees
+    (3 folds x 2 trees), as the search launches them (C = 256 compressed
+    slots over the pooled design, integer stats); K1's plain version sums
+    each exactly into its slots' totals."""
+    X, y = chip_smoke.make_data(3000, chip_smoke.COLS, seed=4)
+    levels = chip_smoke.real_level_inputs("cpu", X, y, num_trees=2)
+    assert len(levels) == 6
+    occupied = []
+    for design, slot, stats, C in levels:
+        assert C == 256 and slot.dtype == torch.int32
+        assert (design.d, design.total_bins) == (40, 320)
+        assert torch.equal(stats, stats.round())
+        live = slot < C
+        occupied.append(int(torch.unique(slot[live]).numel()))
+        hist = chip_smoke.level_hist(design.ids, design.offsets, slot,
+                                     stats, C, design.total_bins)
+        totals = torch.zeros((C, 2), dtype=stats.dtype).index_add_(
+            0, slot[live].long(), stats[live])
+        assert torch.equal(hist.sum(dim=1), 40 * totals)
+    assert max(occupied) > 8
+
+
+def test_linear_phases():
+    """The L-BFGS LinearSVC fit phase, single records through the SVC
+    (raw margins, no probability), and the LR search slice the profile
+    runs."""
+    X, y = chip_smoke.make_data(1500, 12, seed=5)
+    rec, svc = chip_smoke.phase_lbfgs("cpu", X, y)
+    assert 1 <= rec["iterations"] <= 50 and 0.5 < rec["aupr"] <= 1.0
+    assert svc.predict_arrays(X[:3]).probability.shape == (3, 0)
+    assert chip_smoke.phase_serve(svc, X, tag="rehearse-svc") <= 1e-5
+    mm = chip_smoke.linear_search("cpu", X, y)()
+    assert mm.shape == (3, 8) and np.all(np.isfinite(mm))
+    # the profile's shorter window: fewer FISTA iterations, same shape
+    with chip_smoke.iterations_of("fista_minimize") as fista:
+        mm = chip_smoke.linear_search("cpu", X, y, max_iter=4)()
+    assert mm.shape == (3, 8) and [int(i.max()) for i in fista] == [20]
+
+
+def test_search_rows():
+    """The rows the linear products and the search profiles run on are
+    the selector's own training rows: the 90 % left by its stratified
+    holdout split, the label's balance kept."""
+    X, y = chip_smoke.make_data(2000, 12, seed=6)
+    X_s, y_s = chip_smoke.search_rows(X, y)
+    assert X_s.shape == (1800, 12) and y_s.shape == (1800,)
+    assert abs(y_s.mean() - y.mean()) < 2e-3
+    rows = {r.tobytes() for r in X}
+    assert all(r.tobytes() in rows for r in X_s)
+
+
+def test_profiled_fits_serve():
+    """The GBT and forest the profile windows fit score single records as
+    in a batch (the smoke serves both on the card)."""
+    X, y = chip_smoke.make_data(1200, 12, seed=7)
+    gbt, rf = chip_smoke.profiled_estimators("cpu", num_rounds=2,
+                                             num_trees=2)
+    assert (gbt.max_depth, rf.max_depth) == (6, 6)
+    for est, tag in ((gbt, "rehearse-gbt"), (rf, "rehearse-rf")):
+        assert chip_smoke.phase_serve(est.fit_arrays(X, y), X,
+                                      tag=tag) <= 1e-6
 
 
 def test_write_out(tmp_path):

@@ -51,3 +51,21 @@ def test_device_metric_equals_host_evaluator():
             torch.as_tensor(margin)), metric)
         assert abs(float(dev) - getattr(host, metric)) <= 1e-12
         assert getattr(host, metric) == getattr(ref, metric)
+
+
+def test_raw_pair_scores_match_jax():
+    """The logistic model's score twin: the max-shifted softmax of the
+    [-m, m] pair, saturating margins included, equals the JAX package's
+    (1e-15), and so does its AuPR (1e-12, the other tests' tolerance: the
+    trapezoid sums add in another order)."""
+    y, margin = _tied(400, 3)
+    margin = margin * 12.0                        # p rounds to 1 at m > 19
+    raw = np.stack([-margin, margin], axis=1)
+    ref = jdm.binary_from_raw_pair(jnp.asarray(raw))
+    got = tdm.binary_from_raw_pair(torch.as_tensor(raw))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-15)
+    assert abs(float(tdm.binary_metric(torch.as_tensor(y), *got, "AuPR"))
+               - float(jdm.binary_metric(jnp.asarray(y), *ref, "AuPR"))
+               ) <= 1e-12

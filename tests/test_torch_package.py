@@ -11,6 +11,8 @@ import pytest
 import torch
 
 import transmogrifai_tpu_torch
+from transmogrifai_tpu_torch.models.linear import (
+    LinearSVC, LinearSVCModel, LogisticRegression, LogisticRegressionModel)
 from transmogrifai_tpu_torch.models.trees import (
     DecisionTreeClassifier, GBTClassifier, GBTClassifierModel,
     RandomForestClassifier, TreeEnsembleClassifierModel)
@@ -44,6 +46,11 @@ def _no_card(monkeypatch):
                                         np.zeros((1, 2, 2)), depth=1),
     lambda: BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["RandomForestClassifier", "GBTClassifier"]),
+    lambda: LogisticRegression(),
+    lambda: LinearSVC(),
+    lambda: LogisticRegressionModel(np.zeros(2), 0.0),
+    lambda: LinearSVCModel(np.zeros(2), 0.0),
+    lambda: BinaryClassificationModelSelector.with_cross_validation(),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)

@@ -1,10 +1,16 @@
-"""The whole slice: the binary GBT model-selection search, run by the JAX
-package and by the PyTorch port (float64, CPU) on the same data. The
-(folds, grid) metric matrices agree to 1e-9 and the same grid point wins;
-splitter and fold indices come from the same numpy seeds."""
+"""The whole slice: the binary model-selection search, run by the JAX
+package and by the PyTorch port (float64, CPU) on the same data, over GBT
+alone and over the default pool's four families in its order (LR, RF,
+GBT, LinearSVC; small trees, forests with the JAX package's draws
+replayed). The (folds, grid) metric matrices agree to 1e-9 and the same
+grid point wins; splitter and fold indices come from the same numpy
+seeds."""
 import numpy as np
 import pytest
 
+from test_torch_forest import JaxDraws
+from transmogrifai_tpu.models import linear as jl
+from transmogrifai_tpu.models import trees as jt
 from transmogrifai_tpu.models.trees import GBTClassifier as JaxGBT
 from transmogrifai_tpu.selector import splitters as jsplit
 from transmogrifai_tpu.selector.factories import (
@@ -12,6 +18,8 @@ from transmogrifai_tpu.selector.factories import (
 from transmogrifai_tpu.selector.validator import CrossValidation as JaxCV
 from transmogrifai_tpu_torch.evaluators import BinaryClassificationEvaluator
 from transmogrifai_tpu_torch.models.registry import default_binary_models
+from transmogrifai_tpu_torch.models import linear as tl
+from transmogrifai_tpu_torch.models import trees as tt
 from transmogrifai_tpu_torch.models.trees import GBTClassifier
 from transmogrifai_tpu_torch.selector import (
     BinaryClassificationModelSelector, CrossValidation, DataBalancer,
@@ -102,29 +110,95 @@ def test_splitters_match_jax():
 
 
 def test_default_grid_is_the_reference_grid():
-    """The ported families of the default pool, in the reference's order
-    (RF before GBT: the first candidate wins a tie), with its grids."""
+    """The whole default pool, in the reference's order (the first
+    candidate wins a tie: LR, RF, GBT, LinearSVC), with its grids and
+    iteration counts."""
     from transmogrifai_tpu.models.registry import default_binary_models as ref
     pool = default_binary_models(device="cpu")
     names = [type(e).__name__ for e, _ in pool]
-    assert names == ["RandomForestClassifier", "GBTClassifier"]
+    assert names == [type(e).__name__ for e, _ in ref()] == [
+        "LogisticRegression", "RandomForestClassifier", "GBTClassifier",
+        "LinearSVC"]
     ref_grids = {type(e).__name__: g for e, g in ref()}
     for est, grid in pool:
-        assert grid == ref_grids[type(est).__name__] and len(grid) == 18
-    assert pool[0][0].num_trees == 50 and pool[1][0].num_rounds == 20
+        assert grid == ref_grids[type(est).__name__]
+    assert [len(g) for _, g in pool] == [8, 18, 18, 4]
+    assert pool[0][0].max_iter == pool[3][0].max_iter == 50
+    assert pool[1][0].num_trees == 50 and pool[2][0].num_rounds == 20
 
 
 def test_unported_families_are_named():
-    with pytest.raises(NotImplementedError, match="LogisticRegression"):
-        BinaryClassificationModelSelector.with_cross_validation(device="cpu")
-    with pytest.raises(NotImplementedError, match="LinearSVC"):
-        BinaryClassificationModelSelector.with_cross_validation(
-            model_types_to_use=["GBTClassifier", "LinearSVC"], device="cpu")
+    """With no filter the selector builds the default pool; a family
+    outside it (NaiveBayes, the reference's opt-in pool) raises an error
+    that names it; filters keep the pool's order."""
     sel = BinaryClassificationModelSelector.with_cross_validation(
-        model_types_to_use=["GBTClassifier"], device="cpu")
-    assert [type(e).__name__ for e, _ in sel.models] == ["GBTClassifier"]
+        device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == [
+        "LogisticRegression", "RandomForestClassifier", "GBTClassifier",
+        "LinearSVC"]
+    assert sum(len(g) for _, g in sel.models) == 48
+    with pytest.raises(NotImplementedError, match="NaiveBayes"):
+        BinaryClassificationModelSelector.with_cross_validation(
+            model_types_to_use=["GBTClassifier", "NaiveBayes"], device="cpu")
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["LinearSVC", "GBTClassifier"], device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == [
+        "GBTClassifier", "LinearSVC"]
     sel = BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["RandomForestClassifier", "GBTClassifier"],
         device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == [
         "RandomForestClassifier", "GBTClassifier"]
+
+
+LR_GRID = [{"reg_param": r, "elastic_net_param": e}
+           for r in (0.001, 0.01, 0.1, 0.2) for e in (0.1, 0.5)]
+SVC_GRID = [{"reg_param": r} for r in (0.001, 0.01, 0.1, 0.2)]
+RF_GRID = [{"max_depth": 3, "min_instances_per_node": m}
+           for m in (10, 100)]
+
+
+@pytest.fixture(scope="module")
+def pool_searches():
+    """The default pool's four families in its order, the linear ones
+    with their full grids, RF (3 trees) and GBT (3 rounds) cut small."""
+    X, y = _data(n=600, seed=2)
+
+    def search(selector, lr, rf, gbt, svc, **kw):
+        return selector.with_cross_validation(
+            num_folds=3, seed=7, stratify=True,
+            models=[(lr, LR_GRID), (rf, RF_GRID), (gbt, GRID[:2]),
+                    (svc, SVC_GRID)], **kw).fit_arrays(X, y)
+    ref = search(JaxSelector, jl.LogisticRegression(max_iter=50),
+                 jt.RandomForestClassifier(num_trees=3),
+                 JaxGBT(num_rounds=3), jl.LinearSVC(max_iter=50),
+                 splitter=jsplit.DataBalancer(reserve_test_fraction=0.1,
+                                              seed=7), mesh=None)
+    got = search(BinaryClassificationModelSelector,
+                 tl.LogisticRegression(max_iter=50, device="cpu"),
+                 tt.RandomForestClassifier(num_trees=3, device="cpu",
+                                           draws=JaxDraws),
+                 GBTClassifier(num_rounds=3, device="cpu"),
+                 tl.LinearSVC(max_iter=50, device="cpu"),
+                 splitter=DataBalancer(reserve_test_fraction=0.1, seed=7),
+                 device="cpu")
+    return ref, got
+
+
+def test_default_pool_search_matches_jax(pool_searches):
+    """Metric matrix (3 x 16) within 1e-9, the same winner (the logistic
+    label makes it an LR point), and the holdout AuPR within 1e-9."""
+    ref, got = pool_searches
+    a, b = (np.array([r.metric_values
+                      for r in sel.summary.validation_results]).T
+            for sel in (ref, got))
+    assert a.shape == b.shape == (3, 16)
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-9)
+    assert got.summary.best_model_name == ref.summary.best_model_name
+    assert got.summary.best_model_params == ref.summary.best_model_params
+    assert got.summary.best_model_name == "LogisticRegression"
+    for which in ("train_evaluation", "holdout_evaluation"):
+        for metric in ("AuPR", "AuROC"):
+            assert abs(getattr(getattr(got.summary, which), metric)
+                       - getattr(getattr(ref.summary, which), metric)
+                       ) <= 1e-9

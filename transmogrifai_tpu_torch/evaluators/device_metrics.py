@@ -15,10 +15,26 @@ from typing import Callable
 
 import torch
 
-__all__ = ["BINARY_METRICS", "binary_from_sigmoid", "binary_from_votes",
-           "binary_metric", "metric_fn", "vote_probability"]
+__all__ = ["BINARY_METRICS", "binary_from_raw_pair", "binary_from_sigmoid",
+           "binary_from_votes", "binary_metric", "metric_fn",
+           "softmax_probability", "vote_probability"]
 
 BINARY_METRICS = ("AuPR", "AuROC", "Precision", "Recall", "F1", "Error")
+
+
+def softmax_probability(raw: torch.Tensor) -> torch.Tensor:
+    """(n, K) max-shifted softmax — the twin of
+    ``ClassifierModel.raw_to_probability``."""
+    shifted = raw - torch.amax(raw, dim=1, keepdim=True)
+    e = torch.exp(shifted)
+    return e / torch.sum(e, dim=1, keepdim=True)
+
+
+def binary_from_raw_pair(raw: torch.Tensor):
+    """(score, plabel) from an (n, 2) raw-prediction pair through the
+    default softmax (the logistic-regression host model)."""
+    p = softmax_probability(raw)
+    return p[:, 1], (p[:, 1] > p[:, 0]).to(raw.dtype)
 
 
 def binary_from_sigmoid(margin: torch.Tensor):
@@ -109,9 +125,10 @@ def binary_metric(y: torch.Tensor, score: torch.Tensor,
 
 def metric_fn(kind: str, metric: str) -> Callable:
     """(y_val, scores) -> scalar for a validator metric spec; ``scores``
-    is a (score, plabel) pair from :func:`binary_from_sigmoid` or
-    :func:`binary_from_votes`. Only the
-    binary kind is ported."""
+    is a (score, plabel) pair from :func:`binary_from_sigmoid`,
+    :func:`binary_from_votes`, :func:`binary_from_raw_pair`, or a raw
+    margin with its sign label (LinearSVC). Only the binary kind is
+    ported."""
     if kind == "binary":
         return lambda y, s: binary_metric(y, s[0], s[1], metric)
     raise NotImplementedError(f"metric kind {kind!r} is not ported yet")

@@ -3,16 +3,19 @@
 The JAX package's fitted ``GBTClassifierModel`` holds numpy arrays
 (``feats``, ``thrs``, ``leaves``, ``depth``, ``base``, ``n_features``), and
 its ``TreeEnsembleClassifierModel`` (random forests, decision trees) the
-same without ``base``; the port's models built from them predict the same
-probabilities.
+same without ``base``; its binary ``LogisticRegressionModel`` and
+``LinearSVCModel`` hold ``coefficients`` (d,) and ``intercept``. The
+port's models built from them predict the same probabilities and labels.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .linear import LinearSVCModel, LogisticRegressionModel
 from .trees import GBTClassifierModel, TreeEnsembleClassifierModel
 
-__all__ = ["forest_from_numpy", "gbt_from_numpy"]
+__all__ = ["forest_from_numpy", "gbt_from_numpy", "logistic_from_numpy",
+           "svc_from_numpy"]
 
 
 def gbt_from_numpy(feats: np.ndarray, thrs: np.ndarray, leaves: np.ndarray,
@@ -40,3 +43,17 @@ def forest_from_numpy(feats: np.ndarray, thrs: np.ndarray,
                                        depth=int(depth),
                                        n_features=int(n_features),
                                        device=device)
+
+
+def logistic_from_numpy(coefficients: np.ndarray, intercept,
+                        device="cuda") -> LogisticRegressionModel:
+    """Port-side binary ``LogisticRegressionModel`` from the reference
+    model's ``coefficients`` (d,) and ``intercept``."""
+    return LogisticRegressionModel(coefficients, intercept, device=device)
+
+
+def svc_from_numpy(coefficients: np.ndarray, intercept,
+                   device="cuda") -> LinearSVCModel:
+    """Port-side ``LinearSVCModel`` from the reference model's
+    ``coefficients`` (d,) and ``intercept``."""
+    return LinearSVCModel(coefficients, intercept, device=device)

@@ -1,0 +1,433 @@
+"""Linear family in PyTorch: binary logistic regression and linear SVC.
+
+Counterpart of ``transmogrifai_tpu/models/linear.py`` restricted to the
+binary classifiers of the default pool. The weighted fit cores, the
+standardization and its inverse, the elastic-net and squared-hinge
+objectives and the solver choice are the JAX package's; how they run
+differs:
+
+- every array has a leading candidate axis: F fold weight rows ``W``
+  (F, n), each shared by G consecutive candidates (fold-major, candidate
+  ``c`` on fold ``c // G``), so a fold x grid search is one batch and a
+  single fit is F = G = 1;
+- standardization is implicit. ``X`` is centred once by its global mean
+  on the device (``_prep``), and each fold's weighted mean and scale act
+  through the products (``Xs v = X (v/s) - mu.(v/s)``, ``Xs^T r = (X^T r
+  - mu sum(r)) / s``), so no per-candidate standardized copy of X exists;
+- gradients are closed-form, one ``X @ V`` and one ``X^T @ R`` product
+  for all candidates per solver iteration (``models/solvers.py``).
+
+Numbers: float32 on CUDA (TF32 off), float64 on the CPU
+(``utils/device.py``). Multinomial logistic regression
+(``_fit_multinomial_logistic``), ``LinearRegression`` and
+``fit_fold_grid_arrays`` are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device, working_dtype
+from .base import (ClassifierModel, PredictionColumn, Predictor, num_classes,
+                   subset_grid)
+from .solvers import design_lipschitz, fista_minimize, lbfgs_minimize
+
+__all__ = ["LogisticRegression", "LogisticRegressionModel", "LinearSVC",
+           "LinearSVCModel", "binary_logistic_core", "linear_svc_core"]
+
+
+# ---------------------------------------------------------------------------
+# implicit standardization
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Design:
+    """A feature matrix on its device, centred by its global mean, with
+    per-fold weighted statistics. ``Xc`` (n, d) = X - ``gmean``; ``W`` (F,
+    n) row weights; ``wsum`` (F,); ``mu`` (F, d) each fold's mean in
+    centred coordinates and ``mu_orig`` in X's; ``sigma`` (F, d) the safe
+    scales (1 where a column is constant or standardization is off)."""
+    Xc: torch.Tensor
+    gmean: torch.Tensor
+    W: torch.Tensor
+    wsum: torch.Tensor
+    mu: torch.Tensor
+    mu_orig: torch.Tensor
+    sigma: torch.Tensor
+
+    def matvec(self, V: torch.Tensor) -> torch.Tensor:
+        """(n, C) margins ``Xs_c v_c`` of C = F * G parameter rows V (C, d),
+        row c standardized with fold c // G's statistics."""
+        G = V.shape[0] // self.W.shape[0]
+        mu = self.mu.repeat_interleave(G, dim=0)
+        Vs = V / self.sigma.repeat_interleave(G, dim=0)
+        return self.Xc @ Vs.T - torch.sum(Vs * mu, dim=1)
+
+    def rmatvec(self, R: torch.Tensor) -> torch.Tensor:
+        """(C, d) products ``Xs_c^T r_c`` of the columns of R (n, C)."""
+        G = R.shape[1] // self.W.shape[0]
+        mu = self.mu.repeat_interleave(G, dim=0)
+        sigma = self.sigma.repeat_interleave(G, dim=0)
+        return ((self.Xc.T @ R).T - mu * torch.sum(R, dim=0)[:, None]) / sigma
+
+    def fold_rows(self, R: torch.Tensor, per_row: torch.Tensor
+                  ) -> torch.Tensor:
+        """R (n, C) times ``per_row`` (n, F), candidate c by column c // G:
+        the fold weights applied without an (n, C) copy of them."""
+        n, C = R.shape
+        F = per_row.shape[1]
+        return (R.view(n, F, C // F) * per_row[:, :, None]).view(n, C)
+
+
+def _weighted_standardize(Xc: torch.Tensor, gmean: torch.Tensor,
+                          W: torch.Tensor):
+    """Per-fold weighted mean and scale of the centred ``Xc`` (subset
+    statistics when W holds 0/1 masks), with the JAX package's relative
+    floor: a column whose scale is at most 1e-9 * max(|mean|, 1) is
+    treated as constant (scale 1). Returns (mu, mu_orig, sigma, wsum)."""
+    wsum = torch.clamp(torch.sum(W, dim=1), min=1e-12)
+    mu = (W @ Xc) / wsum[:, None]
+    var = torch.stack([W[f] @ (Xc - mu[f]) ** 2 for f in range(W.shape[0])]
+                      ) / wsum[:, None]
+    sigma = torch.sqrt(var)
+    mu_orig = mu + gmean
+    floor = 1e-9 * torch.clamp(torch.abs(mu_orig), min=1.0)
+    safe = torch.where(sigma > floor, sigma, 1.0)
+    return mu, mu_orig, safe, wsum
+
+
+def _unstandardize_coefs(wv: torch.Tensor, b: torch.Tensor,
+                         mu_orig: torch.Tensor, sigma: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coefficients fitted on standardized X mapped back to X's space,
+    row by row: wv / sigma, b - (wv / sigma).mu."""
+    w_orig = wv / sigma
+    return w_orig, b - torch.sum(w_orig * mu_orig, dim=1)
+
+
+def _prep(X, W, standardize: bool, device: torch.device) -> _Design:
+    """``X`` (n, d) and fold weights ``W`` (F, n) on ``device`` in the
+    working dtype, X centred by its global mean there (so the per-fold
+    mean corrections of the implicit standardization stay small in
+    float32)."""
+    dtype = working_dtype(device)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    # a copy: the centring below works in place
+    Xc = torch.from_numpy(np.array(X, dtype=np_dtype)).to(device)
+    Wt = torch.from_numpy(np.array(W, dtype=np_dtype)).to(device)
+    gmean = torch.mean(Xc, dim=0)
+    Xc.sub_(gmean)
+    if standardize:
+        mu, mu_orig, sigma, wsum = _weighted_standardize(Xc, gmean, Wt)
+    else:
+        F, d = Wt.shape[0], Xc.shape[1]
+        wsum = torch.clamp(torch.sum(Wt, dim=1), min=1e-12)
+        mu = (-gmean).expand(F, d)
+        mu_orig = torch.zeros((F, d), dtype=dtype, device=device)
+        sigma = torch.ones((F, d), dtype=dtype, device=device)
+    return _Design(Xc, gmean, Wt, wsum, mu, mu_orig, sigma)
+
+
+# ---------------------------------------------------------------------------
+# weighted fit cores
+# ---------------------------------------------------------------------------
+
+def _objective(kind: str, design: _Design, y: torch.Tensor, l2: torch.Tensor,
+               fit_intercept: bool):
+    """(value_and_grad, grad) of the smooth objective for C parameter rows
+    (C, d + 1): the logistic loss sum(w log(1 + e^(-s m))) / sum(w), or
+    the squared hinge sum(w max(0, 1 - s m)^2) / sum(w), plus l2/2 |wv|^2,
+    with s = 2y - 1 and m the standardized margin. Gradients in closed
+    form: -s sigmoid(-s m) w / sum(w), or -2 s max(0, 1 - s m) w / sum(w),
+    through Xs^T, plus l2 wv."""
+    d = design.Xc.shape[1]
+    s = (2.0 * y - 1.0)[:, None]
+    per_row = design.W.T / design.wsum             # (n, F): w / sum(w)
+
+    def margins(Z):
+        m = design.matvec(Z[:, :d])
+        return m + Z[:, d] if fit_intercept else m
+
+    def dloss(m):                                  # d loss / d m, unweighted
+        if kind == "logistic":
+            return -s * torch.sigmoid(-s * m)
+        return -2.0 * s * torch.clamp(1.0 - s * m, min=0.0)
+
+    def finish(Z, R):
+        g = torch.empty_like(Z)
+        g[:, :d] = design.rmatvec(R) + l2[:, None] * Z[:, :d]
+        g[:, d] = torch.sum(R, dim=0) if fit_intercept else 0.0
+        return g
+
+    def grad(Z):
+        return finish(Z, design.fold_rows(dloss(margins(Z)), per_row))
+
+    def value_and_grad(Z):
+        m = margins(Z)
+        if kind == "logistic":
+            loss = torch.logaddexp(-s * m, torch.zeros((), dtype=m.dtype,
+                                                       device=m.device))
+        else:
+            loss = torch.clamp(1.0 - s * m, min=0.0) ** 2
+        wv = Z[:, :d]
+        value = (torch.sum(design.fold_rows(loss, per_row), dim=0)
+                 + 0.5 * l2 * torch.sum(wv * wv, dim=1))
+        return value, finish(Z, design.fold_rows(dloss(m), per_row))
+
+    return value_and_grad, grad
+
+
+def _linear_core(kind: str, X, y, W, l2: np.ndarray, l1: np.ndarray,
+                 curvature: float, *, fit_intercept: bool, standardize: bool,
+                 max_iter: int, fista: bool, tol: float, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fits of C = len(l2) candidates over the F rows of ``W`` (candidate
+    c on row c // (C / F)): the loss ``kind`` ("logistic" or "svc") plus
+    l2/2 |wv|^2 + l1 |wv|_1 in the standardized space, whose loss
+    curvature is at most ``curvature``. With ``fista``, FISTA for 5 *
+    ``max_iter`` iterations (stopping at a step below ``tol`` when tol >
+    0); else L-BFGS, which fits one candidate. Returns (coefficients (C,
+    d), intercepts (C,)) in X's space."""
+    dev = resolve_device(device)
+    design = _prep(X, W, standardize, dev)
+    dtype = design.Xc.dtype
+    d = design.Xc.shape[1]
+    F = design.W.shape[0]
+    l2 = torch.as_tensor(l2, dtype=dtype).to(dev)
+    l1 = torch.as_tensor(l1, dtype=dtype).to(dev)
+    C = l2.shape[0]
+    G = C // F
+    if C != F * G:
+        raise ValueError(f"{C} candidates do not split over {F} folds")
+    y_t = torch.as_tensor(np.asarray(y), dtype=dtype).to(dev)
+    value_and_grad, grad = _objective(kind, design, y_t, l2, fit_intercept)
+    w0 = torch.zeros((C, d + 1), dtype=dtype, device=dev)
+    if fista:
+        # the bound depends on the fold only: one power iteration a fold
+        lip_fold = design_lipschitz(design.Xc, 0.0, curvature, w=design.W,
+                                    mu=design.mu, sigma=design.sigma)
+        lip = lip_fold.repeat_interleave(G) + l2 + curvature
+        mask = torch.ones(d + 1, dtype=dtype, device=dev)
+        mask[d] = 0.0                              # no L1 on the intercept
+        params, _ = fista_minimize(grad, l1, w0, lip, max_iter=max_iter * 5,
+                                   tol=tol, l1_mask=mask)
+    else:
+        if C != 1:
+            raise ValueError(f"L-BFGS fits one candidate, not {C}; the "
+                             f"batched search runs FISTA")
+
+        def vg(z):
+            value, g = value_and_grad(z[None, :])
+            return value[0], g[0]
+        params = lbfgs_minimize(vg, w0[0], max_iter=max_iter)[0][None, :]
+    wv = params[:, :d]
+    b = params[:, d] if fit_intercept else torch.zeros_like(params[:, d])
+    fold = torch.arange(C, device=dev) // G
+    return _unstandardize_coefs(wv, b, design.mu_orig[fold],
+                                design.sigma[fold])
+
+
+def _candidates(v) -> np.ndarray:
+    return np.atleast_1d(np.asarray(v, dtype=np.float64))
+
+
+def binary_logistic_core(X, y, W, reg, alpha, *, fit_intercept: bool = True,
+                         standardize: bool = True, max_iter: int = 100,
+                         solver: str = "auto", device="cuda"):
+    """Weighted binomial logistic fits -> (coefficients (C, d), intercepts
+    (C,)) in X's space, for C = len(reg) candidates over the F rows of
+    ``W`` (candidate c on row c // (C / F)), with the elastic-net penalty
+    l2 = reg (1 - alpha), l1 = reg alpha. ``solver="fista"`` runs FISTA
+    with a fixed trip count of 5 * ``max_iter`` (the search); ``"auto"``
+    runs FISTA to tol 1e-7 when an L1 term is set, else L-BFGS (single
+    fits)."""
+    reg, alpha = _candidates(reg), _candidates(alpha)
+    l1 = reg * alpha
+    return _linear_core("logistic", X, y, W, reg * (1.0 - alpha), l1, 0.25,
+                        fit_intercept=fit_intercept, standardize=standardize,
+                        max_iter=max_iter,
+                        fista=solver == "fista" or bool(np.any(l1 > 0)),
+                        tol=0.0 if solver == "fista" else 1e-7,
+                        device=device)
+
+
+def linear_svc_core(X, y, W, reg, alpha=0.0, *, fit_intercept: bool = True,
+                    standardize: bool = True, max_iter: int = 100,
+                    solver: str = "auto", device="cuda"):
+    """Weighted L2 squared-hinge SVM fits -> (coefficients (C, d),
+    intercepts (C,)), shaped as :func:`binary_logistic_core`. ``alpha``
+    is accepted for a uniform signature (no L1 in LinearSVC); ``"auto"``
+    is L-BFGS, ``"fista"`` the fixed-trip FISTA."""
+    reg = _candidates(reg)
+    return _linear_core("svc", X, y, W, reg, np.zeros_like(reg), 2.0,
+                        fit_intercept=fit_intercept, standardize=standardize,
+                        max_iter=max_iter, fista=solver == "fista", tol=0.0,
+                        device=device)
+
+
+def _grid_to_reg_alpha(estimator, grid,
+                       allowed=("reg_param", "elastic_net_param")
+                       ) -> np.ndarray:
+    """(G, 2) [reg, alpha] from grid dicts; a parameter a dict omits is
+    the estimator's own (what ``with_params`` would give). Raises
+    NotImplementedError for a parameter the batched search cannot vary."""
+    out = np.zeros((len(grid), 2))
+    for i, params in enumerate(grid):
+        extra = set(params) - set(allowed)
+        if extra:
+            raise NotImplementedError(
+                f"batched kernel cannot vary {sorted(extra)}")
+        out[i, 0] = params.get("reg_param", getattr(estimator, "reg_param",
+                                                    0.0))
+        out[i, 1] = params.get("elastic_net_param",
+                               getattr(estimator, "elastic_net_param", 0.0))
+    return out
+
+
+def _check_binary(y, family: str) -> None:
+    if num_classes(y) > 2:
+        raise NotImplementedError(
+            f"{family}: only binary labels are ported (multinomial "
+            f"logistic regression, _fit_multinomial_logistic, is not)")
+
+
+# ---------------------------------------------------------------------------
+# estimators and models
+# ---------------------------------------------------------------------------
+
+class _LinearModel(ClassifierModel):
+    """Binary linear classifier: margins X.coef + intercept, raw
+    prediction [-m, m]; the coefficients live on ``device``."""
+
+    def __init__(self, coefficients, intercept, device="cuda",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device)
+        self.coefficients = torch.from_numpy(
+            np.array(coefficients, dtype=np.float64).reshape(-1)).to(
+                self.device, self.dtype)
+        self.intercept = float(np.asarray(intercept).reshape(()))
+
+    def margins(self, X) -> np.ndarray:
+        Xt = torch.as_tensor(np.asarray(X), dtype=self.dtype).to(self.device)
+        m = Xt @ self.coefficients + self.intercept
+        return m.cpu().numpy().astype(np.float64)
+
+    def predict_raw(self, X) -> np.ndarray:
+        m = self.margins(X)
+        return np.stack([-m, m], axis=1)
+
+
+class LogisticRegressionModel(_LinearModel):
+    """Binary logistic model: softmax probability of the raw pair."""
+
+
+class LinearSVCModel(_LinearModel):
+    """SVC model: raw prediction only, no probability (as in MLlib); the
+    label is the margin's sign."""
+
+    def prediction_from_raw(self, raw: np.ndarray) -> PredictionColumn:
+        raw = np.asarray(raw, dtype=np.float64)
+        pred = (raw[:, 1] > 0).astype(np.float64)
+        return PredictionColumn.from_arrays(pred, raw_prediction=raw)
+
+
+class _LinearEstimator(Predictor):
+    """``tol`` is accepted for the reference's API and, as there, read by
+    no solver: L-BFGS stops at a gradient norm below 1e-6, the L1 refit's
+    FISTA at a step below 1e-7."""
+    kind = ""
+    grid_params: Tuple[str, ...] = ()
+    core = None
+
+    def fit_arrays(self, X, y):
+        _check_binary(y, type(self).__name__)
+        coef, b = self.core(
+            X, y, np.ones((1, len(y))), self.reg_param,
+            getattr(self, "elastic_net_param", 0.0),
+            fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)
+        return self.model_type(coef[0].cpu().numpy(), float(b[0]),
+                               device=self.device)
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        raise NotImplementedError(
+            f"{type(self).__name__}.fit_fold_grid_arrays (the fold x grid "
+            f"path that returns fitted models) is not ported yet; the "
+            f"search uses eval_fold_grid_arrays")
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search: fit and validation metric of every
+        (fold, grid point) candidate, (F, G) matrix out (see
+        ``parallel/cv.eval_linear_fold_grid``)."""
+        if spec[0] != "binary":
+            raise NotImplementedError(
+                f"{type(self).__name__} device eval is binary-only")
+        _check_binary(y, type(self).__name__)
+        from ..parallel.cv import eval_linear_fold_grid
+        ga = _grid_to_reg_alpha(self, subset_grid(grid, cand_idx),
+                                allowed=self.grid_params)
+        return eval_linear_fold_grid(
+            self.kind, X, y, masks, ga, X_val, y_val, spec,
+            fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)
+
+
+class LogisticRegression(_LinearEstimator):
+    """Binomial logistic regression with an elastic-net penalty
+    reg * (alpha L1 + (1 - alpha)/2 L2) in the standardized space
+    (reference OpLogisticRegression.scala:45). ``tol`` is accepted and
+    ignored (see ``_LinearEstimator``)."""
+
+    kind = "logistic"
+    core = staticmethod(binary_logistic_core)
+    grid_params = ("reg_param", "elastic_net_param")
+    model_type = LogisticRegressionModel
+    param_names = ("reg_param", "elastic_net_param", "max_iter", "tol",
+                   "fit_intercept", "standardization", "device")
+
+    def __init__(self, reg_param: float = 0.0, elastic_net_param: float = 0.0,
+                 max_iter: int = 100, tol: float = 1e-6,
+                 fit_intercept: bool = True, standardization: bool = True,
+                 device="cuda", uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.reg_param = reg_param
+        self.elastic_net_param = elastic_net_param
+        self.max_iter = max_iter
+        self.tol = tol
+        self.fit_intercept = fit_intercept
+        self.standardization = standardization
+        self.device = resolve_device(device)
+
+
+class LinearSVC(_LinearEstimator):
+    """Linear support-vector classifier on the squared hinge with an L2
+    penalty (reference OpLinearSVC.scala; the JAX package's documented
+    smooth variant of MLlib's hinge). ``tol`` is accepted and ignored
+    (see ``_LinearEstimator``)."""
+
+    kind = "svc"
+    core = staticmethod(linear_svc_core)
+    grid_params = ("reg_param",)
+    model_type = LinearSVCModel
+    param_names = ("reg_param", "max_iter", "tol", "fit_intercept",
+                   "standardization", "device")
+
+    def __init__(self, reg_param: float = 0.0, max_iter: int = 100,
+                 tol: float = 1e-6, fit_intercept: bool = True,
+                 standardization: bool = True, device="cuda",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.reg_param = reg_param
+        self.max_iter = max_iter
+        self.tol = tol
+        self.fit_intercept = fit_intercept
+        self.standardization = standardization
+        self.device = resolve_device(device)

@@ -1,0 +1,93 @@
+"""Fold x grid fitting and scoring of the linear family in one batch.
+
+Counterpart of ``transmogrifai_tpu/parallel/cv.py`` (``LINEAR_KERNELS``,
+``eval_linear_fold_grid``, ``_candidate_fit``, ``_candidate_eval``), local
+path only: every (fold, grid point) candidate is one row of the batched
+fit cores of ``models/linear.py``, fold-major (candidate ``f * G + g``),
+with the F fold masks as row weights and never repeated per grid point.
+Each candidate runs FISTA with a fixed trip count, as in the JAX search,
+then its validation metric is computed on the device; only the (F, G)
+metric matrix reaches the host. The mesh path (models x data sharding)
+is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..evaluators.device_metrics import binary_from_raw_pair, metric_fn
+from ..models.linear import binary_logistic_core, linear_svc_core
+from ..utils.device import resolve_device, working_dtype
+
+__all__ = ["LINEAR_KERNELS", "eval_linear_fold_grid"]
+
+#: kind -> weighted fit core, all with the signature (X, y, W, reg, alpha,
+#: *, fit_intercept, standardize, max_iter, solver, device)
+LINEAR_KERNELS = {
+    "logistic": binary_logistic_core,
+    "svc": linear_svc_core,
+}
+
+
+def eval_linear_fold_grid(kind: str, X, y, masks, grid, X_val, y_val,
+                          spec: tuple, *, fit_intercept: bool = True,
+                          standardize: bool = True, max_iter: int = 100,
+                          device="cuda") -> np.ndarray:
+    """Fit and evaluate every (fold, grid point) candidate on ``device``,
+    returning only the (F, G) validation-metric matrix.
+
+    masks : (F, n) 0/1 train-row masks of the folds over X (n, d)
+    grid  : (G, 2) [reg, alpha] rows
+    X_val : (F, nv, d) stacked validation folds; y_val (F, nv)
+    spec  : (kind, metric) for ``evaluators.device_metrics.metric_fn``
+    """
+    if kind not in LINEAR_KERNELS:
+        raise NotImplementedError(
+            f"linear kind {kind!r} is not ported yet (ported: "
+            f"{sorted(LINEAR_KERNELS)}; linear_regression_core is not)")
+    dev = resolve_device(device)
+    dtype = working_dtype(dev)
+    grid = np.asarray(grid, dtype=np.float64).reshape(-1, 2)
+    F, G = np.asarray(masks).shape[0], grid.shape[0]
+    coef, b = _candidate_fit(kind, X, y, masks, np.tile(grid[:, 0], F),
+                             np.tile(grid[:, 1], F),
+                             fit_intercept=fit_intercept,
+                             standardize=standardize, max_iter=max_iter,
+                             device=dev)
+    Xv = torch.from_numpy(np.asarray(X_val, dtype=np.float64)).to(
+        dev, dtype)
+    yv = torch.from_numpy(np.asarray(y_val, dtype=np.float64)).to(
+        dev, dtype)
+    mm = torch.empty((F, G), dtype=dtype, device=dev)
+    for f in range(F):
+        cols = slice(f * G, (f + 1) * G)
+        margins = Xv[f] @ coef[cols].T + b[cols]          # (nv, G)
+        for g in range(G):
+            mm[f, g] = _candidate_eval(kind, spec, margins[:, g], yv[f])
+    return mm.cpu().numpy().astype(np.float64)
+
+
+def _candidate_fit(kind: str, X, y, masks, regs, alphas, *,
+                   fit_intercept: bool, standardize: bool, max_iter: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(coefficients (C, d), intercepts (C,)) of the C = F * G candidates.
+    solver="fista": a fixed trip count, as the JAX search runs it."""
+    return LINEAR_KERNELS[kind](
+        X, y, masks, regs, alphas, fit_intercept=fit_intercept,
+        standardize=standardize, max_iter=max_iter, solver="fista",
+        device=device)
+
+
+def _candidate_eval(kind: str, spec: tuple, m: torch.Tensor,
+                    yv: torch.Tensor) -> torch.Tensor:
+    """One candidate's validation metric from its margins ``m``, with the
+    host model's score semantics: logistic ranks by the softmax
+    probability of the [-m, m] pair, SVC by the raw margin (no
+    probability, as in MLlib) with the margin's sign as its label."""
+    if kind == "svc":
+        scores = (m, (m > 0).to(m.dtype))
+    else:
+        scores = binary_from_raw_pair(torch.stack([-m, m], dim=1))
+    return metric_fn(*spec)(yv, scores)

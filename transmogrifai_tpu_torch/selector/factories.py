@@ -2,10 +2,11 @@
 
 Counterpart of ``transmogrifai_tpu/selector/factories.py``
 (``BinaryClassificationModelSelector.with_cross_validation``). Only the
-binary problem type and its tree families (RandomForestClassifier,
-GBTClassifier) are ported: asking for the default pool, or for a family
-that is not ported, raises an error that names the missing families
-instead of dropping them silently.
+binary problem type is ported, with its whole default pool
+(LogisticRegression, RandomForestClassifier, GBTClassifier, LinearSVC);
+asking for a family outside it (NaiveBayes, DecisionTreeClassifier,
+XGBoostClassifier, ...) raises an error that names the family instead of
+dropping it silently.
 """
 from __future__ import annotations
 
@@ -40,20 +41,19 @@ def _filter_models(models, model_types_to_use):
 def _binary_pool(model_types_to_use, device
                  ) -> List[Tuple[Predictor, List[Dict]]]:
     """The default binary pool narrowed to ``model_types_to_use``; raises
-    if that asks for a family the port does not have yet."""
-    if model_types_to_use is None:
-        missing = list(registry.UNPORTED_BINARY_FAMILIES)
-    else:
+    if that asks for a family outside the pool, which the port does not
+    have yet."""
+    pool = registry.default_binary_models(device)
+    if model_types_to_use is not None:
         names = {t.__name__ if isinstance(t, type) else str(t)
                  for t in model_types_to_use}
-        missing = sorted(names & set(registry.UNPORTED_BINARY_FAMILIES))
-    if missing:
-        raise NotImplementedError(
-            f"model families not ported to PyTorch yet: {missing}; pass "
-            f"model_types_to_use=['RandomForestClassifier', "
-            f"'GBTClassifier'] or models=[...]")
-    return _filter_models(registry.default_binary_models(device),
-                          model_types_to_use)
+        missing = sorted(names - {type(est).__name__ for est, _ in pool})
+        if missing:
+            raise NotImplementedError(
+                f"model families not ported to PyTorch yet: {missing}; "
+                f"the port has the default pool's LogisticRegression, "
+                f"RandomForestClassifier, GBTClassifier and LinearSVC")
+    return _filter_models(pool, model_types_to_use)
 
 
 class BinaryClassificationModelSelector:
