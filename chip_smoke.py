@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port (``transmogrifai_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
-[--out FILE] [--k1-only]
+[--workflow-rows N] [--out FILE] [--k1-only | --workflow-only]
 
-Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3):
+Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
+``--workflow-only`` runs phases 1, 2, 8 and 9):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -39,8 +40,24 @@ Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3):
      generators: metric matrices within 2e-3, and the L-BFGS LinearSVC
      fit on both (the same iteration count, coefficients within 1e-5);
   7. single-record scoring equals batch scoring, through the winner, the
-     LinearSVC, and the GBT and the 50-tree forest fitted in phase 8;
-  8. torch.profiler windows over the LogisticRegression search (at 250
+     LinearSVC, and the GBT and the 50-tree forest fitted in phase 10;
+  8. the second main path, the Titanic workflow: 200,000 synthetic
+     Titanic-shaped records (``--workflow-rows``) through
+     ``Workflow.train`` (typed features, transmogrify to a ~590-column
+     matrix born on the card, the whole default pool under 3-fold
+     stratified CV) and ``score_and_evaluate`` of the 25 % holdout:
+     seconds of raw extraction, vectorizer fits, device and host-stage
+     transforms, the search by family, K1 launches by family and slot
+     count, the winner and holdout AuPR / AuROC, peak memory, and the
+     bytes ``fit_columns`` copied each way (torch.profiler memcpy
+     events), which must leave the matrix on the card;
+  9. the same workflow on 5,000 records on the card and on the CPU
+     (the card-against-CPU pool): equal metadata, bitwise equal
+     indicator, one-hot, hash and integer columns, float columns within
+     1e-5, metric matrices within 2e-3 (1e-2 at the GBT points of
+     min_child_weight 1, where float32 breaks gain ties among the sparse
+     hash columns otherwise than float64) and the same winner;
+ 10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
      depth-12 group cut to 5 trees, the searches on their own training
@@ -56,6 +73,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +100,7 @@ from transmogrifai_tpu_torch.evaluators import (  # noqa: E402
     BinaryClassificationEvaluator)
 from transmogrifai_tpu_torch.selector import (  # noqa: E402
     BinaryClassificationModelSelector, CrossValidation, DataBalancer)
+from transmogrifai_tpu_torch.examples import titanic  # noqa: E402
 from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 #: H100 SXM published peaks: HBM bytes/s and
@@ -109,6 +128,17 @@ AGREE_TOL = 2e-3
 #: measured 2.8e-8 on an H100, this leaves float32 rounding a 300x margin
 #: and still fails a line search that fell back to its safe step
 LBFGS_COEF_TOL = 1e-5
+#: card (float32) against CPU (float64) prepared Titanic matrix: the
+#: float columns (means, sums, z-scores) within this much of the column's
+#: largest magnitude; every other column bitwise equal
+PREPARED_REL_TOL = 1e-5
+#: card against CPU metric of a GBT grid point of min_child_weight < 10
+#: on the Titanic matrix, whose 513 sparse hash columns and leaves of a few
+#: rows leave many splits tied in gain: float32 and float64 pick different
+#: ones among them. Measured on an H100 at 3,750 / 15,000 training rows:
+#: 8.6e-3 / 4.6e-3 at min_child_weight 1, <= 2.3e-4 at 10, <= 7.6e-5 for
+#: every other family; every other point keeps AGREE_TOL
+GBT_SMALL_LEAF_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -880,6 +910,276 @@ def phase_profile(label: str, run, loop=None) -> tuple:
     return out, result
 
 
+_NUMBER = re.compile(rb"[0-9.]+")
+
+
+def memcpy_window(trace) -> dict:
+    """Copies and device time of a torch.profiler window over the card,
+    read from its exported Chrome trace (bytes or an mmap; the profiler
+    gives a copy's bytes only there): bytes copied device to host and host
+    to device, their counts, and the summed time of every device event
+    (kernels, copies, sets). Scans with ``find`` rather than a regex: a
+    search's trace holds millions of events."""
+    out = {"dtoh_bytes": 0, "htod_bytes": 0, "dtoh_copies": 0,
+           "htod_copies": 0, "device_busy_ms": 0.0}
+    for cat in (b'"cat": "kernel"', b'"cat": "gpu_memcpy"',
+                b'"cat": "gpu_memset"'):
+        i = trace.find(cat)
+        while i >= 0:
+            j = trace.find(b'"dur": ', i) + len(b'"dur": ')
+            out["device_busy_ms"] += float(_NUMBER.match(trace, j).group())
+            i = trace.find(cat, j)
+    out["device_busy_ms"] /= 1e3
+    name = b'"name": "Memcpy '
+    i = trace.find(name)
+    while i >= 0:
+        kind = bytes(trace[i + len(name):i + len(name) + 4]).decode().lower()
+        nxt = trace.find(name, i + 1)
+        at = trace.find(b'"bytes": ', i)
+        if kind in ("dtoh", "htod"):
+            if at < 0 or trace.find(b'"ph"', i, at) >= 0:
+                raise AssertionError("a copy in the profiler's trace has "
+                                     "no bytes")
+            out[f"{kind}_bytes"] += int(
+                _NUMBER.match(trace, at + len(b'"bytes": ')).group())
+            out[f"{kind}_copies"] += 1
+        i = nxt
+    return out
+
+
+def profiled(run, seen: dict):
+    """``run()`` under torch.profiler (CUDA activity): records its wall
+    time, the copies and device time of the window (``memcpy_window``)
+    and the seconds the profiler's stop and the trace read took. Returns
+    what ``run`` returns."""
+    import mmap
+    import tempfile
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+        seen["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        seen["trace_bytes"] = os.path.getsize(path)
+        with open(path, "rb") as fh, mmap.mmap(fh.fileno(), 0,
+                                               access=mmap.ACCESS_READ) as mm:
+            seen.update(memcpy_window(mm))
+    seen["profiler_stop_s"] = t1 - t0 - seen["wall_ms"] / 1e3
+    seen["trace_read_s"] = time.perf_counter() - t1
+    seen["idle_share"] = 1.0 - seen["device_busy_ms"] / seen["wall_ms"]
+    return result
+
+
+def spy_fit_columns(selector, seen: dict, profile: bool) -> None:
+    """Wrap ``selector.fit_columns`` (the workflow's call into the search)
+    to record the feature matrix it receives and, with ``profile`` on a
+    card, the copies and device time of the call under torch.profiler
+    (``profiled``)."""
+    real = selector.fit_columns
+
+    def spied(cols):
+        X = cols[1].data
+        seen["is_tensor"] = isinstance(X, torch.Tensor)
+        seen["device"] = str(X.device) if seen["is_tensor"] else "host"
+        seen["matrix_bytes"] = X.element_size() * X.numel() \
+            if seen["is_tensor"] else X.nbytes
+        if not (profile and seen["is_tensor"] and X.device.type == "cuda"):
+            return real(cols)
+        return profiled(lambda: real(cols), seen)
+    selector.fit_columns = spied
+
+
+def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
+                   profile: bool = True, seed: int = 42) -> dict:
+    """The Titanic workflow (``transmogrifai_tpu_torch/examples/
+    titanic.py``: typed features, transmogrify, the selector over
+    ``models``, default: the whole default pool, under 3-fold stratified
+    CV) on ``rows`` synthetic Titanic-shaped records: stratified 75/25
+    split, ``Workflow.train`` on ``device``, ``score_and_evaluate`` of the
+    holdout. Fails unless the selector received the prepared matrix as a
+    tensor on ``device`` and, profiled on a card, the bytes ``fit_columns``
+    copied to the host stay below the matrix's own size; on a card the
+    tree families must launch K1."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    records = titanic.synthetic_titanic(rows, seed=seed)
+    gen_s = time.perf_counter() - t0
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, stratify=True, models=models, device=dev)
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families)
+    seen: dict = {}
+    spy_fit_columns(sel, seen, profile)
+    clear_design_cache()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    run = titanic.run(records, device=dev, model_stage=sel)
+    launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
+    wf, plan = run.workflow, run.workflow.last_prepare_plan
+    X = run.model.train_dataset[run.vector.name].data
+    selected = next(s for s in run.model.stages()
+                    if type(s).__name__ == "SelectedModel")
+    s = selected.summary
+    mm = metric_matrix(selected)
+    search_label = next(k for k in plan.fit_seconds
+                        if k.startswith("ModelSelector("))
+    fits = {k: v for k, v in plan.fit_seconds.items() if k != search_label}
+    out = {"rows": rows, "generate_s": gen_s,
+           "train_rows": int(X.shape[0]), "matrix_shape": list(X.shape),
+           "matrix_dtype": str(X.dtype), "matrix_device": str(X.device),
+           "raw_extraction_s": wf.last_train_seconds["raw_extraction"],
+           "vectorizer_fits_s": sum(fits.values()),
+           "device_transforms_s": plan.device_transform_seconds,
+           "host_stage_transforms_s": plan.host_transform_seconds,
+           "bytes_to_device": plan.bytes_to_device,
+           "search_s": plan.fit_seconds[search_label],
+           "train_s": sum(wf.last_train_seconds.values()),
+           "train_score_evaluate_s": run.seconds,
+           "selector_timings_s": dict(s.timings), "families": families,
+           "k1_launches": launches, "k1_launches_by_c": by_c,
+           "winner": s.best_model_name, "winner_params": s.best_model_params,
+           "winner_index": int(np.argmax(mm.mean(axis=0))),
+           "best_metric": s.best_validation_metric,
+           "holdout_AuPR": run.metrics.AuPR,
+           "holdout_AuROC": run.metrics.AuROC,
+           "metric_matrix": mm.tolist(), "fit_columns": seen,
+           "host_stages": [list(f) for f in plan.coverage.fallback],
+           "device_stages": len(plan.coverage.lowered),
+           "fit_placements": [list(p) for p in plan.fit_placements],
+           "run": run}
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {rows} records generated in {gen_s:.2f} s; train "
+        f"{out['train_rows']}, holdout {run.scored.n_rows}; prepared matrix "
+        f"{tuple(X.shape)} {X.dtype} on {X.device}")
+    log(f"[{tag}] seconds: raw extraction {out['raw_extraction_s']:.3f}, "
+        f"vectorizer fits {out['vectorizer_fits_s']:.3f}, device transforms "
+        f"{out['device_transforms_s']:.3f}, host-stage transforms "
+        f"{out['host_stage_transforms_s']:.3f}, search (selector fit) "
+        f"{out['search_s']:.3f}; train {out['train_s']:.3f}, train + score "
+        f"+ evaluate {run.seconds:.3f}; {plan.bytes_to_device} bytes of host "
+        f"columns copied up")
+    for label, why in plan.coverage.fallback:
+        log(f"[{tag}] host stage {label.split('(')[0]}: {why}")
+    log(f"[{tag}] {len(plan.coverage.lowered)} stages on {dev}; selector "
+        f"stages {json.dumps({k: round(v, 3) for k, v in s.timings.items()})}")
+    for name, rec in families.items():
+        log(f"[{tag}] {name}: {rec['candidates']} models x folds in "
+            f"{rec['seconds']:.2f} s; K1 launches {rec['k1_launches']}: "
+            + " ".join(f"C={c}:{k}"
+                       for c, k in rec["k1_launches_by_c"].items()))
+    log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} mean AuPR "
+        f"{s.best_validation_metric:.6f}; holdout AuPR {run.metrics.AuPR:.6f}"
+        f" AuROC {run.metrics.AuROC:.6f}; K1 launches {launches}"
+        + (f"; max_memory_allocated {out['max_memory_allocated']}"
+           if "max_memory_allocated" in out else ""))
+    log(f"[{tag}] fit_columns received "
+        + json.dumps({k: v for k, v in seen.items()}))
+    G = len(s.validation_results)
+    if mm.shape != (3, G) or not np.all(np.isfinite(mm)):
+        raise AssertionError(f"[{tag}] bad metric matrix {mm}")
+    if not (seen.get("is_tensor") and seen["device"] == str(X.device)
+            and X.device.type == dev.type):
+        raise AssertionError(f"[{tag}] the selector did not receive the "
+                             f"prepared matrix as a tensor on {dev}: {seen}")
+    if "dtoh_bytes" in seen and seen["dtoh_bytes"] >= seen["matrix_bytes"]:
+        raise AssertionError(f"[{tag}] fit_columns copied {seen['dtoh_bytes']}"
+                             f" bytes to the host, not below the matrix's "
+                             f"{seen['matrix_bytes']}")
+    if dev.type == "cuda":
+        idle = [f for f, rec in families.items()
+                if f in TREE_FAMILIES and rec["k1_launches"] == 0]
+        if launches == 0 or idle:
+            raise AssertionError(
+                f"[{tag}] K1 never launched by {idle or 'the workflow'}")
+    if not 0.5 < run.metrics.AuROC <= 1.0:
+        raise AssertionError(f"[{tag}] holdout evaluation is off: "
+                             f"{run.metrics}")
+    return out
+
+
+def _norm_uid(name):
+    return None if name is None else re.sub(r"[0-9a-f]{12}", "UID", name)
+
+
+def phase_workflow_agree(device, rows: int = 5000, num_rounds: int = 20,
+                         num_trees: int = 5) -> dict:
+    """The Titanic workflow on ``rows`` records on ``device`` (float32 on a
+    card) and on the CPU (float64), with the card-against-CPU pool (the
+    linear families' full grids, 4-point tree grids): equal metadata,
+    bitwise equal indicator, one-hot, hash and integer columns, float
+    columns within PREPARED_REL_TOL of their largest magnitude, metric
+    matrices within AGREE_TOL (GBT points of min_child_weight < 10 within
+    GBT_SMALL_LEAF_TOL) and the same winner unless the CPU's top two
+    means lie within AGREE_TOL."""
+    card = phase_workflow(device, rows, tag="wf-agree-card", profile=False,
+                          models=small_models(device, num_rounds, num_trees))
+    cpu = phase_workflow("cpu", rows, tag="wf-agree-cpu", profile=False,
+                         models=small_models("cpu", num_rounds, num_trees))
+    cols = [r.model.train_dataset[r.vector.name]
+            for r in (card["run"], cpu["run"])]
+    metas = [[(_norm_uid(c.parent_feature_name), c.parent_feature_type,
+               _norm_uid(c.grouping), c.indicator_value, c.descriptor_value)
+              for c in col.metadata.columns] for col in cols]
+    if metas[0] != metas[1]:
+        raise AssertionError("card and CPU prepared matrices' metadata "
+                             "differ")
+    a = cols[0].data.double().cpu().numpy()
+    b = cols[1].data.numpy()
+    floats = np.array([m[1] in ("Real", "RealNN") and m[3] is None
+                       for m in metas[1]])
+    exact = bool(np.array_equal(a[:, ~floats], b[:, ~floats]))
+    scale = np.maximum(np.abs(b[:, floats]).max(axis=0), 1e-30)
+    float_rel = float((np.abs(a[:, floats] - b[:, floats]) / scale).max())
+    mc, mp = (np.asarray(r["metric_matrix"]) for r in (card, cpu))
+    diff = float(np.abs(mc - mp).max())
+    results = next(s for s in cpu["run"].model.stages()
+                   if type(s).__name__ == "SelectedModel"
+                   ).summary.validation_results
+    tol = np.array([GBT_SMALL_LEAF_TOL if r.model_name == "GBTClassifier"
+                    and r.params.get("min_child_weight", 1.0) < 10
+                    else AGREE_TOL for r in results])
+    within = bool(np.all(np.abs(mc - mp) <= tol))
+    names = [r.model_name for r in results]
+    by_family = {f: np.abs(mc - mp)[:, [i for i, n in enumerate(names)
+                                         if n == f]].max(axis=0).tolist()
+                 for f in dict.fromkeys(names)}
+    log(f"[wf-agree] max |card - cpu| by family and grid point: "
+        f"{json.dumps(by_family)}")
+    means = np.sort(mp.mean(axis=0))[::-1]
+    close = len(means) > 1 and means[0] - means[1] < AGREE_TOL
+    same = card["winner_index"] == cpu["winner_index"]
+    log(f"[wf-agree] prepared {a.shape}: metadata equal; {int(floats.sum())} "
+        f"float columns max rel diff {float_rel:.3e} (tol "
+        f"{PREPARED_REL_TOL}); the other {int((~floats).sum())} bitwise "
+        f"equal: {exact}; max |card - cpu| metric {diff:.3e} (tol "
+        f"{AGREE_TOL}, {GBT_SMALL_LEAF_TOL} for GBT at min_child_weight "
+        f"< 10): within {within}; winner card {card['winner_index']} cpu "
+        f"{cpu['winner_index']}{' (top two within tol)' if close else ''}; "
+        f"seconds card {card['train_score_evaluate_s']:.2f} cpu "
+        f"{cpu['train_score_evaluate_s']:.2f}")
+    if not exact or float_rel > PREPARED_REL_TOL:
+        raise AssertionError("card and CPU prepared matrices disagree")
+    if not within or not (same or close):
+        raise AssertionError("card and CPU workflow searches disagree")
+    return {"shape": list(a.shape), "float_columns": int(floats.sum()),
+            "float_max_rel_diff": float_rel, "others_bitwise": exact,
+            "metric_max_abs_diff": diff, "metrics_within_tol": within,
+            "same_winner": same, "metric_diff_by_family": by_family,
+            "card_s": card["train_score_evaluate_s"],
+            "cpu_s": cpu["train_score_evaluate_s"]}
+
+
 def write_out(path, result: dict) -> None:
     """Every measurement as JSON at ``path``, when one is given."""
     if not path:
@@ -898,6 +1198,11 @@ def main(argv=None) -> int:
                     help="stop after phase 3 and print its JSON last: "
                          "times K1 alone, e.g. in edited copies of a "
                          "checkout run in turns")
+    ap.add_argument("--workflow-rows", type=int, default=200_000,
+                    help="records of the Titanic workflow phase")
+    ap.add_argument("--workflow-only", action="store_true",
+                    help="run only the build and the two workflow phases "
+                         "and print their JSON last")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -906,6 +1211,17 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     info = phase_device()
     phase_build()
+    if args.workflow_only:
+        wf_run = phase_workflow(device, args.workflow_rows)
+        wf_run.pop("run")
+        wf_agree = phase_workflow_agree(device)
+        write_out(args.out, {"device": info, "workflow": wf_run,
+                             "workflow_agree": wf_agree})
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"workflow": wf_run, "workflow_agree": wf_agree},
+                         default=str))
+        return 0
     X, y = make_data(args.rows, COLS)
     k1 = phase_k1(device, X)
     k1["forest"] = phase_k1_forest(device, X, y)
@@ -939,6 +1255,11 @@ def main(argv=None) -> int:
     lbfgs, svc = phase_lbfgs(device, X, y)
     phase_serve(svc, X[-1000:], tag="serve-svc")
     agree = phase_card_vs_cpu(device, 20_000, COLS)
+    # the second main path: the Titanic workflow, its matrix born on the
+    # card; K1's counts are zeroed inside, just before its train
+    wf_run = phase_workflow(device, args.workflow_rows)
+    wf_run.pop("run")
+    wf_agree = phase_workflow_agree(device)
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -967,10 +1288,16 @@ def main(argv=None) -> int:
              "launches_by_family": {
                  name: rec["k1_launches"]
                  for name, rec in main_run["families"].items()},
+             "launches_workflow": wf_run["k1_launches"],
+             "launches_workflow_by_c": wf_run["k1_launches_by_c"],
+             "launches_workflow_by_family": {
+                 name: rec["k1_launches"]
+                 for name, rec in wf_run["families"].items()},
              "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "linear_ops": linear_ops, "lbfgs": lbfgs,
-                         "agree": agree, "profile": prof,
+                         "agree": agree, "workflow": wf_run,
+                         "workflow_agree": wf_agree, "profile": prof,
                          "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(info["smi"])

@@ -194,3 +194,105 @@ def test_refuses_without_a_card(tmp_path):
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_workflow_phase():
+    """The Titanic workflow phase on the CPU at a tiny size (the four
+    families with small trees): the prepared matrix is a CPU tensor the
+    selector received as it is, every host stage is reported with its
+    reason, the families are timed in pool order."""
+    out = chip_smoke.phase_workflow(
+        "cpu", 1200, tag="rehearse-wf",
+        models=chip_smoke.small_models("cpu", num_rounds=2, num_trees=2))
+    assert out["matrix_device"] == "cpu"
+    assert out["matrix_dtype"] == "torch.float64"
+    assert out["train_rows"] == 900 and out["matrix_shape"][1] > 500
+    seen = out["fit_columns"]
+    assert seen["is_tensor"] and seen["device"] == "cpu"
+    assert "dtoh_bytes" not in seen          # profiled on a card only
+    assert list(out["families"]) == list(chip_smoke.FAMILIES)
+    assert out["k1_launches"] == 0           # the CPU takes the plain path
+    hosts = {label.split("(")[0] for label, _ in out["host_stages"]}
+    assert hosts == {"LambdaTransformer", "AliasTransformer",
+                     "SmartTextVectorizerModel", "SelectedModel"}
+    mm = np.asarray(out["metric_matrix"])
+    assert mm.shape == (3, 20) and np.all(np.isfinite(mm))
+    for key in ("raw_extraction_s", "vectorizer_fits_s",
+                "device_transforms_s", "host_stage_transforms_s",
+                "search_s"):
+        assert out[key] > 0
+
+
+def test_workflow_agree_phase():
+    """Card-against-CPU workflow phase with the CPU on both sides: the
+    matrices and metric matrices agree exactly."""
+    got = chip_smoke.phase_workflow_agree("cpu", 900, num_rounds=2,
+                                          num_trees=2)
+    assert got["others_bitwise"] and got["float_max_rel_diff"] == 0.0
+    assert got["metric_max_abs_diff"] == 0.0 and got["same_winner"]
+    assert 0 < got["float_columns"] < 10
+
+
+#: a Chrome trace as torch.profiler (kineto) exports one: a copy each way,
+#: a pinned read-back, a kernel whose name holds escaped quotes, a set,
+#: and host-side events
+TRACE = b"""{"traceEvents": [
+  {
+    "ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)", "pid": 0, "tid": 7,
+    "ts": 1371424165706.295, "dur": 540.824,
+    "args": {
+      "device": 0, "context": 1,
+      "stream": 7, "correlation": 7,
+      "bytes": 4000000, "memory bandwidth (GB/s)": 7.39
+    }
+  },
+  {
+    "ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "pid": 119, "tid": 25,
+    "ts": 1371424165640.758, "dur": 2935.686,
+    "args": {
+      "cbid": 41, "correlation": 7
+    }
+  },
+  {
+    "ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)", "pid": 0, "tid": 7,
+    "ts": 1371424170727.850, "dur": 21.311,
+    "args": {
+      "device": 0, "context": 1,
+      "stream": 7, "correlation": 29,
+      "bytes": 1000000, "memory bandwidth (GB/s)": 46.9
+    }
+  },
+  {
+    "ph": "X", "cat": "kernel", "name": "void k<\\"a\\">(float)", "pid": 0, "tid": 7,
+    "ts": 1371424170800.000, "dur": 100.500,
+    "args": {
+      "grid": [1, 1, 1], "correlation": 40
+    }
+  },
+  {
+    "ph": "X", "cat": "gpu_memset", "name": "Memset (Device)", "pid": 0, "tid": 7,
+    "ts": 1371424170900.000, "dur": 2.000,
+    "args": {
+      "bytes": 64
+    }
+  },
+  {
+    "ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)", "pid": 0, "tid": 7,
+    "ts": 1371424200738.968, "dur": 3.616,
+    "args": {
+      "device": 0, "context": 1,
+      "stream": 7, "correlation": 58,
+      "bytes": 4, "memory bandwidth (GB/s)": 0.0011
+    }
+  }
+]}"""
+
+
+def test_memcpy_window_reads_copy_bytes():
+    """The trace reader sums a window's copies by direction from the
+    memcpy events' bytes, and the time of every device event."""
+    out = chip_smoke.memcpy_window(TRACE)
+    busy = out.pop("device_busy_ms")
+    assert out == {"dtoh_bytes": 4000004, "htod_bytes": 1000000,
+                   "dtoh_copies": 2, "htod_copies": 1}
+    assert abs(busy - (540.824 + 21.311 + 100.5 + 2.0 + 3.616) / 1e3) < 1e-12

@@ -1,7 +1,10 @@
 """Rules of the PyTorch port as a package: it runs on CUDA unless the caller
-asks for the CPU, and it imports neither JAX nor the JAX package."""
+asks for the CPU, it imports neither JAX nor the JAX package, and every
+part of the JAX package's workflow surface it has not ported raises
+NotImplementedError naming the JAX module it waits for."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,9 +19,16 @@ from transmogrifai_tpu_torch.models.linear import (
 from transmogrifai_tpu_torch.models.trees import (
     DecisionTreeClassifier, GBTClassifier, GBTClassifierModel,
     RandomForestClassifier, TreeEnsembleClassifierModel)
+from transmogrifai_tpu_torch.examples import titanic
+from transmogrifai_tpu_torch.features import FeatureBuilder
+from transmogrifai_tpu_torch.ops import transmogrify
+from transmogrifai_tpu_torch.plans import PreparePlan
 from transmogrifai_tpu_torch.selector import (
     BinaryClassificationModelSelector, ModelSelector)
+from transmogrifai_tpu_torch.types import (DateList, Geolocation, PickList,
+                                           Real, RealMap, Date, TextList)
 from transmogrifai_tpu_torch.utils.device import resolve_device, working_dtype
+from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
 
 PKG = Path(transmogrifai_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -27,6 +37,11 @@ FORBIDDEN = ("jax", "jaxlib", "transmogrifai_tpu")
 
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _feature(ftype, name):
+    return FeatureBuilder.of(name, ftype).extract(
+        lambda r: r[name]).as_predictor()
 
 
 def _no_card(monkeypatch):
@@ -51,6 +66,10 @@ def _no_card(monkeypatch):
     lambda: LogisticRegressionModel(np.zeros(2), 0.0),
     lambda: LinearSVCModel(np.zeros(2), 0.0),
     lambda: BinaryClassificationModelSelector.with_cross_validation(),
+    lambda: Workflow(),
+    lambda: PreparePlan([_feature(Real, "x")]),
+    lambda: titanic.default_selector(),
+    lambda: titanic.run(titanic.synthetic_titanic(40)),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)
@@ -69,10 +88,70 @@ def test_explicit_cpu_and_dtype_policy(monkeypatch):
         resolve_device("meta")
 
 
+def test_device_stages_run_where_their_inputs_are():
+    """transform_arrays computes on its inputs' device in the working
+    dtype: a CPU tensor stays on the CPU as float64; the plan only ever
+    hands a stage tensors on the workflow's device, which defaults to the
+    card."""
+    from transmogrifai_tpu_torch.ops import OneHotVectorizerModel
+    model = OneHotVectorizerModel(categories=[["a"]])
+    out = model.transform_arrays([torch.tensor([0, 1, 2])])
+    assert out.device.type == "cpu" and out.dtype == torch.float64
+
+
+#: (entry point, the JAX module its error must name)
+UNPORTED = [
+    (lambda: transmogrify([_feature(Date, "d")]), "ops/date.py"),
+    (lambda: transmogrify([_feature(DateList, "d")]), "ops/date.py"),
+    (lambda: transmogrify([_feature(Geolocation, "g")]), "ops/geo.py"),
+    (lambda: transmogrify([_feature(TextList, "t")]), "ops/text.py"),
+    (lambda: transmogrify([_feature(RealMap, "m")]), "ops/maps.py"),
+    (lambda: _feature(Real, "x").sanity_check(_feature(Real, "y")),
+     "checkers/sanity_checker.py"),
+    (lambda: _feature(Real, "x").bucketize([0.0]), "ops/bucketizers.py"),
+    (lambda: _feature(Real, "x").auto_bucketize(_feature(Real, "y")),
+     "ops/bucketizers.py"),
+    (lambda: _feature(PickList, "x").tokenize(), "ops/text.py"),
+    (lambda: _feature(PickList, "x").lda(), "ops/text_advanced.py"),
+    (lambda: Workflow(device="cpu").with_workflow_cv(),
+     "workflow/workflow.py"),
+    (lambda: Workflow(device="cpu").with_raw_feature_filter(None),
+     "checkers/raw_feature_filter.py"),
+    (lambda: Workflow(device="cpu").with_listener(None), "observability/"),
+    (lambda: Workflow(device="cpu").set_reader(None),
+     "readers/data_readers.py"),
+    (lambda: Workflow(device="cpu").train(resume_from="ckpt"),
+     "runtime/journal.py"),
+    (lambda: Workflow(device="cpu").train(validate="warn"), "lint/"),
+    (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
+    (lambda: BinaryClassificationModelSelector.with_cross_validation(
+        validation="racing", device="cpu"), "selector/racing.py"),
+    (lambda: WorkflowModel(()).save("model"), "workflow/persistence.py"),
+    (lambda: WorkflowModel.load("model"), "workflow/persistence.py"),
+    (lambda: WorkflowModel(()).score([], engine="compiled"),
+     "serving/plan.py"),
+]
+
+
+@pytest.mark.parametrize("entry,module", UNPORTED,
+                         ids=[m + f"-{i}" for i, (_, m)
+                              in enumerate(UNPORTED)])
+def test_unported_parts_raise_by_name(entry, module):
+    with pytest.raises(NotImplementedError,
+                       match=f"transmogrifai_tpu/{re.escape(module)}"):
+        entry()
+
+
 def test_sources_import_no_jax():
     """Walk every module's AST: no import of jax or the JAX package."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(p.relative_to(PKG)) for p in files[:-1]}
+    assert {"workflow/workflow.py", "plans/prepare.py", "plans/common.py",
+            "ops/transmogrify.py", "ops/categorical.py", "ops/text.py",
+            "ops/numeric.py", "ops/dsl.py", "ops/combiner.py",
+            "stages/base.py", "features/feature.py", "features/columns.py",
+            "types/maps.py", "utils/uid.py", "utils/vector_meta.py",
+            "examples/titanic.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -13,5 +13,11 @@ split histogram as a hand-written CUDA kernel (``models/hist_kernel.py``,
 ``csrc/level_hist.cu``), the random draws passed in
 (``models/draws.py``), and the linear family's FISTA and L-BFGS solvers
 (``models/solvers.py``) batched over the fold x grid candidates
-(``parallel/cv.py``).
+(``parallel/cv.py``); and the workflow above it: the type lattice
+(``types/``), the feature DAG (``features/``, ``stages/``), the Titanic
+DAG's vectorizers and ``transmogrify`` (``ops/``), the prepare plan that
+runs the DAG's device stages as torch ops so the selector searches a
+matrix born on the device (``plans/prepare.py``), and ``Workflow`` /
+``WorkflowModel`` (``workflow/``; the Titanic example in
+``examples/titanic.py``).
 """

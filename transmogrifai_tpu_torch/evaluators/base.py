@@ -1,17 +1,20 @@
 """Evaluator base and metric record (host side, numpy).
 
-Counterpart of ``transmogrifai_tpu/evaluators/base.py``, restricted to the
-array-level contract the selector uses: ``evaluate_arrays`` (label vector
-and ``PredictionColumn`` in, metrics record out), ``metric_from`` and the
-device-metric spec. The Dataset adapters are not ported.
+Counterpart of ``transmogrifai_tpu/evaluators/base.py``: the array-level
+contract the selector uses (``evaluate_arrays``: label vector and
+``PredictionColumn`` in, metrics record out; ``metric_from``; the
+device-metric spec) and the Dataset adapters the workflow uses
+(``label_col``, ``prediction_col``, ``evaluate_all``, ``evaluate``). The
+metrics' JSON round trip is not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
-from ..models.base import PredictionColumn
+from ..features.columns import Dataset, PredictionColumn
 
 __all__ = ["EvaluationMetrics", "Evaluator"]
 
@@ -22,15 +25,34 @@ class EvaluationMetrics:
 
 
 class Evaluator:
-    """Base evaluator: ``evaluate_arrays`` is the kernel."""
+    """Base evaluator: ``evaluate_arrays`` is the kernel; ``evaluate`` /
+    ``evaluate_all`` adapt a Dataset by column name."""
 
     #: name of the metric the selector ranks by
     default_metric: str = ""
     is_larger_better: bool = True
 
+    def __init__(self, label_col: Optional[str] = None,
+                 prediction_col: Optional[str] = None):
+        self.label_col = label_col
+        self.prediction_col = prediction_col
+
     def evaluate_arrays(self, y: np.ndarray, pred: PredictionColumn
                         ) -> EvaluationMetrics:
         raise NotImplementedError
+
+    def evaluate_all(self, ds: Dataset) -> EvaluationMetrics:
+        """Metrics of the ``prediction_col`` column against the
+        ``label_col`` column of ``ds``."""
+        y = np.asarray(ds[self.label_col].data, dtype=np.float64)
+        pred = ds[self.prediction_col]
+        if not isinstance(pred, PredictionColumn):
+            raise TypeError(f"column {self.prediction_col!r} holds "
+                            f"{pred.ftype.__name__} values, not predictions")
+        return self.evaluate_arrays(y, pred)
+
+    def evaluate(self, ds: Dataset) -> float:
+        return self.metric_from(self.evaluate_all(ds))
 
     def metric_from(self, metrics: EvaluationMetrics) -> float:
         return float(getattr(metrics, self.default_metric))

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..models.base import PredictionColumn
+from ..features.columns import PredictionColumn
 from .base import EvaluationMetrics, Evaluator
 
 __all__ = ["BinaryClassificationMetrics", "BinaryClassificationEvaluator",
@@ -96,7 +96,10 @@ def binary_metrics(y: np.ndarray, pred_label: np.ndarray,
 class BinaryClassificationEvaluator(Evaluator):
     """Binary evaluator; ranks by AuPR unless told otherwise."""
 
-    def __init__(self, default_metric: str = "AuPR"):
+    def __init__(self, label_col: Optional[str] = None,
+                 prediction_col: Optional[str] = None,
+                 default_metric: str = "AuPR"):
+        super().__init__(label_col, prediction_col)
         self.default_metric = default_metric
         self.is_larger_better = default_metric != "Error"
 

@@ -1,52 +1,44 @@
-"""Predictor and prediction-model bases (array-level contract).
+"""Predictor / PredictionModel stage bases — the model-zoo kernel.
 
-Counterpart of ``transmogrifai_tpu/models/base.py`` restricted to what the
-selector search uses: ``Predictor.fit_arrays`` / ``with_params``,
-``ClassifierModel.predict_arrays`` / ``raw_to_probability``, and a minimal
-``PredictionColumn`` (the counterpart of
-``transmogrifai_tpu/features/columns.py`` ``PredictionColumn``). The
-stage/DAG base classes are not ported yet. Arrays cross the public
-boundary as numpy; the models compute on their ``device``.
+Counterpart of ``transmogrifai_tpu/models/base.py``. A ``Predictor`` is a
+binary estimator stage over (RealNN label, OPVector features) ->
+Prediction, and a ``PredictionModel`` the binary model it fits:
+``fit_arrays`` consumes the label vector and the feature matrix and
+``predict_arrays`` returns a ``PredictionColumn``. The feature matrix may be
+a numpy array or a tensor on the model's device (the prepare plan hands
+the selector the matrix it computed there); predictions come back to the
+host as numpy. ``raw_arrays`` is the device kernel: feature tensor in, raw
+margins or votes tensor out.
+
+Input contract as in the reference: input 1 is the RealNN label (must be
+a response), input 2 the OPVector feature matrix (must not be) —
+core/src/main/scala/com/salesforce/op/stages/impl/CheckIsResponseValues.scala.
 """
 from __future__ import annotations
 
-import uuid
-from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
+
+from ..features.columns import FeatureColumn, PredictionColumn
+from ..stages.base import BinaryEstimator, BinaryModel
+from ..types import OPVector, Prediction, RealNN
 
 __all__ = ["PredictionColumn", "Predictor", "PredictionModel",
-           "ClassifierModel", "num_classes", "subset_grid"]
+           "ClassifierModel", "check_is_response_values", "num_classes",
+           "subset_grid"]
 
 
-def _uid(cls) -> str:
-    return f"{cls.__name__}_{uuid.uuid4().hex[:12]}"
-
-
-@dataclass
-class PredictionColumn:
-    """Batch of predictions: ``data`` the (n,) predicted labels,
-    ``probability`` and ``raw_prediction`` the (n, k) per-class arrays."""
-    data: np.ndarray
-    probability: np.ndarray = field(
-        default_factory=lambda: np.zeros((0, 0), dtype=np.float64))
-    raw_prediction: np.ndarray = field(
-        default_factory=lambda: np.zeros((0, 0), dtype=np.float64))
-
-    @staticmethod
-    def from_arrays(prediction: np.ndarray,
-                    probability: Optional[np.ndarray] = None,
-                    raw_prediction: Optional[np.ndarray] = None
-                    ) -> "PredictionColumn":
-        pred = np.asarray(prediction, dtype=np.float64).reshape(-1)
-        n = pred.shape[0]
-        prob = (np.zeros((n, 0)) if probability is None
-                else np.asarray(probability, dtype=np.float64).reshape(n, -1))
-        raw = (np.zeros((n, 0)) if raw_prediction is None
-               else np.asarray(raw_prediction, dtype=np.float64).reshape(n, -1))
-        return PredictionColumn(data=pred, probability=prob,
-                                raw_prediction=raw)
+def check_is_response_values(label, features) -> None:
+    """Reference CheckIsResponseValues: in1 must be a response, in2 must
+    not be."""
+    if not label.is_response:
+        raise ValueError(
+            f"Label input {label.name!r} must be a response feature")
+    if features.is_response:
+        raise ValueError(
+            f"Feature-vector input {features.name!r} must not be a response")
 
 
 def num_classes(y) -> int:
@@ -62,19 +54,36 @@ def subset_grid(grid, cand_idx):
     return [grid[int(i)] for i in np.asarray(cand_idx).ravel()]
 
 
-class Predictor:
-    """Estimator over (label vector, feature matrix). Subclasses list
-    their constructor parameters in ``param_names``."""
+def _features(col: FeatureColumn):
+    """A feature-vector column's values: its tensor as it is, or its host
+    values as float64 numpy."""
+    if col.on_device:
+        return col.data
+    return np.asarray(col.data, dtype=np.float64)
 
+
+class Predictor(BinaryEstimator):
+    """Estimator over (RealNN label, OPVector features) -> Prediction.
+    Subclasses list their constructor parameters in ``param_names``."""
+
+    input_types = (RealNN, OPVector)
+    output_type = Prediction
+    device_inputs = True
     param_names: Tuple[str, ...] = ()
 
-    def __init__(self, uid: Optional[str] = None):
-        self.uid = uid or _uid(type(self))
+    def check_input_constraints(self, features) -> None:
+        check_is_response_values(*features)
+
+    def fit_columns(self, cols: List[FeatureColumn]) -> "PredictionModel":
+        y = np.asarray(cols[0].data, dtype=np.float64)
+        model = self.fit_arrays(_features(cols[1]), y)
+        model.vector_metadata = cols[1].metadata
+        return model
 
     def get_params(self) -> Dict[str, Any]:
         return {k: getattr(self, k) for k in self.param_names}
 
-    def fit_arrays(self, X: np.ndarray, y: np.ndarray) -> "PredictionModel":
+    def fit_arrays(self, X, y: np.ndarray) -> "PredictionModel":
         raise NotImplementedError
 
     def with_params(self, **params) -> "Predictor":
@@ -85,23 +94,55 @@ class Predictor:
         return type(self)(**kwargs)
 
 
-class PredictionModel:
-    """Fitted model: feature matrix in, ``PredictionColumn`` out."""
+class PredictionModel(BinaryModel):
+    """Fitted model: OPVector batch -> PredictionColumn. Scoring uses only
+    the feature-vector input; the label column (wired for uid/DAG
+    symmetry with the estimator) is ignored."""
 
-    def __init__(self, uid: Optional[str] = None):
-        self.uid = uid or _uid(type(self))
+    input_types = (RealNN, OPVector)
+    output_type = Prediction
+    device_inputs = True
+    #: vector metadata of the training feature matrix
+    vector_metadata = None
 
-    def predict_arrays(self, X: np.ndarray) -> PredictionColumn:
+    def check_input_constraints(self, features) -> None:
+        check_is_response_values(*features)
+
+    def transform_columns(self, cols: List[FeatureColumn]) -> PredictionColumn:
+        return self.predict_arrays(_features(cols[-1]))
+
+    def predict_arrays(self, X) -> PredictionColumn:
         raise NotImplementedError
+
+    def transform_value(self, *values: Any) -> Prediction:
+        vec = values[-1]
+        arr = np.asarray(vec.value if hasattr(vec, "value") else vec,
+                         dtype=np.float64).reshape(1, -1)
+        return self.predict_arrays(arr).boxed(0)
+
+    # -- device lowering ---------------------------------------------------
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        """This model's raw output (margins or votes, (n, k)) from a
+        feature tensor on its device, computed there."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no array predict kernel")
+
+    def supports_arrays(self) -> bool:
+        return type(self).raw_arrays is not PredictionModel.raw_arrays
+
+    def transform_arrays(self, arrays):
+        return self.raw_arrays(arrays[-1])
 
 
 class ClassifierModel(PredictionModel):
     """Probabilistic classifier: prediction + raw prediction +
-    probability."""
+    probability. Subclasses set ``device`` and ``dtype`` and implement
+    ``raw_arrays``."""
 
-    def predict_raw(self, X: np.ndarray) -> np.ndarray:
-        """(n, k) raw margins/scores."""
-        raise NotImplementedError
+    def predict_raw(self, X) -> np.ndarray:
+        """(n, k) raw margins/scores on the host."""
+        Xt = torch.as_tensor(X, dtype=self.dtype, device=self.device)
+        return self.raw_arrays(Xt).cpu().numpy().astype(np.float64)
 
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         """Default: max-shifted softmax over the raw margins."""
@@ -116,5 +157,5 @@ class ClassifierModel(PredictionModel):
         return PredictionColumn.from_arrays(pred, probability=prob,
                                             raw_prediction=raw)
 
-    def predict_arrays(self, X: np.ndarray) -> PredictionColumn:
+    def predict_arrays(self, X) -> PredictionColumn:
         return self.prediction_from_raw(self.predict_raw(X))

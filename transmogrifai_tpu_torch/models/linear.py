@@ -109,15 +109,14 @@ def _unstandardize_coefs(wv: torch.Tensor, b: torch.Tensor,
 
 
 def _prep(X, W, standardize: bool, device: torch.device) -> _Design:
-    """``X`` (n, d) and fold weights ``W`` (F, n) on ``device`` in the
-    working dtype, X centred by its global mean there (so the per-fold
-    mean corrections of the implicit standardization stay small in
-    float32)."""
+    """``X`` (n, d; numpy, or a tensor already on ``device``) and fold
+    weights ``W`` (F, n) on ``device`` in the working dtype, X centred by
+    its global mean there (so the per-fold mean corrections of the
+    implicit standardization stay small in float32)."""
     dtype = working_dtype(device)
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
     # a copy: the centring below works in place
-    Xc = torch.from_numpy(np.array(X, dtype=np_dtype)).to(device)
-    Wt = torch.from_numpy(np.array(W, dtype=np_dtype)).to(device)
+    Xc = torch.as_tensor(X, dtype=dtype, device=device).clone()
+    Wt = torch.as_tensor(W, dtype=dtype, device=device)
     gmean = torch.mean(Xc, dim=0)
     Xc.sub_(gmean)
     if standardize:
@@ -312,14 +311,10 @@ class _LinearModel(ClassifierModel):
                 self.device, self.dtype)
         self.intercept = float(np.asarray(intercept).reshape(()))
 
-    def margins(self, X) -> np.ndarray:
-        Xt = torch.as_tensor(np.asarray(X), dtype=self.dtype).to(self.device)
-        m = Xt @ self.coefficients + self.intercept
-        return m.cpu().numpy().astype(np.float64)
-
-    def predict_raw(self, X) -> np.ndarray:
-        m = self.margins(X)
-        return np.stack([-m, m], axis=1)
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, 2) raw pair [-m, m] of the margins m."""
+        m = X @ self.coefficients + self.intercept
+        return torch.stack([-m, m], dim=1)
 
 
 class LogisticRegressionModel(_LinearModel):

@@ -556,7 +556,8 @@ def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 class GBTClassifierModel(ClassifierModel):
     """Boosted binary classifier: sigmoid over summed leaf margins. The
-    trees live on ``device``; ``predict_arrays`` takes and returns numpy."""
+    trees live on ``device``; ``predict_arrays`` takes numpy or a tensor
+    and returns numpy."""
 
     def __init__(self, feats, thrs, leaves, depth: int, base: float = 0.0,
                  n_features: int = 0, device="cuda",
@@ -571,16 +572,11 @@ class GBTClassifierModel(ClassifierModel):
         self.base = float(base)
         self.n_features = int(n_features)
 
-    def margins(self, X) -> np.ndarray:
-        Xt = torch.as_tensor(np.asarray(X), dtype=self.dtype,
-                             device=self.device)
-        m = _gbt_margins(Xt, self.feats, self.thrs, self.leaves, self.base,
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, 2) raw pair [-m, m] of the boosted margins m."""
+        m = _gbt_margins(X, self.feats, self.thrs, self.leaves, self.base,
                          self.depth)
-        return m.cpu().numpy().astype(np.float64)
-
-    def predict_raw(self, X) -> np.ndarray:
-        m = self.margins(X)
-        return np.stack([-m, m], axis=1)
+        return torch.stack([-m, m], dim=1)
 
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         p = 1.0 / (1.0 + np.exp(-raw[:, 1]))
@@ -644,7 +640,7 @@ def _gbt_fold_grid(est: "GBTClassifier", X, y, masks, grid, X_val, y_val,
     mfn = metric_fn(*spec)
     y_t = torch.as_tensor(np.asarray(y), dtype=dtype, device=dev)
     masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
-    Xv = torch.as_tensor(np.asarray(X_val), dtype=dtype, device=dev)
+    Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
     yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
     mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
     for members in _candidate_groups(est, grid, _GBT_SKEY):
@@ -936,13 +932,11 @@ class TreeEnsembleClassifierModel(ClassifierModel):
         self.depth = int(depth)
         self.n_features = int(n_features)
 
-    def predict_raw(self, X) -> np.ndarray:
-        Xt = torch.as_tensor(np.asarray(X), dtype=self.dtype,
-                             device=self.device)
-        leaf = _predict_leaves(Xt, self.feats, self.thrs, self.depth)
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, K) mean over trees of the leaf class distributions."""
+        leaf = _predict_leaves(X, self.feats, self.thrs, self.depth)
         tree = torch.arange(leaf.shape[0], device=self.device)[:, None]
-        votes = torch.mean(self.leaves[tree, leaf], dim=0)      # (n, K)
-        return votes.cpu().numpy().astype(np.float64)
+        return torch.mean(self.leaves[tree, leaf], dim=0)
 
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         s = np.sum(raw, axis=1, keepdims=True)
@@ -987,7 +981,7 @@ def _forest_fold_grid(est, X, y, masks, grid, X_val, y_val,
     F = masks.shape[0]
     mfn = metric_fn(*spec)
     masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
-    Xv = torch.as_tensor(np.asarray(X_val), dtype=dtype, device=dev)
+    Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
     yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
     mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
     for members in _candidate_groups(est, grid, _FOREST_STATIC):

@@ -40,7 +40,8 @@ def eval_linear_fold_grid(kind: str, X, y, masks, grid, X_val, y_val,
 
     masks : (F, n) 0/1 train-row masks of the folds over X (n, d)
     grid  : (G, 2) [reg, alpha] rows
-    X_val : (F, nv, d) stacked validation folds; y_val (F, nv)
+    X_val : (F, nv, d) stacked validation folds (numpy, or a tensor on
+            ``device``, as X may be); y_val (F, nv)
     spec  : (kind, metric) for ``evaluators.device_metrics.metric_fn``
     """
     if kind not in LINEAR_KERNELS:
@@ -56,8 +57,7 @@ def eval_linear_fold_grid(kind: str, X, y, masks, grid, X_val, y_val,
                              fit_intercept=fit_intercept,
                              standardize=standardize, max_iter=max_iter,
                              device=dev)
-    Xv = torch.from_numpy(np.asarray(X_val, dtype=np.float64)).to(
-        dev, dtype)
+    Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
     yv = torch.from_numpy(np.asarray(y_val, dtype=np.float64)).to(
         dev, dtype)
     mm = torch.empty((F, G), dtype=dtype, device=dev)

@@ -16,6 +16,7 @@ from ..evaluators import BinaryClassificationEvaluator, Evaluator
 from ..models import registry
 from ..models.base import Predictor
 from ..utils.device import resolve_device
+from ..utils.ported import not_ported
 from .selector import ModelSelector
 from .splitters import DataBalancer, Splitter
 from .validator import CrossValidation
@@ -66,10 +67,18 @@ class BinaryClassificationModelSelector:
                               models: Optional[Sequence] = None,
                               model_types_to_use: Optional[Sequence] = None,
                               stratify: bool = False,
+                              validation: str = "exact",
                               device="cuda") -> ModelSelector:
         """Selector over ``models`` (or the default pool narrowed to
         ``model_types_to_use``) under ``num_folds``-fold CV, ranking by
-        the evaluator's metric (AuPR by default), on ``device``."""
+        the evaluator's metric (AuPR by default), on ``device``. Only
+        exact validation is ported; ``validation="racing"`` raises."""
+        if validation == "racing":
+            raise not_ported("validation='racing' (RacingCrossValidation)",
+                             "selector/racing.py")
+        if validation != "exact":
+            raise ValueError(f"validation must be 'exact' or 'racing', got "
+                             f"{validation!r}")
         dev = resolve_device(device)
         pool = (_filter_models(list(models), model_types_to_use)
                 if models is not None

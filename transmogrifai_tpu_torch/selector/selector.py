@@ -1,11 +1,14 @@
 """ModelSelector: automated model selection over the ported families.
 
 Counterpart of ``transmogrifai_tpu/selector/selector.py``
-(``ModelSelector.fit_arrays``, ``SelectedModel``, ``ModelSelectorSummary``):
-prepare the data with the splitter (holdout reserve, balancing), validate
-every candidate (family x grid point) under cross-validation, refit the
-winner on the full prepared training set, and evaluate it on the training
-set and the holdout.
+(``ModelSelector.fit_arrays`` and ``fit_columns``, ``SelectedModel``,
+``ModelSelectorSummary``): prepare the data with the splitter (holdout
+reserve, balancing), validate every candidate (family x grid point) under
+cross-validation, refit the winner on the full prepared training set, and
+evaluate it on the training set and the holdout. As a workflow stage the
+selector receives the prepared feature matrix as the tensor the prepare
+plan computed on the device (``Predictor.fit_columns``) and searches it
+there.
 """
 from __future__ import annotations
 
@@ -14,10 +17,11 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..evaluators.base import EvaluationMetrics
 from ..models.base import PredictionColumn, PredictionModel, Predictor
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, take_rows
 from .splitters import Splitter, SplitterSummary
 from .validator import BestEstimator, CrossValidation, ValidationResult
 
@@ -52,12 +56,18 @@ class SelectedModel(PredictionModel):
 
     def __init__(self, inner: PredictionModel,
                  summary: ModelSelectorSummary, uid: Optional[str] = None):
-        super().__init__(uid=uid)
+        super().__init__(operation_name="modelSelector", uid=uid)
         self.inner = inner
         self.summary = summary
 
-    def predict_arrays(self, X: np.ndarray) -> PredictionColumn:
+    def predict_arrays(self, X) -> PredictionColumn:
         return self.inner.predict_arrays(X)
+
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        return self.inner.raw_arrays(X)
+
+    def supports_arrays(self) -> bool:
+        return self.inner.supports_arrays()
 
 
 class ModelSelector(Predictor):
@@ -83,12 +93,21 @@ class ModelSelector(Predictor):
         self.splitter = splitter
         self.problem_type = problem_type
 
-    def fit_arrays(self, X: np.ndarray, y: np.ndarray) -> SelectedModel:
+    def fit_arrays(self, X, y: np.ndarray) -> SelectedModel:
+        """Search, refit and evaluate on ``X`` (n, d): numpy, or a tensor
+        that stays where it is (row gathers, validation folds and every
+        family's search run on its device; only metric matrices and
+        predictions come back)."""
         if not self.models:
             raise ValueError("ModelSelector has no candidate models")
         if self.validator is None:
             raise ValueError("ModelSelector requires a validator")
-        X = np.asarray(X)
+        if isinstance(X, torch.Tensor):
+            if X.device != self.device:
+                raise ValueError(f"the feature matrix lies on {X.device}, "
+                                 f"the selector computes on {self.device}")
+        else:
+            X = np.asarray(X)
         y = np.asarray(y, dtype=np.float64)
 
         timings: Dict[str, float] = {}
@@ -101,10 +120,10 @@ class ModelSelector(Predictor):
             self.splitter.reset_plan()
             train_idx, test_idx = self.splitter.split(y)
             if len(test_idx):
-                X_hold, y_hold = X[test_idx], y[test_idx]
-            X_tr, y_tr = X[train_idx], y[train_idx]
+                X_hold, y_hold = take_rows(X, test_idx), y[test_idx]
+            X_tr, y_tr = take_rows(X, train_idx), y[train_idx]
             idx = self.splitter.prepare(y_tr)
-            Xp, yp = X_tr[idx], y_tr[idx]
+            Xp, yp = take_rows(X_tr, idx), y_tr[idx]
             summ = self.splitter.summary or SplitterSummary()
             prep_params = summ.parameters
             prep_results = summ.results

@@ -14,9 +14,11 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..evaluators.base import Evaluator
 from ..models.base import Predictor
+from ..utils.device import take_rows
 
 __all__ = ["ValidationResult", "BestEstimator", "CrossValidation"]
 
@@ -89,13 +91,15 @@ class CrossValidation:
     def _build_fold_arrays(self, X, y: np.ndarray):
         """(masks (F, n), spec, X_val_st (F, nv, d), y_val_st (F, nv)):
         fold train masks over the prepared matrix and the stacked
-        validation folds."""
+        validation folds (gathered on X's device when X is a tensor)."""
         splits = self._splits(y)
         masks = np.zeros((len(splits), len(y)))
         for f, (train_idx, _) in enumerate(splits):
             masks[f, train_idx] = 1.0
         spec = self.evaluator.device_metric_spec()
-        X_val_st = np.stack([X[va] for _, va in splits])
+        folds = [take_rows(X, va) for _, va in splits]
+        X_val_st = (torch.stack(folds) if isinstance(X, torch.Tensor)
+                    else np.stack(folds))
         y_val_st = np.stack([y[va] for _, va in splits])
         return masks, spec, X_val_st, y_val_st
 

@@ -10,9 +10,10 @@ asked for.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "working_dtype"]
+__all__ = ["resolve_device", "working_dtype", "take_rows"]
 
 # a float32 product on the card must stay float32, not TF32 (about three
 # decimal digits): split gains and metrics are compared across devices
@@ -41,3 +42,12 @@ def resolve_device(device="cuda") -> torch.device:
 def working_dtype(device: torch.device) -> torch.dtype:
     """float32 on CUDA, float64 on the CPU."""
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def take_rows(data, idx):
+    """Rows ``idx`` (an integer array) of a numpy array or of a tensor; a
+    tensor's rows are gathered on its own device."""
+    if isinstance(data, torch.Tensor):
+        return data[torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                    device=data.device)]
+    return data[idx]
