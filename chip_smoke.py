@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--workflow-rows N] [--out FILE] [--k1-only | --workflow-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
-``--workflow-only`` runs phases 1, 2, 8 and 9):
+``--workflow-only`` runs phases 1, 2, 8, 8b and 9):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -50,7 +50,18 @@ Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
      transforms, the search by family, K1 launches by family and slot
      count, the winner and holdout AuPR / AuROC, peak memory, and the
      bytes ``fit_columns`` copied each way (torch.profiler memcpy
-     events), which must leave the matrix on the card;
+     events), which must leave the matrix on the card; a
+     ``WorkflowListener`` rides along: its top stages, the models x
+     folds (144) and the validator's family profile (the four families)
+     beside the smoke's own family seconds;
+ 8b. [serve-saved] phase 8's model saved to a temporary directory,
+     reloaded with ``load_score_function`` on the card, and
+     ``SAMPLE_PASSENGER`` and 1,000 holdout records served one at a
+     time (p50 / p99 / mean ms a record, synchronized): the served rows
+     equal phase 8's ``model.score`` rows within 1e-6, the model stage's
+     ``raw_arrays`` ran on CUDA tensors, a reload on the CPU serves the
+     same records within 1e-5 of the card (a linear winner), and a
+     re-save over the directory swaps it atomically; K1 launches none;
   9. the same workflow on 5,000 records on the card and on the CPU
      (the card-against-CPU pool): equal metadata, bitwise equal
      indicator, one-hot, hash and integer columns, float columns within
@@ -101,7 +112,13 @@ from transmogrifai_tpu_torch.evaluators import (  # noqa: E402
 from transmogrifai_tpu_torch.selector import (  # noqa: E402
     BinaryClassificationModelSelector, CrossValidation, DataBalancer)
 from transmogrifai_tpu_torch.examples import titanic  # noqa: E402
+from transmogrifai_tpu_torch.local import load_score_function  # noqa: E402
+from transmogrifai_tpu_torch.selector import validator  # noqa: E402
+from transmogrifai_tpu_torch.selector.selector import (  # noqa: E402
+    models_x_folds)
 from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
+from transmogrifai_tpu_torch.utils.listener import (  # noqa: E402
+    WorkflowListener)
 
 #: H100 SXM published peaks: HBM bytes/s and
 #: float32 operations/s outside the tensor cores
@@ -1020,11 +1037,16 @@ def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    listener = WorkflowListener()
+    validator.reset_family_profile()
     level_hist.launches = 0
     level_hist.launches_by_c.clear()
-    run = titanic.run(records, device=dev, model_stage=sel)
+    run = titanic.run(records, device=dev, model_stage=sel,
+                      listener=listener)
     launches = level_hist.launches
     by_c = dict(sorted(level_hist.launches_by_c.items()))
+    family_prof = validator.family_profile()
+    mxf = models_x_folds(run.model)
     wf, plan = run.workflow, run.workflow.last_prepare_plan
     X = run.model.train_dataset[run.vector.name].data
     selected = next(s for s in run.model.stages()
@@ -1056,6 +1078,10 @@ def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
            "host_stages": [list(f) for f in plan.coverage.fallback],
            "device_stages": len(plan.coverage.lowered),
            "fit_placements": [list(p) for p in plan.fit_placements],
+           "models_x_folds": mxf, "family_profile": family_prof,
+           "stage_profile": [m.to_json() for m in sorted(
+               listener.metrics.stage_metrics, key=lambda m: -m.seconds)[:3]],
+           "holdout_records": titanic.stratified_split(records)[1][:1000],
            "run": run}
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1085,7 +1111,27 @@ def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
            if "max_memory_allocated" in out else ""))
     log(f"[{tag}] fit_columns received "
         + json.dumps({k: v for k, v in seen.items()}))
+    log(f"[{tag}] listener, top 3 stages:\n"
+        + listener.metrics.profile_pretty(top=3))
+    log(f"[{tag}] models x folds {mxf}; family profile (validator) vs the "
+        f"smoke's own seconds: " + "; ".join(
+            f"{r['family']} {r['seconds']:.2f} s / {r['calls']} calls vs "
+            f"{families.get(r['family'], {}).get('seconds', float('nan')):.2f}"
+            f" s" for r in family_prof))
     G = len(s.validation_results)
+    if mxf != 3 * G:
+        raise AssertionError(f"[{tag}] models x folds {mxf}, expected "
+                             f"{3 * G}")
+    if models is None and mxf != 144:
+        raise AssertionError(f"[{tag}] the default pool gave {mxf} models "
+                             f"x folds, not 144")
+    if sorted(r["family"] for r in family_prof) != sorted(families) or \
+            any(r["calls"] < 1 for r in family_prof):
+        raise AssertionError(f"[{tag}] family profile {family_prof} does "
+                             f"not list every family of {sorted(families)}")
+    if not listener.metrics.stage_metrics or \
+            listener.metrics.end_time is None:
+        raise AssertionError(f"[{tag}] the listener saw no stages")
     if mm.shape != (3, G) or not np.all(np.isfinite(mm)):
         raise AssertionError(f"[{tag}] bad metric matrix {mm}")
     if not (seen.get("is_tensor") and seen["device"] == str(X.device)
@@ -1105,6 +1151,149 @@ def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
     if not 0.5 < run.metrics.AuROC <= 1.0:
         raise AssertionError(f"[{tag}] holdout evaluation is off: "
                              f"{run.metrics}")
+    return out
+
+
+#: served rows on the card against ``model.score`` on the card
+SERVE_SCORE_TOL = 1e-6
+#: the same saved linear model served on the card (float32) and on the CPU
+#: (float64 copies of the saved float32 arrays)
+SERVE_CPU_TOL = 1e-5
+
+
+def _serve_all(score_fn, records, name: str, dev: torch.device):
+    """Serve ``records`` one at a time; returns (rows, ms per record), each
+    call on a card synchronized so its time includes the card's work."""
+    rows, ms = [], []
+    for rec in records:
+        t0 = time.perf_counter()
+        row = score_fn(dict(rec))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(row[name])
+    return rows, np.asarray(ms)
+
+
+def _max_gap(rows_a, rows_b) -> float:
+    """Largest absolute difference over every key of two lists of served
+    prediction dicts (which must have the same keys)."""
+    worst = 0.0
+    for a, b in zip(rows_a, rows_b):
+        if set(a) != set(b):
+            raise AssertionError(f"served keys differ: {sorted(a)} vs "
+                                 f"{sorted(b)}")
+        worst = max(worst, max(abs(a[k] - b[k]) for k in a))
+    return worst
+
+
+def phase_serve_saved(run, holdout_records) -> dict:
+    """[serve-saved]: phase 8's fitted workflow model saved to a temporary
+    directory, reloaded through ``load_score_function`` on the workflow's
+    device (the card), and
+    ``SAMPLE_PASSENGER`` and ``holdout_records`` served one at a time.
+    Fails unless the served holdout rows equal the model's batch
+    ``score`` rows within SERVE_SCORE_TOL, the model stage's
+    ``raw_arrays`` ran on CUDA tensors for every record, a CPU reload
+    serves the same records within SERVE_CPU_TOL of the card (a linear
+    winner; a tree winner may route a row near a threshold otherwise in
+    float32, and must agree on 99 % of the records), a re-save over the
+    directory leaves one intact model, and K1 never launches."""
+    import shutil
+    import tempfile
+    model = run.model
+    dev = run.workflow.device
+    name = run.prediction.name
+    records = [titanic.SAMPLE_PASSENGER] + list(holdout_records)
+    level_hist.launches = 0
+    out = {"records": len(records)}
+    tmp = tempfile.mkdtemp(prefix="serve_saved_")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        out["save_s"] = time.perf_counter() - t0
+        out["op_model_json_bytes"] = os.path.getsize(
+            os.path.join(path, "op-model.json"))
+        out["arrays_npz_bytes"] = os.path.getsize(
+            os.path.join(path, "arrays.npz"))
+        t0 = time.perf_counter()
+        card_fn = load_score_function(path, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        selected = next(st for st in card_fn.model.stages()
+                        if type(st).__name__ == "SelectedModel")
+        inner = selected.inner
+        out["winner"] = type(inner).__name__
+        seen = collections.Counter()
+        real_raw = inner.raw_arrays
+
+        def spy(X):
+            seen[X.device.type] += 1
+            return real_raw(X)
+        inner.raw_arrays = spy
+        card_rows, ms = _serve_all(card_fn, records, name, dev)
+        inner.raw_arrays = real_raw
+        out.update(ms_p50=float(np.percentile(ms, 50)),
+                   ms_p99=float(np.percentile(ms, 99)),
+                   ms_mean=float(ms.mean()), ms_first=float(ms[0]),
+                   ms_max=float(ms.max()), raw_arrays_devices=dict(seen))
+        scored = model.score(holdout_records)[name]
+        batch = [dict(scored.boxed(i).value)
+                 for i in range(len(holdout_records))]
+        out["max_abs_diff_vs_score"] = _max_gap(card_rows[1:], batch)
+        t0 = time.perf_counter()
+        cpu_fn = load_score_function(path, device="cpu")
+        out["load_cpu_s"] = time.perf_counter() - t0
+        cpu_rows, cpu_ms = _serve_all(cpu_fn, records, name,
+                                      torch.device("cpu"))
+        out["cpu_ms_mean"] = float(cpu_ms.mean())
+        gaps = np.array([abs(a["probability_1"] - b["probability_1"])
+                         for a, b in zip(card_rows, cpu_rows)])
+        out["max_abs_prob_diff_cpu"] = float(gaps.max())
+        out["share_within_cpu_tol"] = float(np.mean(gaps <= SERVE_CPU_TOL))
+        t0 = time.perf_counter()
+        card_fn.model.save(path)
+        out["resave_s"] = time.perf_counter() - t0
+        leftovers = sorted(p for p in os.listdir(tmp) if p != "model")
+        again = load_score_function(path, device=dev)(
+            dict(titanic.SAMPLE_PASSENGER))[name]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["k1_launches"] = level_hist.launches
+    log(f"[serve-saved] saved in {out['save_s']:.3f} s "
+        f"(op-model.json {out['op_model_json_bytes']} bytes, arrays.npz "
+        f"{out['arrays_npz_bytes']} bytes); loaded on {dev} in "
+        f"{out['load_s']:.3f} s, on cpu in {out['load_cpu_s']:.3f} s; "
+        f"winner {out['winner']}")
+    log(f"[serve-saved] {len(records)} records one at a time on {dev}: p50 "
+        f"{out['ms_p50']:.3f} ms, p99 {out['ms_p99']:.3f} ms, mean "
+        f"{out['ms_mean']:.3f} ms a record, first {out['ms_first']:.3f} ms, "
+        f"max {out['ms_max']:.3f} ms (cpu reload: mean "
+        f"{out['cpu_ms_mean']:.3f} ms); P(survived) of SAMPLE_PASSENGER "
+        f"{card_rows[0]['probability_1']:.6f}")
+    log(f"[serve-saved] max |served - model.score| {out['max_abs_diff_vs_score']:.3e}"
+        f" (tol {SERVE_SCORE_TOL}); max |card - cpu reload| P(survived) "
+        f"{out['max_abs_prob_diff_cpu']:.3e} (tol {SERVE_CPU_TOL}, "
+        f"{100 * out['share_within_cpu_tol']:.1f} % within); raw_arrays "
+        f"calls by device {json.dumps(out['raw_arrays_devices'])}; re-saved "
+        f"in {out['resave_s']:.3f} s, leftovers {leftovers}; K1 launches "
+        f"{out['k1_launches']}")
+    if out["max_abs_diff_vs_score"] > SERVE_SCORE_TOL:
+        raise AssertionError("[serve-saved] served rows differ from "
+                             "model.score")
+    if seen.get(dev.type, 0) != len(records) or set(seen) != {dev.type}:
+        raise AssertionError(f"[serve-saved] raw_arrays ran on {dict(seen)}"
+                             f", not once a record on {dev.type}")
+    linear = out["winner"] in ("LogisticRegressionModel", "LinearSVCModel")
+    if (linear and out["max_abs_prob_diff_cpu"] > SERVE_CPU_TOL) or \
+            out["share_within_cpu_tol"] < 0.99:
+        raise AssertionError("[serve-saved] the CPU reload serves other "
+                             "probabilities than the card")
+    if leftovers or _max_gap([again], card_rows[:1]) > 0.0:
+        raise AssertionError(f"[serve-saved] re-save left {leftovers} or "
+                             f"served another row")
+    if out["k1_launches"]:
+        raise AssertionError("[serve-saved] the serve path launched K1")
     return out
 
 
@@ -1213,14 +1402,16 @@ def main(argv=None) -> int:
     phase_build()
     if args.workflow_only:
         wf_run = phase_workflow(device, args.workflow_rows)
-        wf_run.pop("run")
+        serve_saved = phase_serve_saved(wf_run.pop("run"),
+                                        wf_run.pop("holdout_records"))
         wf_agree = phase_workflow_agree(device)
         write_out(args.out, {"device": info, "workflow": wf_run,
+                             "serve_saved": serve_saved,
                              "workflow_agree": wf_agree})
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(info["smi"])
-        print(json.dumps({"workflow": wf_run, "workflow_agree": wf_agree},
-                         default=str))
+        print(json.dumps({"workflow": wf_run, "serve_saved": serve_saved,
+                          "workflow_agree": wf_agree}, default=str))
         return 0
     X, y = make_data(args.rows, COLS)
     k1 = phase_k1(device, X)
@@ -1258,7 +1449,9 @@ def main(argv=None) -> int:
     # the second main path: the Titanic workflow, its matrix born on the
     # card; K1's counts are zeroed inside, just before its train
     wf_run = phase_workflow(device, args.workflow_rows)
-    wf_run.pop("run")
+    # the third path: save, reload and serve phase 8's model
+    serve_saved = phase_serve_saved(wf_run.pop("run"),
+                                    wf_run.pop("holdout_records"))
     wf_agree = phase_workflow_agree(device)
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
@@ -1293,10 +1486,12 @@ def main(argv=None) -> int:
              "launches_workflow_by_family": {
                  name: rec["k1_launches"]
                  for name, rec in wf_run["families"].items()},
+             "launches_serve_saved": serve_saved["k1_launches"],
              "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "linear_ops": linear_ops, "lbfgs": lbfgs,
                          "agree": agree, "workflow": wf_run,
+                         "serve_saved": serve_saved,
                          "workflow_agree": wf_agree, "profile": prof,
                          "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

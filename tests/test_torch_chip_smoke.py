@@ -196,14 +196,20 @@ def test_refuses_without_a_card(tmp_path):
     assert out.returncode != 0 and '"ok"' not in out.stdout
 
 
-def test_workflow_phase():
+@pytest.fixture(scope="module")
+def workflow_out():
+    return chip_smoke.phase_workflow(
+        "cpu", 1200, tag="rehearse-wf",
+        models=chip_smoke.small_models("cpu", num_rounds=2, num_trees=2))
+
+
+def test_workflow_phase(workflow_out):
     """The Titanic workflow phase on the CPU at a tiny size (the four
     families with small trees): the prepared matrix is a CPU tensor the
     selector received as it is, every host stage is reported with its
-    reason, the families are timed in pool order."""
-    out = chip_smoke.phase_workflow(
-        "cpu", 1200, tag="rehearse-wf",
-        models=chip_smoke.small_models("cpu", num_rounds=2, num_trees=2))
+    reason, the families are timed in pool order, and the listener and
+    the validator's family profile report the run."""
+    out = workflow_out
     assert out["matrix_device"] == "cpu"
     assert out["matrix_dtype"] == "torch.float64"
     assert out["train_rows"] == 900 and out["matrix_shape"][1] > 500
@@ -221,6 +227,26 @@ def test_workflow_phase():
                 "device_transforms_s", "host_stage_transforms_s",
                 "search_s"):
         assert out[key] > 0
+    assert out["models_x_folds"] == 60
+    assert sorted(r["family"] for r in out["family_profile"]) == \
+        sorted(chip_smoke.FAMILIES)
+    assert len(out["stage_profile"]) == 3
+    assert len(out["holdout_records"]) == 300
+
+
+def test_serve_saved_phase(workflow_out):
+    """[serve-saved] on the CPU: save, reload, serve the sample and the
+    holdout records one at a time, equal to ``model.score`` and to the
+    CPU reload; the model stage predicted on the workflow's device."""
+    out = chip_smoke.phase_serve_saved(workflow_out["run"],
+                                       workflow_out["holdout_records"])
+    assert out["records"] == 301
+    assert out["raw_arrays_devices"] == {"cpu": 301}
+    assert out["max_abs_diff_vs_score"] <= 1e-12
+    assert out["max_abs_prob_diff_cpu"] == 0.0
+    assert out["op_model_json_bytes"] > 0 and out["arrays_npz_bytes"] > 0
+    assert out["ms_p50"] > 0 and out["ms_p99"] >= out["ms_p50"]
+    assert out["k1_launches"] == 0
 
 
 def test_workflow_agree_phase():

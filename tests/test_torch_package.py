@@ -21,6 +21,7 @@ from transmogrifai_tpu_torch.models.trees import (
     RandomForestClassifier, TreeEnsembleClassifierModel)
 from transmogrifai_tpu_torch.examples import titanic
 from transmogrifai_tpu_torch.features import FeatureBuilder
+from transmogrifai_tpu_torch.local import ScoreFunction, load_score_function
 from transmogrifai_tpu_torch.ops import transmogrify
 from transmogrifai_tpu_torch.plans import PreparePlan
 from transmogrifai_tpu_torch.selector import (
@@ -29,6 +30,7 @@ from transmogrifai_tpu_torch.types import (DateList, Geolocation, PickList,
                                            Real, RealMap, Date, TextList)
 from transmogrifai_tpu_torch.utils.device import resolve_device, working_dtype
 from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
+from transmogrifai_tpu_torch.workflow.persistence import load_model
 
 PKG = Path(transmogrifai_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -70,6 +72,9 @@ def _no_card(monkeypatch):
     lambda: PreparePlan([_feature(Real, "x")]),
     lambda: titanic.default_selector(),
     lambda: titanic.run(titanic.synthetic_titanic(40)),
+    lambda: WorkflowModel.load("model"),
+    lambda: load_model("model"),
+    lambda: load_score_function("model"),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)
@@ -99,6 +104,23 @@ def test_device_stages_run_where_their_inputs_are():
     assert out.device.type == "cpu" and out.dtype == torch.float64
 
 
+def _score_fn():
+    return ScoreFunction(WorkflowModel((_feature(Real, "x"),)))
+
+
+def _load_filtered_model():
+    """Load a saved model whose document carries raw feature filter
+    results (the JAX package writes them when its filter ran)."""
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as path:
+        with open(os.path.join(path, "op-model.json"), "w") as fh:
+            json.dump({"formatVersion": 2, "stages": [], "features": [],
+                       "resultFeatureUids": [],
+                       "rawFeatureFilterResults": {"exclusions": []}}, fh)
+        return load_model(path, device="cpu")
+
+
 #: (entry point, the JAX module its error must name)
 UNPORTED = [
     (lambda: transmogrify([_feature(Date, "d")]), "ops/date.py"),
@@ -117,7 +139,7 @@ UNPORTED = [
      "workflow/workflow.py"),
     (lambda: Workflow(device="cpu").with_raw_feature_filter(None),
      "checkers/raw_feature_filter.py"),
-    (lambda: Workflow(device="cpu").with_listener(None), "observability/"),
+    (lambda: _score_fn().score_batch([{}]), "serving/plan.py"),
     (lambda: Workflow(device="cpu").set_reader(None),
      "readers/data_readers.py"),
     (lambda: Workflow(device="cpu").train(resume_from="ckpt"),
@@ -126,8 +148,9 @@ UNPORTED = [
     (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
     (lambda: BinaryClassificationModelSelector.with_cross_validation(
         validation="racing", device="cpu"), "selector/racing.py"),
-    (lambda: WorkflowModel(()).save("model"), "workflow/persistence.py"),
-    (lambda: WorkflowModel.load("model"), "workflow/persistence.py"),
+    (lambda: ScoreFunction(WorkflowModel(()), guardrails=True),
+     "serving/guard.py"),
+    (lambda: _load_filtered_model(), "checkers/raw_feature_filter.py"),
     (lambda: WorkflowModel(()).score([], engine="compiled"),
      "serving/plan.py"),
 ]
@@ -151,7 +174,9 @@ def test_sources_import_no_jax():
             "ops/numeric.py", "ops/dsl.py", "ops/combiner.py",
             "stages/base.py", "features/feature.py", "features/columns.py",
             "types/maps.py", "utils/uid.py", "utils/vector_meta.py",
-            "examples/titanic.py"} <= names
+            "examples/titanic.py", "workflow/persistence.py",
+            "local/scoring.py", "utils/listener.py", "utils/table.py",
+            "utils/version.py", "utils/ref_math.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -17,7 +17,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
-__all__ = ["build", "load"]
+__all__ = ["build", "build_seconds", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -25,6 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: seconds spent in nvcc by this process
+_build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -64,7 +66,15 @@ def build(name: str) -> Optional[Tuple[float, str]]:
         raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, target)
-    return time.perf_counter() - t0, proc.stdout
+    seconds = time.perf_counter() - t0
+    global _build_seconds
+    _build_seconds += seconds
+    return seconds, proc.stdout
+
+
+def build_seconds() -> float:
+    """Seconds this process has spent compiling kernels with nvcc."""
+    return _build_seconds
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,24 +4,100 @@ Counterpart of ``transmogrifai_tpu/evaluators/base.py``: the array-level
 contract the selector uses (``evaluate_arrays``: label vector and
 ``PredictionColumn`` in, metrics record out; ``metric_from``; the
 device-metric spec) and the Dataset adapters the workflow uses
-(``label_col``, ``prediction_col``, ``evaluate_all``, ``evaluate``). The
-metrics' JSON round trip is not ported.
+(``label_col``, ``prediction_col``, ``evaluate_all``, ``evaluate``), and
+the metrics' JSON round trip that a saved selector summary carries
+(``EvaluationMetrics.to_json``, ``metrics_from_json``).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from ..features.columns import Dataset, PredictionColumn
 
-__all__ = ["EvaluationMetrics", "Evaluator"]
+__all__ = ["EvaluationMetrics", "Evaluator", "RawMetrics",
+           "metrics_from_json"]
 
 
 @dataclass
 class EvaluationMetrics:
-    """Base metric record."""
+    """Base metric record (reference EvaluationMetrics.scala)."""
+
+    def to_json(self) -> Dict[str, Any]:
+        def conv(v):
+            if isinstance(v, np.ndarray):
+                return v.tolist()
+            if isinstance(v, (np.floating, np.integer)):
+                return v.item()
+            if isinstance(v, EvaluationMetrics):
+                return v.to_json()
+            if isinstance(v, dict):
+                return {k: conv(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [conv(x) for x in v]
+            return v
+        return {f.name: conv(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
+
+
+def metrics_from_json(class_name: str, d: Dict[str, Any]
+                      ) -> "Optional[EvaluationMetrics]":
+    """Rebuild a metrics dataclass from ``to_json`` output by class name
+    (model load of ``ModelSelectorSummary``). Nested metric dataclass
+    fields rebuild recursively from their annotations; a class that is
+    not importable here comes back as a :class:`RawMetrics` holder with
+    the full payload and the original name."""
+    def walk(cls):
+        for sub in cls.__subclasses__():
+            yield sub
+            yield from walk(sub)
+
+    def field_cls(f) -> "Optional[type]":
+        t = f.type
+        if isinstance(t, str):       # from __future__ annotations
+            t = t.replace("Optional[", "").rstrip("]")
+            return next((s for s in walk(EvaluationMetrics)
+                         if s.__name__ == t), None)
+        if isinstance(t, type):
+            return t if issubclass(t, EvaluationMetrics) else None
+        import typing
+        for a in typing.get_args(t):     # Optional[X] and friends
+            if isinstance(a, type) and issubclass(a, EvaluationMetrics):
+                return a
+        return None
+
+    for sub in walk(EvaluationMetrics):
+        if sub is RawMetrics:
+            # a recorded "RawMetrics" name keeps its payload through the
+            # fallback below instead of rebuilding an empty holder
+            continue
+        if sub.__name__ == class_name and dataclasses.is_dataclass(sub):
+            kwargs = {}
+            for f in dataclasses.fields(sub):
+                if f.name not in d:
+                    continue
+                v = d[f.name]
+                nested = field_cls(f)
+                if nested is not None and isinstance(v, dict):
+                    v = metrics_from_json(nested.__name__, v)
+                kwargs[f.name] = v
+            return sub(**kwargs)
+    return RawMetrics(class_name=class_name, data=dict(d))
+
+
+@dataclass
+class RawMetrics(EvaluationMetrics):
+    """Holder for a persisted metrics payload whose class is not
+    importable at load time: keeps the full dict and the original class
+    name, so a re-save loses nothing."""
+    class_name: str = ""
+    data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def to_json(self) -> Dict[str, Any]:
+        return dict(self.data)
 
 
 class Evaluator:

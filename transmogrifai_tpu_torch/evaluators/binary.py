@@ -9,8 +9,8 @@ Point metrics come from the hard predicted labels.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -64,6 +64,13 @@ class BinaryClassificationMetrics(EvaluationMetrics):
     TN: float = 0.0
     FP: float = 0.0
     FN: float = 0.0
+    #: the curves the JAX package records on request; the port records
+    #: none, and keeps the fields so saved summaries have its keys
+    thresholds: List[float] = field(default_factory=list)
+    precision_by_threshold: List[float] = field(default_factory=list)
+    recall_by_threshold: List[float] = field(default_factory=list)
+    false_positive_rate_by_threshold: List[float] = field(
+        default_factory=list)
 
 
 def binary_metrics(y: np.ndarray, pred_label: np.ndarray,

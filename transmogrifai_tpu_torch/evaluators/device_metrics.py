@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from ..utils import ref_math
+
 __all__ = ["BINARY_METRICS", "binary_from_raw_pair", "binary_from_sigmoid",
            "binary_from_votes", "binary_metric", "metric_fn",
            "softmax_probability", "vote_probability"]
@@ -40,8 +42,11 @@ def binary_from_raw_pair(raw: torch.Tensor):
 def binary_from_sigmoid(margin: torch.Tensor):
     """(score, plabel) from GBT margins — the twin of
     ``GBTClassifierModel.raw_to_probability`` (p = sigmoid(margin), label
-    = argmax of [1 - p, p])."""
-    p = 1.0 / (1.0 + torch.exp(-margin))
+    = argmax of [1 - p, p]): on the CPU with the JAX package's CPU
+    arithmetic (``utils/ref_math.py``), on the card in the host model's
+    order of operations."""
+    p = (ref_math.sigmoid(margin) if margin.device.type == "cpu"
+         else 1.0 / (1.0 + torch.exp(-margin)))
     return p, (p > 1.0 - p).to(margin.dtype)
 
 

@@ -6,7 +6,9 @@ helloworld/src/main/scala/com/salesforce/hw/OpTitanicSimple.scala:152):
 typed raw features, familySize / estimatedCostOfTickets arithmetic, pivoted
 sex, age group, normalized age, then ``transmogrify`` and the default
 binary model selector under 3-fold stratified CV over the combined vector,
-trained on a stratified 75 % split and evaluated on the 25 % holdout. The
+trained on a stratified 75 % split and evaluated on the 25 % holdout; then,
+as the reference helloworld ends, the fitted model is saved, reloaded with
+``local.load_score_function`` and serves one record (``demo_serve``). The
 records are Titanic-shaped synthetic ones (``synthetic_titanic``: the
 example's schema and marginals, drawn column by column with numpy).
 
@@ -16,6 +18,8 @@ Run:  python -m transmogrifai_tpu_torch.examples.titanic [--rows N]
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 from typing import NamedTuple, Optional
 
@@ -32,7 +36,29 @@ from ..types import PickList
 from ..workflow import Workflow, WorkflowModel
 
 __all__ = ["age_to_group", "build_features", "synthetic_titanic",
-           "stratified_split", "default_selector", "run", "TitanicRun"]
+           "stratified_split", "default_selector", "run", "TitanicRun",
+           "SAMPLE_PASSENGER", "demo_serve"]
+
+#: one servable passenger record (the save+serve demo and the parity
+#: tests share it)
+SAMPLE_PASSENGER = {"pClass": "1", "sex": "female", "age": 29.0,
+                    "sibSp": 0, "parCh": 0, "fare": 100.0,
+                    "embarked": "S", "name": "Test Passenger",
+                    "ticket": "t", "cabin": "C1"}
+
+
+def demo_serve(model: WorkflowModel, path: str, device="cuda") -> dict:
+    """Persist ``model`` to ``path``, reload it through the local serving
+    entry point with its model stage on ``device``, and score
+    :data:`SAMPLE_PASSENGER` — the reference helloworld's save+serve
+    story. Returns the served prediction dict."""
+    from ..local import load_score_function
+    model.save(path)
+    score = load_score_function(path, device=device)
+    row = score(dict(SAMPLE_PASSENGER))
+    pred_key = next(f.name for f in model.result_features
+                    if f.name != "survived")
+    return row[pred_key]
 
 
 def age_to_group(a) -> PickList:
@@ -161,11 +187,13 @@ class TitanicRun(NamedTuple):
     scored: Dataset
 
 
-def run(records, device="cuda", model_stage=None,
-        verbose: bool = False) -> TitanicRun:
+def run(records, device="cuda", model_stage=None, verbose: bool = False,
+        listener=None) -> TitanicRun:
     """Train on a stratified 75 % split of ``records`` on ``device``,
     score and evaluate the 25 % holdout. ``model_stage`` replaces the
-    default selector (it must compute on ``device``)."""
+    default selector (it must compute on ``device``); ``listener`` (a
+    ``utils.listener.WorkflowListener``) collects the per-stage
+    profile."""
     train, test = stratified_split(records)
     survived, features = build_features()
     stage = (model_stage if model_stage is not None
@@ -175,12 +203,18 @@ def run(records, device="cuda", model_stage=None,
     wf = (Workflow(device=device)
           .set_result_features(survived, prediction)
           .set_input_records(train))
+    if listener is not None:
+        wf = wf.with_listener(listener)
     model = wf.train()
     evaluator = BinaryClassificationEvaluator(
         label_col="survived", prediction_col=prediction.name)
     scored, metrics = model.score_and_evaluate(test, evaluator)
     elapsed = time.perf_counter() - t0
     if verbose:
+        from ..selector import SelectedModel
+        for s in model.stages():
+            if isinstance(s, SelectedModel) and s.summary is not None:
+                print(s.summary.pretty())
         print(f"Train rows: {len(train)}, holdout rows: {len(test)}")
         print(f"Holdout AuPR:   {metrics.AuPR:.4f}")
         print(f"Holdout AuROC:  {metrics.AuROC:.4f}")
@@ -195,8 +229,14 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    run(synthetic_titanic(args.rows, args.seed), device=args.device,
-        verbose=True)
+    result = run(synthetic_titanic(args.rows, args.seed), device=args.device,
+                 verbose=True)
+    # the reference helloworld's full story: persist the trained model
+    # and serve a single record from the saved directory
+    path = os.path.join(tempfile.mkdtemp(prefix="titanic_"), "model")
+    served = demo_serve(result.model, path, device=args.device)
+    print(f"saved -> {path}; served one record: "
+          f"P(survived)={served['probability_1']:.3f}")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ core/src/main/scala/com/salesforce/op/stages/impl/CheckIsResponseValues.scala.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -63,13 +63,11 @@ def _features(col: FeatureColumn):
 
 
 class Predictor(BinaryEstimator):
-    """Estimator over (RealNN label, OPVector features) -> Prediction.
-    Subclasses list their constructor parameters in ``param_names``."""
+    """Estimator over (RealNN label, OPVector features) -> Prediction."""
 
     input_types = (RealNN, OPVector)
     output_type = Prediction
     device_inputs = True
-    param_names: Tuple[str, ...] = ()
 
     def check_input_constraints(self, features) -> None:
         check_is_response_values(*features)
@@ -80,9 +78,6 @@ class Predictor(BinaryEstimator):
         model.vector_metadata = cols[1].metadata
         return model
 
-    def get_params(self) -> Dict[str, Any]:
-        return {k: getattr(self, k) for k in self.param_names}
-
     def fit_arrays(self, X, y: np.ndarray) -> "PredictionModel":
         raise NotImplementedError
 
@@ -90,6 +85,7 @@ class Predictor(BinaryEstimator):
         """A copy with constructor parameters overridden (the grid-point
         expansion primitive)."""
         kwargs = self.get_params()
+        kwargs.pop("uid", None)
         kwargs.update(params)
         return type(self)(**kwargs)
 

@@ -347,7 +347,11 @@ class _LinearEstimator(Predictor):
             fit_intercept=self.fit_intercept,
             standardize=self.standardization, max_iter=self.max_iter,
             device=self.device)
-        return self.model_type(coef[0].cpu().numpy(), float(b[0]),
+        # the JAX package hands its logistic model a 0-d intercept array
+        # and its SVC model a float, and saves them so
+        b0 = b[0].cpu().numpy()
+        return self.model_type(coef[0].cpu().numpy(),
+                               b0 if self.kind == "logistic" else float(b0),
                                device=self.device)
 
     def fit_fold_grid_arrays(self, X, y, masks, grid):
@@ -385,8 +389,6 @@ class LogisticRegression(_LinearEstimator):
     core = staticmethod(binary_logistic_core)
     grid_params = ("reg_param", "elastic_net_param")
     model_type = LogisticRegressionModel
-    param_names = ("reg_param", "elastic_net_param", "max_iter", "tol",
-                   "fit_intercept", "standardization", "device")
 
     def __init__(self, reg_param: float = 0.0, elastic_net_param: float = 0.0,
                  max_iter: int = 100, tol: float = 1e-6,
@@ -412,8 +414,6 @@ class LinearSVC(_LinearEstimator):
     core = staticmethod(linear_svc_core)
     grid_params = ("reg_param",)
     model_type = LinearSVCModel
-    param_names = ("reg_param", "max_iter", "tol", "fit_intercept",
-                   "standardization", "device")
 
     def __init__(self, reg_param: float = 0.0, max_iter: int = 100,
                  tol: float = 1e-6, fit_intercept: bool = True,

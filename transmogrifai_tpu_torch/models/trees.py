@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import ref_math
 from ..utils.device import resolve_device, working_dtype
 from .base import ClassifierModel, Predictor, num_classes, subset_grid
 from .draws import TorchDraws
@@ -493,21 +494,28 @@ def _predict_leaves(X: torch.Tensor, feats: torch.Tensor,
 # boosting
 # ---------------------------------------------------------------------------
 
-def _gbt_body(design: _PackedDesign, y: torch.Tensor, mask: torch.Tensor,
-              *, depth: int, num_rounds: int, step_size: float,
-              reg_lambda: float, gamma: float, min_child_weight: float,
-              subsample: float, seed: int, draws=None):
+def _gbt_body(design: _PackedDesign, y: torch.Tensor,
+              mask: Optional[torch.Tensor], *, depth: int, num_rounds: int,
+              step_size: float, reg_lambda: float, gamma: float,
+              min_child_weight: float, subsample: float, seed: int,
+              draws=None):
     """Logistic boosting with row-mask semantics: masked rows get zero
     gradient and hessian; the base margin is the log-odds of the masked
-    mean label. Below ``subsample=1`` each round r keeps the rows of
-    ``bernoulli(r, subsample, n)`` from the draws provider (``draws``, a
-    factory of ``models/draws.py``, TorchDraws by default). Returns
-    (feats (R, H), thrs (R, H), leaves (R, L), base 0-d tensor)."""
+    mean label. ``mask=None`` is the single fit on every row, whose mean
+    is ``sum(y) * (1/n)`` as XLA folds the JAX package's constant mask;
+    the search's masks divide, as its kernel does. Below ``subsample=1``
+    each round r keeps the rows of ``bernoulli(r, subsample, n)`` from the
+    draws provider (``draws``, a factory of ``models/draws.py``,
+    TorchDraws by default). Returns (feats (R, H), thrs (R, H), leaves
+    (R, L), base 0-d tensor)."""
     n = design.n
-    msum = torch.clamp(torch.sum(mask), min=1.0)
-    mean_y = torch.sum(mask * y) / msum
+    if mask is None:
+        mask = torch.ones_like(y)
+        mean_y = torch.sum(y) * (1.0 / max(n, 1))
+    else:
+        mean_y = torch.sum(mask * y) / torch.clamp(torch.sum(mask), min=1.0)
     p0 = torch.clamp(mean_y, 1e-6, 1 - 1e-6)
-    base = torch.log(p0 / (1 - p0))
+    base = ref_math.log(p0 / (1 - p0))
     margins = base.expand(n)
     rows = None
     if subsample < 1.0:
@@ -515,7 +523,7 @@ def _gbt_body(design: _PackedDesign, y: torch.Tensor, mask: torch.Tensor,
     gain_fn = _xgb_gain(reg_lambda, gamma, min_child_weight)
     feats, thrs, leaves = [], [], []
     for r in range(num_rounds):
-        p = torch.sigmoid(margins)
+        p = ref_math.sigmoid(margins)
         g = p - y
         h = torch.clamp(p * (1 - p), min=1e-12)
         m = mask
@@ -535,10 +543,20 @@ def _gbt_body(design: _PackedDesign, y: torch.Tensor, mask: torch.Tensor,
     return torch.stack(feats), torch.stack(thrs), torch.stack(leaves), base
 
 
+def _tree_sum(vals: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (tree) axis, added in tree order as the JAX
+    package's reductions add: the last row of a running sum, which the
+    CPU accumulates one tree after another and the card computes in one
+    launch. Tied rows then keep equal sums, and the tie-grouped metric
+    sees the reference's ties."""
+    return torch.cumsum(vals, dim=0)[-1]
+
+
 def _gbt_margins(X: torch.Tensor, feats, thrs, leaves, base, depth: int):
-    """(n,) boosted margins: traversal, leaf gather, sum over trees."""
+    """(n,) boosted margins: traversal, leaf gather, ``base`` plus the
+    tree-order sum over trees."""
     leaf = _predict_leaves(X, feats, thrs, depth)
-    return base + torch.sum(torch.gather(leaves, 1, leaf), dim=0)
+    return base + _tree_sum(torch.gather(leaves, 1, leaf))
 
 
 def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -659,10 +677,6 @@ class GBTClassifier(Predictor):
     """Gradient-boosted binary classifier with second-order (XGBoost-
     style) split gains on the logistic objective."""
 
-    param_names = ("num_rounds", "max_depth", "step_size", "max_bins",
-                   "reg_lambda", "gamma", "min_child_weight", "subsample",
-                   "seed", "device", "draws")
-
     def __init__(self, num_rounds: int = 20, max_depth: int = 5,
                  step_size: float = 0.1, max_bins: int = 32,
                  reg_lambda: float = 1.0, gamma: float = 0.0,
@@ -711,8 +725,8 @@ class GBTClassifier(Predictor):
         design = _design_args(X, self.max_bins, self.device)
         y_t = torch.as_tensor(np.asarray(y), dtype=design.dtype,
                               device=self.device)
-        feats, thrs, leaves, base = _gbt_body(
-            design, y_t, torch.ones_like(y_t), **self._fit_kwargs())
+        feats, thrs, leaves, base = _gbt_body(design, y_t, None,
+                                              **self._fit_kwargs())
         return GBTClassifierModel(feats, thrs, leaves, depth=self.max_depth,
                                   base=float(base), n_features=X.shape[1],
                                   device=self.device)
@@ -933,10 +947,12 @@ class TreeEnsembleClassifierModel(ClassifierModel):
         self.n_features = int(n_features)
 
     def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
-        """(n, K) mean over trees of the leaf class distributions."""
+        """(n, K) mean over trees of the leaf class distributions: the
+        tree-order sum divided by T, as the JAX model's host scoring
+        (``np.mean``) computes it."""
         leaf = _predict_leaves(X, self.feats, self.thrs, self.depth)
         tree = torch.arange(leaf.shape[0], device=self.device)[:, None]
-        return torch.mean(self.leaves[tree, leaf], dim=0)
+        return _tree_sum(self.leaves[tree, leaf]) / leaf.shape[0]
 
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         s = np.sum(raw, axis=1, keepdims=True)
@@ -1048,9 +1064,6 @@ class DecisionTreeClassifier(_ForestClassifierBase):
     """Single CART tree, gini or entropy impurity, every feature at every
     node; draws nothing."""
 
-    param_names = ("max_depth", "max_bins", "min_instances_per_node",
-                   "min_info_gain", "impurity", "seed", "device")
-
     def __init__(self, max_depth: int = 5, max_bins: int = 32,
                  min_instances_per_node: int = 1, min_info_gain: float = 0.0,
                  impurity: str = "gini", seed: int = 42, device="cuda",
@@ -1071,10 +1084,6 @@ class RandomForestClassifier(_ForestClassifierBase):
     feature pool per tree and a feature subset per node."""
 
     bootstrap = True
-    param_names = ("num_trees", "max_depth", "max_bins",
-                   "min_instances_per_node", "min_info_gain",
-                   "subsampling_rate", "feature_subset_strategy", "impurity",
-                   "seed", "device", "draws")
 
     def __init__(self, num_trees: int = 20, max_depth: int = 5,
                  max_bins: int = 32, min_instances_per_node: int = 1,

@@ -23,6 +23,9 @@ Execution model:
 4. Any other stage runs its host ``transform_columns``, and ``coverage``
    records it with the reason. A kernel that raises propagates: it is
    never demoted to the host path.
+5. An attached listener (``utils/listener.py``) receives every fit and
+   transform with its seconds and row count, as from the JAX plan; a
+   device transform's seconds end in a synchronize.
 
 Unlike the JAX plan there are no fused segments, row buckets or compile
 caches: each kernel is a few eager torch ops over the whole dataset.
@@ -35,6 +38,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..features.columns import Dataset, FeatureColumn, host_column
 from ..features.feature import Feature, topo_layers
 from ..features.generator import FeatureGeneratorStage
@@ -61,13 +65,16 @@ class PreparePlan:
     ``device`` (default the CUDA card; raises without one). One instance
     per ``train()``.
 
-    >>> plan = PreparePlan(result_features, device="cuda")
+    >>> plan = PreparePlan(result_features, device="cuda",
+    ...                    listener=WorkflowListener())
     >>> train_ds, fitted = plan.execute(raw_ds)
     """
 
-    def __init__(self, result_features: Sequence[Feature], device="cuda"):
+    def __init__(self, result_features: Sequence[Feature], device="cuda",
+                 listener=None):
         self.result_features = tuple(result_features)
         self.device = resolve_device(device)
+        self.listener = listener
         self.dtype = working_dtype(self.device)
         self.coverage = PlanCoverage()
         #: [(stage label, "host"|"device", reason)] fit placements: a
@@ -134,10 +141,20 @@ class PreparePlan:
                 ds = ds.with_column(n, host_column(ds[n]))
         label = f"{type(stage).__name__}({stage.uid})"
         self.fit_placements.append((label, where, reason))
-        t0 = time.perf_counter()
+        t0, b0 = time.perf_counter(), _build.build_seconds()
         model = stage.fit(ds)
         self.fit_seconds[label] = time.perf_counter() - t0
+        self._report(stage, "fit", self.fit_seconds[label], ds.n_rows, b0)
         return model
+
+    def _report(self, stage: PipelineStage, phase: str, seconds: float,
+                n_rows: int, build0: float) -> None:
+        """One listener row; ``build0`` is the kernels' build seconds
+        when the stage started."""
+        if self.listener is not None:
+            self.listener.on_stage_completed(
+                stage, phase, seconds, n_rows,
+                compile_seconds=_build.build_seconds() - build0)
 
     # -- transforms --------------------------------------------------------
     def _transform(self, stage: Transformer, out_name: str,
@@ -152,13 +169,15 @@ class PreparePlan:
         label = f"{type(stage).__name__}({out_name})"
         if not reason:
             self._proto = probe_stage(stage, self._proto, out_name)
-            t0 = time.perf_counter()
+            t0, b0 = time.perf_counter(), _build.build_seconds()
             arrays = [self._device_input(stage, i, ds[n], n)
                       for i, n in enumerate(in_names)]
             out = stage.transform_arrays(arrays)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.device_transform_seconds += time.perf_counter() - t0
+            wall = time.perf_counter() - t0
+            self.device_transform_seconds += wall
+            self._report(stage, "transform", wall, ds.n_rows, b0)
             proto = self._proto[out_name]
             data = out if proto.kind == "vector" else out.reshape(-1)
             col = FeatureColumn(proto.ftype, data, proto.metadata)
@@ -170,9 +189,11 @@ class PreparePlan:
         pulled = [n for n, c in zip(in_names, cols) if c is not ds[n]]
         if pulled:
             reason += f"; inputs copied from the device: {pulled}"
-        t0 = time.perf_counter()
+        t0, b0 = time.perf_counter(), _build.build_seconds()
         col = stage.transform_columns(cols)
-        self.host_transform_seconds += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.host_transform_seconds += wall
+        self._report(stage, "transform", wall, ds.n_rows, b0)
         self._proto = self._proto.with_column(
             out_name, col.take(np.zeros(0, dtype=np.int64)))
         self._producer[out_name] = "host"

@@ -1,10 +1,11 @@
 """Model selection of the PyTorch port."""
 from .factories import BinaryClassificationModelSelector
-from .selector import ModelSelector, ModelSelectorSummary, SelectedModel
+from .selector import (ModelSelector, ModelSelectorSummary, SelectedModel,
+                       models_x_folds)
 from .splitters import DataBalancer, Splitter, stratified_split
 from .validator import BestEstimator, CrossValidation, ValidationResult
 
 __all__ = ["BinaryClassificationModelSelector", "ModelSelector",
            "ModelSelectorSummary", "SelectedModel", "DataBalancer",
            "Splitter", "stratified_split", "BestEstimator",
-           "CrossValidation", "ValidationResult"]
+           "CrossValidation", "ValidationResult", "models_x_folds"]

@@ -2,7 +2,8 @@
 
 Counterpart of ``transmogrifai_tpu/selector/selector.py``
 (``ModelSelector.fit_arrays`` and ``fit_columns``, ``SelectedModel``,
-``ModelSelectorSummary``): prepare the data with the splitter (holdout
+``ModelSelectorSummary`` with its JSON round trip and ``pretty``,
+``models_x_folds``): prepare the data with the splitter (holdout
 reserve, balancing), validate every candidate (family x grid point) under
 cross-validation, refit the winner on the full prepared training set, and
 evaluate it on the training set and the holdout. As a workflow stage the
@@ -25,7 +26,8 @@ from ..utils.device import resolve_device, take_rows
 from .splitters import Splitter, SplitterSummary
 from .validator import BestEstimator, CrossValidation, ValidationResult
 
-__all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary"]
+__all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
+           "models_x_folds"]
 
 
 @dataclass
@@ -46,16 +48,98 @@ class ModelSelectorSummary:
     holdout_evaluation: Optional[EvaluationMetrics] = None
     metric_larger_better: bool = True
     #: host seconds of each stage of ``fit_arrays`` (prepare, validate,
-    #: refit, evaluate); each stage ends in a read-back from the device
+    #: refit, evaluate); each stage ends in a read-back from the device.
+    #: Kept in memory only: ``to_json`` writes the JAX package's keys
     timings: Dict[str, float] = field(default_factory=dict)
+
+    def to_json(self) -> dict:
+        def metrics_class(m):
+            # a RawMetrics holder re-records the class it was loaded as
+            return (getattr(m, "class_name", "") or type(m).__name__
+                    if m else None)
+        return {
+            "validationType": self.validation_type,
+            "validationParameters": self.validation_parameters,
+            "dataPrepParameters": self.data_prep_parameters,
+            "dataPrepResults": self.data_prep_results,
+            "evaluationMetric": self.evaluation_metric,
+            "problemType": self.problem_type,
+            "bestModelName": self.best_model_name,
+            "bestModelUID": self.best_model_uid,
+            "bestModelParams": self.best_model_params,
+            "bestValidationMetric": self.best_validation_metric,
+            "validationResults": [r.to_json()
+                                  for r in self.validation_results],
+            "metricLargerBetter": self.metric_larger_better,
+            "trainEvaluation": (self.train_evaluation.to_json()
+                                if self.train_evaluation else None),
+            "trainEvaluationClass": metrics_class(self.train_evaluation),
+            "holdoutEvaluation": (self.holdout_evaluation.to_json()
+                                  if self.holdout_evaluation else None),
+            "holdoutEvaluationClass": metrics_class(
+                self.holdout_evaluation),
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ModelSelectorSummary":
+        """Inverse of :meth:`to_json` (model load)."""
+        from ..evaluators.base import metrics_from_json
+
+        def metrics(which: str):
+            payload = d.get(which)
+            name = d.get(which + "Class")
+            return (metrics_from_json(name, payload)
+                    if payload is not None and name else None)
+
+        return cls(
+            validation_type=d.get("validationType", ""),
+            validation_parameters=d.get("validationParameters") or {},
+            data_prep_parameters=d.get("dataPrepParameters") or {},
+            data_prep_results=d.get("dataPrepResults") or {},
+            evaluation_metric=d.get("evaluationMetric", ""),
+            problem_type=d.get("problemType", ""),
+            best_model_name=d.get("bestModelName", ""),
+            best_model_uid=d.get("bestModelUID", ""),
+            best_model_params=d.get("bestModelParams") or {},
+            best_validation_metric=d.get("bestValidationMetric", 0.0),
+            validation_results=[ValidationResult.from_json(r)
+                                for r in d.get("validationResults", [])],
+            train_evaluation=metrics("trainEvaluation"),
+            holdout_evaluation=metrics("holdoutEvaluation"),
+            metric_larger_better=d.get("metricLargerBetter", True),
+        )
+
+    def pretty(self) -> str:
+        """Human summary (reference summaryPretty,
+        OpWorkflowModel.scala:204): the winner, then every grid point's
+        mean metric, best first."""
+        lines = [
+            f"Selected model: {self.best_model_name} "
+            f"({self.evaluation_metric}={self.best_validation_metric:.4f} "
+            f"under {self.validation_type})",
+            f"Best params: {self.best_model_params}",
+            "Validation results (mean metric per grid point):",
+        ]
+        sign = -1.0 if self.metric_larger_better else 1.0
+
+        def rank(r):  # non-finite metrics sort last
+            m = r.mean_metric
+            return sign * m if np.isfinite(m) else np.inf
+
+        for r in sorted(self.validation_results, key=rank):
+            lines.append(f"  {r.model_name}[{r.grid_index}] "
+                         f"{r.params} -> {r.mean_metric:.4f}")
+        return "\n".join(lines)
 
 
 class SelectedModel(PredictionModel):
     """The winning fitted model with its selection summary; prediction
-    delegates to the winner."""
+    delegates to the winner. The defaults let the model loader rebuild
+    it from its saved constructor arguments."""
 
-    def __init__(self, inner: PredictionModel,
-                 summary: ModelSelectorSummary, uid: Optional[str] = None):
+    def __init__(self, inner: PredictionModel = None,
+                 summary: Optional[ModelSelectorSummary] = None,
+                 uid: Optional[str] = None):
         super().__init__(operation_name="modelSelector", uid=uid)
         self.inner = inner
         self.summary = summary
@@ -67,7 +151,17 @@ class SelectedModel(PredictionModel):
         return self.inner.raw_arrays(X)
 
     def supports_arrays(self) -> bool:
-        return self.inner.supports_arrays()
+        return self.inner is not None and self.inner.supports_arrays()
+
+
+def models_x_folds(model) -> int:
+    """Total (candidate, fold) evaluations recorded by the selectors of a
+    fitted workflow model: the unit of the search's throughput."""
+    return sum(
+        len(r.metric_values)
+        for s in model.stages()
+        if isinstance(s, SelectedModel) and s.summary is not None
+        for r in s.summary.validation_results)
 
 
 class ModelSelector(Predictor):

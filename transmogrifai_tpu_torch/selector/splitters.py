@@ -42,6 +42,10 @@ class SplitterSummary:
     parameters: Dict = field(default_factory=dict)
     results: Dict = field(default_factory=dict)
 
+    def to_json(self) -> dict:
+        return {"splitter": self.splitter, "parameters": self.parameters,
+                "results": self.results}
+
 
 class Splitter:
     """Base: optionally reserve a test fraction, then prepare (resample)

@@ -3,24 +3,55 @@
 Counterpart of ``transmogrifai_tpu/selector/validator.py``
 (``CrossValidation``: ``_assignments``, ``_build_fold_arrays``,
 ``_try_device_eval``, ``_results_from_matrix``, ``_pick_best``,
-``ValidationResult``, ``BestEstimator``). Each family evaluates its whole
-fold x grid on its device and returns one (folds, grid) metric matrix.
-The reference's journal, retries, deadlines, mesh, concurrent family
-dispatch, racing and host evaluation path are not ported yet.
+``ValidationResult``, ``BestEstimator``, ``family_profile``). Each family
+evaluates its whole fold x grid on its device and returns one (folds,
+grid) metric matrix. The reference's journal, retries, deadlines, mesh,
+concurrent family dispatch, racing and host evaluation path are not
+ported yet.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..evaluators.base import Evaluator
 from ..models.base import Predictor
 from ..utils.device import take_rows
 
-__all__ = ["ValidationResult", "BestEstimator", "CrossValidation"]
+__all__ = ["ValidationResult", "BestEstimator", "CrossValidation",
+           "family_profile", "reset_family_profile"]
+
+#: per-family search accounting (seconds, nvcc build seconds, calls),
+#: accumulated across every search in this process
+_FAMILY_PROFILE: Dict[str, Dict[str, float]] = {}
+
+
+def family_profile() -> List[dict]:
+    """Per-family search profile rows, slowest first: ``{"family",
+    "seconds", "compileSeconds", "executeSeconds", "calls"}``. A family's
+    seconds run from its dispatch to the read-back of its metric matrix,
+    which waits for the device. ``compileSeconds`` is the ``nvcc`` build
+    time of the port's kernels (``_build.py``) spent inside the dispatch:
+    0 once they are built. The JAX package's XLA trace and compile time,
+    which the field holds there, has no counterpart in the port's eager
+    ops."""
+    return [
+        {"family": k, "seconds": round(v["seconds"], 4),
+         "compileSeconds": round(min(v["compile"], v["seconds"]), 4),
+         "executeSeconds": round(
+             max(0.0, v["seconds"] - v["compile"]), 4),
+         "calls": int(v["calls"])}
+        for k, v in sorted(_FAMILY_PROFILE.items(),
+                           key=lambda kv: -kv[1]["seconds"])]
+
+
+def reset_family_profile() -> None:
+    _FAMILY_PROFILE.clear()
 
 
 @dataclass
@@ -35,6 +66,18 @@ class ValidationResult:
     @property
     def mean_metric(self) -> float:
         return float(np.mean(self.metric_values))
+
+    def to_json(self) -> dict:
+        return {"modelName": self.model_name, "modelUID": self.model_uid,
+                "gridIndex": self.grid_index, "params": self.params,
+                "metricValues": [float(v) for v in self.metric_values],
+                "meanMetric": self.mean_metric}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ValidationResult":
+        return cls(model_name=d["modelName"], model_uid=d["modelUID"],
+                   grid_index=d["gridIndex"], params=dict(d["params"]),
+                   metric_values=list(d["metricValues"]))
 
 
 @dataclass
@@ -109,11 +152,19 @@ class CrossValidation:
         or None when the family or metric has none."""
         if spec is None or not hasattr(estimator, "eval_fold_grid_arrays"):
             return None
+        t0, b0 = time.perf_counter(), _build.build_seconds()
         try:
             return estimator.eval_fold_grid_arrays(
                 X, y, masks, grid, X_val_st, y_val_st, spec)
         except NotImplementedError:
             return None
+        finally:
+            rec = _FAMILY_PROFILE.setdefault(
+                type(estimator).__name__,
+                {"seconds": 0.0, "compile": 0.0, "calls": 0})
+            rec["seconds"] += time.perf_counter() - t0
+            rec["compile"] += _build.build_seconds() - b0
+            rec["calls"] += 1
 
     def _results_from_matrix(self, estimator, grid, mm
                              ) -> List[ValidationResult]:

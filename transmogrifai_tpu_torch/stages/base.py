@@ -9,17 +9,23 @@ base/*}). Key differences from the Spark design:
   ``transform_columns`` operating on numpy-backed ``FeatureColumn``s, and
   an array interface ``transform_arrays`` of plain torch ops on tensors,
   which the prepare plan runs on the workflow's device. A derived
-  row-level path (``transform_value``) remains for contract tests.
-
-The JAX package's constructor capture and stage-class registry serve its
-persistence, which is not ported, and are left out.
+  row-level path (``transform_value``) remains for local serving
+  (``local/scoring.py``) and contract tests.
+- The reference's reflective ctor-args capture for persistence
+  (OpPipelineStageWriter.scala:78-120) becomes automatic-but-explicit ctor
+  binding: every stage's ``__init__`` kwargs are recorded at construction
+  and round-tripped through ``get_params`` / class registry lookup
+  (``workflow/persistence.py``). The record holds references, not copies:
+  a fitted model's tensors are the ones the model keeps.
 
 Arity conventions mirror the reference: Unary/Binary/Ternary/Quaternary
 plus Sequence (N same-typed inputs) and BinarySequence (1 + N).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, ClassVar, List, Optional, Sequence, Tuple, Type
+import functools
+import inspect
+from typing import Any, Callable, ClassVar, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
@@ -37,8 +43,30 @@ __all__ = [
     "TernaryTransformer", "QuaternaryTransformer",
     "SequenceTransformer", "SequenceEstimator", "SequenceModel",
     "BinarySequenceTransformer", "BinarySequenceEstimator",
-    "LambdaTransformer",
+    "LambdaTransformer", "stage_class_by_name", "register_stage_class",
 ]
+
+_STAGE_REGISTRY: Dict[str, type] = {}
+
+
+def register_stage_class(cls):
+    _STAGE_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def stage_class_by_name(name: str):
+    """Resolve a stage class for deserialization, importing the ops,
+    models and selector packages first so their classes register
+    (reference OpPipelineStageReader class-for-name,
+    OpPipelineStageReader.scala:89-135)."""
+    if name in _STAGE_REGISTRY:
+        return _STAGE_REGISTRY[name]
+    from .. import models as _models  # noqa: F401
+    from .. import ops as _ops  # noqa: F401
+    from .. import selector as _selector  # noqa: F401
+    if name in _STAGE_REGISTRY:
+        return _STAGE_REGISTRY[name]
+    raise KeyError(f"Unknown stage class {name!r}")
 
 
 class PipelineStage:
@@ -63,6 +91,42 @@ class PipelineStage:
         self.uid = uid or make_uid(type(self))
         self.input_features: Tuple[Feature, ...] = ()
         self._output_feature: Optional["Feature"] = None
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        register_stage_class(cls)
+        orig = cls.__init__
+        if getattr(orig, "_captures_ctor", False):
+            return
+        try:
+            sig = inspect.signature(orig)
+        except (TypeError, ValueError):  # pragma: no cover
+            return
+
+        @functools.wraps(orig)
+        def wrapper(self, *args, **kwargs):
+            if not hasattr(self, "_ctor_args"):
+                try:
+                    bound = sig.bind(self, *args, **kwargs)
+                    bound.apply_defaults()
+                    captured = {}
+                    for name, val in bound.arguments.items():
+                        if name == "self":
+                            continue
+                        p = sig.parameters[name]
+                        if p.kind == inspect.Parameter.VAR_KEYWORD:
+                            captured.update(val)
+                        elif p.kind == inspect.Parameter.VAR_POSITIONAL:
+                            captured[name] = list(val)
+                        else:
+                            captured[name] = val
+                    self._ctor_args = captured
+                except TypeError:
+                    self._ctor_args = {}
+            orig(self, *args, **kwargs)
+
+        wrapper._captures_ctor = True
+        cls.__init__ = wrapper
 
     # -- wiring ------------------------------------------------------------
     def set_input(self, *features: "Feature") -> "PipelineStage":
@@ -145,6 +209,12 @@ class PipelineStage:
     # -- persistence -------------------------------------------------------
     def stage_name(self) -> str:
         return f"{type(self).__name__}_{self.operation_name}"
+
+    def get_params(self) -> Dict[str, Any]:
+        """Constructor kwargs captured at instantiation — JSON/npz
+        round-trippable (replaces reflective ctor capture,
+        OpPipelineStageWriter.scala:78-120)."""
+        return dict(getattr(self, "_ctor_args", {}))
 
     def __repr__(self) -> str:
         ins = ", ".join(f.name for f in self.input_features)

@@ -11,12 +11,16 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
   training matrix born on the device;
 - ``WorkflowModel.score`` runs the JAX package's columnar host path, layer
   by layer through each stage's ``transform_columns``, with the winner's
-  ``predict_arrays`` on the device.
+  ``predict_arrays`` on the device;
+- ``WorkflowModel.save`` and ``load`` (``workflow/persistence.py``) write
+  and read the JAX package's directory layout; a load names the device
+  the models predict on;
+- a listener (``with_listener``) collects every stage's seconds and rows.
 
 Estimator -> fitted-model DAG rewiring uses ``Feature.copy_with_new_stages``
 as the reference does (OpWorkflow.scala:347). Workflow-level CV, the raw
-feature filter, listeners, readers, resumed searches, the lint pre-flight,
-persistence and the compiled scoring engine are not ported and raise.
+feature filter, readers, resumed searches, the lint pre-flight and the
+compiled scoring engine are not ported and raise.
 """
 from __future__ import annotations
 
@@ -134,6 +138,7 @@ class Workflow:
         self.last_prepare_plan: Optional[PreparePlan] = None
         #: host seconds of the most recent train by phase
         self.last_train_seconds: Dict[str, float] = {}
+        self._listener = None
 
     # -- configuration -----------------------------------------------------
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -159,8 +164,10 @@ class Workflow:
         raise not_ported("Workflow.set_reader", "readers/data_readers.py")
 
     def with_listener(self, listener) -> "Workflow":
-        raise not_ported("Workflow.with_listener",
-                         "observability/ and workflow/runner.py")
+        """Attach a WorkflowListener collecting per-stage metrics
+        (reference OpSparkListener wiring, OpWorkflowRunner.scala:326)."""
+        self._listener = listener
+        return self
 
     def with_raw_feature_filter(self, rff,
                                 score_data: Any = None) -> "Workflow":
@@ -207,13 +214,16 @@ class Workflow:
         ds = _generate_raw_data(self.raw_features(), self._input_data,
                                 require_responses=True)
         t1 = time.perf_counter()
-        plan = PreparePlan(self.result_features, device=self.device)
+        plan = PreparePlan(self.result_features, device=self.device,
+                           listener=self._listener)
         train_ds, fitted = plan.execute(ds)
         self.last_prepare_plan = plan
         self.last_train_seconds = {"raw_extraction": t1 - t0,
                                    "prepare_and_fit": time.perf_counter() - t1}
         result = tuple(f.copy_with_new_stages(fitted)
                        for f in self.result_features)
+        if self._listener is not None:
+            self._listener.on_application_end()
         return WorkflowModel(result_features=result, train_dataset=train_ds)
 
 
@@ -294,8 +304,15 @@ class WorkflowModel:
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str) -> None:
-        raise not_ported("WorkflowModel.save", "workflow/persistence.py")
+        """Persist the fitted DAG to a directory, atomically
+        (reference OpWorkflowModel.save:218)."""
+        from .persistence import save_model
+        save_model(self, path)
 
     @staticmethod
-    def load(path: str) -> "WorkflowModel":
-        raise not_ported("WorkflowModel.load", "workflow/persistence.py")
+    def load(path: str, device="cuda") -> "WorkflowModel":
+        """The model saved at ``path``, its models predicting on
+        ``device`` (default the CUDA card; raises without one)
+        (reference OpWorkflow.loadModel)."""
+        from .persistence import load_model
+        return load_model(path, device=device)
