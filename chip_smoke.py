@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--workflow-rows N] [--out FILE] [--k1-only | --workflow-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
-``--workflow-only`` runs phases 1, 2, 8, 8b and 9):
+``--workflow-only`` runs phases 1, 2, 8, 8b, 8c and 9):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -62,6 +62,24 @@ Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
      ``raw_arrays`` ran on CUDA tensors, a reload on the CPU serves the
      same records within 1e-5 of the card (a linear winner), and a
      re-save over the directory swaps it atomically; K1 launches none;
+ 8c. [serve-compiled] phase 8's model reloaded on the card and frozen into
+     a ScoringPlan (``serving/plan.py``): its coverage, and the capture
+     seconds of one CUDA graph per row bucket up to the server's
+     ``max_batch``; the 50,000 holdout records scored through graph
+     replays (``score_batch(engine="compiled")`` and
+     ``model.score(engine="compiled")``, records/s, ``bucket_profile``)
+     within 1e-6 of the columnar path, bitwise equal over two runs, a
+     replay equal to an eager run of the same program, a CPU plan over a
+     CPU reload within 1e-5, no program added by a repeat; then the
+     in-process micro-batching server (guardrails on, ``sentinel=False``)
+     answering 10,000 holdout records, one request each from 64
+     submitter threads (requests/s, p50 / p99 / mean ms, dispatches full
+     or at the deadline): no capture in steady state, no host fallback,
+     breaker short-circuit or quarantined row, every answer bitwise the
+     offline ``score_guarded`` row; last, 20,000-record workflows with a
+     fixed GBT (depth 6, 20 rounds) and a fixed 50-tree forest, each
+     scored through a compiled plan within 1e-6 of its columnar score.
+     K1 launches none while serving;
   9. the same workflow on 5,000 records on the card and on the CPU
      (the card-against-CPU pool): equal metadata, bitwise equal
      indicator, one-hot, hash and integer columns, float columns within
@@ -1081,7 +1099,7 @@ def phase_workflow(device, rows: int, models=None, tag: str = "workflow",
            "models_x_folds": mxf, "family_profile": family_prof,
            "stage_profile": [m.to_json() for m in sorted(
                listener.metrics.stage_metrics, key=lambda m: -m.seconds)[:3]],
-           "holdout_records": titanic.stratified_split(records)[1][:1000],
+           "holdout_records": titanic.stratified_split(records)[1],
            "run": run}
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1297,6 +1315,404 @@ def phase_serve_saved(run, holdout_records) -> dict:
     return out
 
 
+#: compiled plan on the card against the columnar path on the card
+COMPILED_SCORE_TOL = 1e-6
+#: a CPU plan over a CPU reload against the card's plan (a linear winner)
+COMPILED_CPU_TOL = 1e-5
+#: float32 ulps a bucket's graph replay may differ from an eager run of
+#: the same composed program on the card
+GRAPH_EAGER_MAX_ULP = 0
+#: requests of the traced drive that splits a request's time by span
+TRACED_REQUESTS = 2000
+
+
+def _prob(scored, name: str) -> np.ndarray:
+    return np.asarray(scored[name].probability, dtype=np.float64)
+
+
+def _f32_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in float32 ulps between two arrays of float32
+    values (held as float64)."""
+    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
+def _margin_order_ulps(X, model, sizes=(8, 64, 256, 2048, 8192)) -> dict:
+    """Worst float32 ulps between the margins of 8 rows of ``X`` scored
+    alone and the same rows placed at other offsets of batches of other
+    sizes: for ``X @ w`` (the card's BLAS picks its kernel by shape) and
+    for the linear ``model``'s ``raw_arrays`` (its products added in
+    feature order)."""
+    forms = {"matmul": lambda A: A @ model.coefficients + model.intercept,
+             "raw_arrays": lambda A: model.raw_arrays(A)[:, 1]}
+    rows = X[:8]
+    out = {}
+    for name, f in forms.items():
+        base = f(rows).double().cpu().numpy()
+        worst = 0
+        for n in sizes:
+            n = min(n, X.shape[0])
+            for off in sorted(o for o in {0, 1, 3, n - 8} if o + 8 <= n):
+                A = X[:n].clone()
+                A[off:off + 8] = rows
+                got = f(A)[off:off + 8].double().cpu().numpy()
+                worst = max(worst, _f32_ulps(got, base))
+        out[name] = worst
+    return out
+
+
+def _drive_server(client, records, threads: int):
+    """``records`` submitted by ``threads`` concurrent submitter threads,
+    one blocking request each; returns (answers in record order, ms a
+    request, wall seconds)."""
+    import threading
+    answers = [None] * len(records)
+    ms = np.zeros(len(records))
+    order = iter(range(len(records)))
+    lock = threading.Lock()
+    errors = []
+
+    def submitter():
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                answers[i] = client.score(dict(records[i]), timeout=120.0)
+            except Exception as e:          # surfaced after the join
+                errors.append(e)
+                return
+            ms[i] = (time.perf_counter() - t0) * 1e3
+
+    workers = [threading.Thread(target=submitter, name=f"submit-{k}")
+               for k in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(w.is_alive() for w in workers):
+        raise AssertionError(f"[serve-compiled] submitters failed: "
+                             f"{errors[:3]}")
+    return answers, ms, wall
+
+
+def _tree_stage(device, est, records, tag: str) -> dict:
+    """A Titanic workflow on ``records`` with the fixed model stage
+    ``est``, its holdout scored through a compiled plan on ``device`` and
+    on the columnar path."""
+    t0 = time.perf_counter()
+    run = titanic.run(records, device=device, model_stage=est)
+    train_s = time.perf_counter() - t0
+    name = run.prediction.name
+    holdout = titanic.stratified_split(records)[1]
+    plan = run.model.scoring_plan()
+    t0 = time.perf_counter()
+    compiled = run.model.score(holdout, engine="compiled")
+    compiled_s = time.perf_counter() - t0
+    columnar = run.model.score(holdout)
+    gap = float(np.abs(_prob(compiled, name) - _prob(columnar, name)).max())
+    flips = int((compiled[name].data != columnar[name].data).sum())
+    out = {"stage": type(est).__name__, "train_s": train_s,
+           "holdout": len(holdout), "compiled_s": compiled_s,
+           "captured_buckets": sorted(plan.capture_seconds),
+           "capture_s": dict(plan.capture_seconds),
+           "max_abs_diff_vs_columnar": gap, "prediction_flips": flips,
+           "lowered": len(plan.coverage.lowered)}
+    log(f"[serve-compiled] {tag}: {out['stage']} trained on "
+        f"{len(records) - len(holdout)} rows in {train_s:.2f} s; "
+        f"{len(holdout)} holdout records compiled in {compiled_s:.3f} s "
+        f"(graphs at buckets {out['captured_buckets']}, capture s "
+        f"{json.dumps({k: round(v, 3) for k, v in plan.capture_seconds.items()})}"
+        f"); max |compiled - columnar| P {gap:.3e} (tol "
+        f"{COMPILED_SCORE_TOL}), prediction flips {flips}")
+    if gap > COMPILED_SCORE_TOL or flips:
+        raise AssertionError(f"[serve-compiled] {tag}: the compiled plan "
+                             f"differs from the columnar path")
+    return out
+
+
+def phase_serve_compiled(run, holdout_records, server_records: int = 10_000,
+                         threads: int = 64, tree_rows: int = 20_000,
+                         tree_models=None) -> dict:
+    """[serve-compiled]: phase 8's model saved, reloaded on the workflow's
+    device (the card) and frozen into a ScoringPlan: coverage, the
+    capture seconds of every bucket up to the server's ``max_batch``; the
+    holdout scored with ``score_batch(engine="compiled")`` and
+    ``model.score(engine="compiled")`` (records/s, ``bucket_profile``):
+    within COMPILED_SCORE_TOL of the columnar path, bitwise equal over
+    two runs, one bucket's graph replay equal to an eager run of the same
+    program (GRAPH_EAGER_MAX_ULP), a CPU plan over a CPU reload within
+    COMPILED_CPU_TOL, and a repeat adding no program. Then the
+    in-process server (guardrails on, ``sentinel=False``, the default
+    config otherwise) answers ``server_records`` holdout records, one
+    request each from ``threads`` concurrent submitters: requests/s,
+    per-request p50/p99/mean ms, dispatches by kind; no program captured
+    in steady state, no host-fallback batch, breaker short-circuit or
+    quarantined row, and every answer bitwise the offline
+    ``score_guarded`` row. Last, a Titanic workflow on ``tree_rows``
+    records with a fixed GBT (depth 6, 20 rounds) and one with a fixed
+    50-tree forest, each scored through a compiled plan within
+    COMPILED_SCORE_TOL of its columnar score. K1 never launches while
+    serving."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.observability import trace
+    from transmogrifai_tpu_torch.runtime import telemetry
+    from transmogrifai_tpu_torch.serving import (ScoringPlan, ServeConfig,
+                                                 plan_compiles,
+                                                 serve_in_process)
+    from transmogrifai_tpu_torch.workflow.persistence import load_model
+    from transmogrifai_tpu_torch.workflow.workflow import _generate_raw_data
+    t_phase = time.perf_counter()
+    dev = run.workflow.device
+    name = run.prediction.name
+    records = list(holdout_records)
+    level_hist.launches = 0
+    out: dict = {"records": len(records)}
+    tmp = tempfile.mkdtemp(prefix="serve_compiled_")
+    try:
+        path = os.path.join(tmp, "model")
+        run.model.save(path)
+        fn = load_score_function(path, device=dev)
+        model = fn.model
+        cpu_model = load_model(path, device="cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- compile: coverage --------------------------------------------------
+    t0 = time.perf_counter()
+    plan = model.scoring_plan()
+    out["compile_s"] = time.perf_counter() - t0
+    desc = plan.describe()
+    out["coverage"] = desc["coverage"]
+    log(f"[serve-compiled] plan on {plan.device} compiled in "
+        f"{out['compile_s']:.3f} s: {desc['device_stages']} device stages, "
+        f"{desc['fallback_stages']} host stages; host inputs "
+        f"{len(desc['host_inputs'])}, buckets {desc['buckets']}")
+    for label in desc["coverage"]["lowered"]:
+        log(f"[serve-compiled] device stage {label.split('(')[0]}")
+    for label, why in desc["coverage"]["fallback"]:
+        log(f"[serve-compiled] host stage {label.split('(')[0]}: {why}")
+
+    # -- batch --------------------------------------------------------------
+    c0 = plan_compiles()
+    t0 = time.perf_counter()
+    rows_batch = fn.score_batch(records, engine="compiled")
+    out["score_batch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = model.score(records, engine="compiled")
+    out["score_compiled_s"] = time.perf_counter() - t0
+    c1 = plan_compiles()
+    t0 = time.perf_counter()
+    again = model.score(records, engine="compiled")
+    out["score_compiled_again_s"] = time.perf_counter() - t0
+    out["repeat_compiles"] = plan_compiles() - c1
+    out["batch_compiles"] = c1 - c0
+    t0 = time.perf_counter()
+    columnar = model.score(records)
+    out["score_columnar_s"] = time.perf_counter() - t0
+    p_first, p_again = _prob(first, name), _prob(again, name)
+    out["bitwise_repeat"] = bool(
+        np.array_equal(p_first, p_again)
+        and np.array_equal(first[name].raw_prediction,
+                           again[name].raw_prediction))
+    out["max_abs_diff_vs_columnar"] = float(
+        np.abs(p_first - _prob(columnar, name)).max())
+    out["score_batch_gap"] = float(max(
+        abs(r[name]["probability_1"] - p) for r, p in
+        zip(rows_batch, p_first[:, 1])))
+    out["records_per_s"] = len(records) / out["score_compiled_again_s"]
+    out["records_per_s_first"] = len(records) / out["score_compiled_s"]
+    out["records_per_s_score_batch"] = len(records) / out["score_batch_s"]
+    out["records_per_s_columnar"] = len(records) / out["score_columnar_s"]
+    out["bucket_profile"] = plan.bucket_profile()
+    out["capture_s_batch"] = dict(plan.capture_seconds)
+    # one bucket's graph replay against an eager run of the same program
+    raw = _generate_raw_data(model.raw_features(), records[:1000],
+                             require_responses=False)
+    bucket, inputs, mask, _rows = plan.encode_raw_dataset(raw).chunks[0]
+    replayed = plan._run_bucket(bucket, inputs, mask)
+    eager = plan.run_eager(inputs, mask)
+    out["graph_vs_eager_ulps"] = max(_f32_ulps(a, b)
+                                     for a, b in zip(replayed, eager))
+    out["graph_vs_eager_bucket"] = bucket
+    # a linear winner's margins must not depend on the batch they sit in
+    inner = getattr(next((st for st in run.model.stages()
+                          if type(st).__name__ == "SelectedModel"), None),
+                    "inner", None)
+    if hasattr(inner, "coefficients"):
+        out["margin_ulps"] = _margin_order_ulps(
+            run.model.train_dataset[run.vector.name].data, inner)
+        log(f"[serve-compiled] a row's margin across batch sizes and "
+            f"offsets, worst float32 ulps: X @ w "
+            f"{out['margin_ulps']['matmul']}, raw_arrays (feature order) "
+            f"{out['margin_ulps']['raw_arrays']}")
+        if out["margin_ulps"]["raw_arrays"]:
+            raise AssertionError("[serve-compiled] a linear margin depends "
+                                 "on its batch")
+    # a CPU plan over a CPU reload
+    t0 = time.perf_counter()
+    cpu_scored = cpu_model.score(records, engine="compiled")
+    out["cpu_compiled_s"] = time.perf_counter() - t0
+    out["max_abs_diff_cpu"] = float(
+        np.abs(_prob(cpu_scored, name) - p_first).max())
+    log(f"[serve-compiled] batch of {len(records)} records: score_batch "
+        f"{out['score_batch_s']:.3f} s, model.score(engine='compiled') "
+        f"{out['score_compiled_s']:.3f} s then {out['score_compiled_again_s']:.3f}"
+        f" s ({out['records_per_s']:.0f} records/s warm, "
+        f"{out['records_per_s_first']:.0f} first), columnar "
+        f"{out['score_columnar_s']:.3f} s ({out['records_per_s_columnar']:.0f}"
+        f" records/s); CPU plan {out['cpu_compiled_s']:.3f} s")
+    log(f"[serve-compiled] bucket_profile "
+        + json.dumps({b: {k: (round(v, 5) if isinstance(v, float) else v)
+                          for k, v in r.items()}
+                      for b, r in sorted(out["bucket_profile"].items())}))
+    log(f"[serve-compiled] max |compiled - columnar| P "
+        f"{out['max_abs_diff_vs_columnar']:.3e} (tol {COMPILED_SCORE_TOL}); "
+        f"score_batch vs score {out['score_batch_gap']:.3e}; repeat bitwise "
+        f"{out['bitwise_repeat']}; bucket {bucket} graph vs eager "
+        f"{out['graph_vs_eager_ulps']} ulps (max {GRAPH_EAGER_MAX_ULP}); "
+        f"CPU plan vs card {out['max_abs_diff_cpu']:.3e} (tol "
+        f"{COMPILED_CPU_TOL}); programs: batch {out['batch_compiles']}, "
+        f"repeat {out['repeat_compiles']}")
+    if out["max_abs_diff_vs_columnar"] > COMPILED_SCORE_TOL \
+            or out["score_batch_gap"] > 0.0:
+        raise AssertionError("[serve-compiled] the compiled batch differs "
+                             "from the columnar path")
+    if not out["bitwise_repeat"] or out["repeat_compiles"]:
+        raise AssertionError("[serve-compiled] a repeated batch changed or "
+                             "added a program")
+    if out["graph_vs_eager_ulps"] > GRAPH_EAGER_MAX_ULP:
+        raise AssertionError("[serve-compiled] graph replay differs from "
+                             "the eager program")
+    if out["max_abs_diff_cpu"] > COMPILED_CPU_TOL:
+        raise AssertionError("[serve-compiled] the CPU plan differs from "
+                             "the card's")
+    if dev.type == "cuda" and not plan.capture_seconds:
+        raise AssertionError("[serve-compiled] no graph was captured")
+
+    # -- server -------------------------------------------------------------
+    served = records[:server_records]
+    offline_plan = ScoringPlan(model).compile().with_guardrails(
+        sentinel=False)
+    offline = offline_plan.score_guarded(served).scored[name]
+    config = ServeConfig(sentinel=False)
+    server, client = serve_in_process({"titanic": model}, config,
+                                      device=dev)
+    try:
+        buckets = [b for b in plan.buckets() if b <= config.max_batch]
+        t0 = time.perf_counter()
+        warmed = server.prewarm(buckets=buckets)["titanic"]
+        out["prewarm_s"] = time.perf_counter() - t0
+        out["capture_s"] = warmed
+        log(f"[serve-compiled] prewarm captured buckets "
+            + ", ".join(f"{b}: {s:.3f} s" for b, s in sorted(warmed.items()))
+            + f" ({out['prewarm_s']:.2f} s); plan_compiles() {plan_compiles()}")
+        client.score_many(served[:256])            # warm the loop path
+        before = telemetry.counters()
+        stats0 = dict(server.stats)
+        c0 = plan_compiles()
+        answers, ms, wall = _drive_server(client, served, threads)
+        after = telemetry.counters()
+        desc = server.describe()
+        metrics = server.metrics_snapshot()
+        # where a request's time goes: a shorter traced drive, its spans
+        # averaged by name (the server's request segments and the plan's
+        # encode and dispatch)
+        trace.configure(True)
+        trace.reset()
+        try:
+            _drive_server(client, served[:TRACED_REQUESTS], threads)
+            spans = trace.spans()
+        finally:
+            trace.configure(False)
+            trace.reset()
+    finally:
+        server.stop()
+    by_name = collections.defaultdict(list)
+    for sp in spans:
+        by_name[sp["name"]].append(sp["dur"] * 1e3)
+    traced = {k: {"count": len(v), "mean_ms": float(np.mean(v))}
+              for k, v in sorted(by_name.items())}
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "serving_host_fallback_batches", "serving_breaker_short_circuits",
+        "serving_rows_quarantined", "serving_device_failures")}
+    batches = desc["batches"] - int(stats0["batches"])
+    rows = desc["rows"] - int(stats0["rows"])
+    out["server"] = {
+        "requests": len(served), "threads": threads, "wall_s": wall,
+        "requests_per_s": len(served) / wall,
+        "ms_p50": float(np.percentile(ms, 50)),
+        "ms_p99": float(np.percentile(ms, 99)),
+        "ms_mean": float(ms.mean()), "ms_max": float(ms.max()),
+        "batches": batches, "mean_rows_per_dispatch": rows / max(batches, 1),
+        "full_dispatches": desc["full_dispatches"]
+        - int(stats0["full_dispatches"]),
+        "deadline_dispatches": desc["deadline_dispatches"]
+        - int(stats0["deadline_dispatches"]),
+        "orphaned_dispatches": desc["orphaned_dispatches"],
+        "dispatch_saturation": desc["dispatch_saturation"],
+        "steady_compiles": plan_compiles() - c0, "counters": delta,
+        "latency_ms_server": metrics["latency_ms"], "traced": traced}
+    mismatched = [i for i, a in enumerate(answers)
+                  if "_guard" in a or a[name] != dict(offline.boxed(i).value)]
+    out["server"]["mismatched_answers"] = len(mismatched)
+    s = out["server"]
+    log(f"[serve-compiled] server: {s['requests']} requests from {threads} "
+        f"threads in {wall:.3f} s ({s['requests_per_s']:.0f} requests/s); "
+        f"ms a request p50 {s['ms_p50']:.3f}, p99 {s['ms_p99']:.3f}, mean "
+        f"{s['ms_mean']:.3f}, max {s['ms_max']:.3f}; {batches} dispatches, "
+        f"{s['mean_rows_per_dispatch']:.2f} rows each, full "
+        f"{s['full_dispatches']} / deadline {s['deadline_dispatches']}, "
+        f"orphaned {s['orphaned_dispatches']}, saturation "
+        f"{s['dispatch_saturation']:.3f}; steady-state programs "
+        f"{s['steady_compiles']}; counters {json.dumps(delta)}; answers "
+        f"not bitwise the offline score_guarded rows: {len(mismatched)}")
+    log(f"[serve-compiled] traced {TRACED_REQUESTS} requests, mean ms by "
+        f"span: " + ", ".join(f"{k} {v['mean_ms']:.3f} (x{v['count']})"
+                              for k, v in traced.items()))
+    if s["steady_compiles"]:
+        raise AssertionError("[serve-compiled] the server captured in "
+                             "steady state")
+    if any(delta.values()):
+        raise AssertionError(f"[serve-compiled] fallback, short-circuit or "
+                             f"quarantine while serving: {delta}")
+    if mismatched:
+        i = mismatched[0]
+        raise AssertionError(
+            f"[serve-compiled] {len(mismatched)} answers differ from the "
+            f"offline score_guarded rows, e.g. row {i}: {answers[i]} vs "
+            f"{dict(offline.boxed(i).value)}")
+    out["k1_launches"] = level_hist.launches
+
+    # -- tree stages --------------------------------------------------------
+    tree_records = titanic.synthetic_titanic(tree_rows, seed=7)
+    gbt, rf = tree_models or (
+        GBTClassifier(max_depth=6, num_rounds=20, device=dev),
+        RandomForestClassifier(num_trees=50, device=dev))
+    out["trees"] = [_tree_stage(dev, gbt, tree_records, "gbt"),
+                    _tree_stage(dev, rf, tree_records, "rf")]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve-compiled] K1 launches while serving {out['k1_launches']}; "
+        f"phase {out['seconds']:.1f} s")
+    if out["k1_launches"]:
+        raise AssertionError("[serve-compiled] the serve path launched K1")
+    return out
+
+
+
+def phase_serving(wf_run: dict) -> tuple:
+    """Phases 8b and 8c on phase 8's model: ``wf_run`` loses its model run
+    and holdout records, which its JSON does not hold."""
+    run, holdout = wf_run.pop("run"), wf_run.pop("holdout_records")
+    serve_saved = phase_serve_saved(run, holdout[:1000])
+    return serve_saved, phase_serve_compiled(run, holdout)
+
 def _norm_uid(name):
     return None if name is None else re.sub(r"[0-9a-f]{12}", "UID", name)
 
@@ -1402,15 +1818,16 @@ def main(argv=None) -> int:
     phase_build()
     if args.workflow_only:
         wf_run = phase_workflow(device, args.workflow_rows)
-        serve_saved = phase_serve_saved(wf_run.pop("run"),
-                                        wf_run.pop("holdout_records"))
+        serve_saved, serve_compiled = phase_serving(wf_run)
         wf_agree = phase_workflow_agree(device)
         write_out(args.out, {"device": info, "workflow": wf_run,
                              "serve_saved": serve_saved,
+                             "serve_compiled": serve_compiled,
                              "workflow_agree": wf_agree})
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(info["smi"])
         print(json.dumps({"workflow": wf_run, "serve_saved": serve_saved,
+                          "serve_compiled": serve_compiled,
                           "workflow_agree": wf_agree}, default=str))
         return 0
     X, y = make_data(args.rows, COLS)
@@ -1449,9 +1866,9 @@ def main(argv=None) -> int:
     # the second main path: the Titanic workflow, its matrix born on the
     # card; K1's counts are zeroed inside, just before its train
     wf_run = phase_workflow(device, args.workflow_rows)
-    # the third path: save, reload and serve phase 8's model
-    serve_saved = phase_serve_saved(wf_run.pop("run"),
-                                    wf_run.pop("holdout_records"))
+    # the third and fourth paths: save, reload and serve phase 8's model
+    # record by record, then through the compiled plan and the server
+    serve_saved, serve_compiled = phase_serving(wf_run)
     wf_agree = phase_workflow_agree(device)
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
@@ -1487,11 +1904,13 @@ def main(argv=None) -> int:
                  name: rec["k1_launches"]
                  for name, rec in wf_run["families"].items()},
              "launches_serve_saved": serve_saved["k1_launches"],
+             "launches_serve_compiled": serve_compiled["k1_launches"],
              "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "linear_ops": linear_ops, "lbfgs": lbfgs,
                          "agree": agree, "workflow": wf_run,
                          "serve_saved": serve_saved,
+                         "serve_compiled": serve_compiled,
                          "workflow_agree": wf_agree, "profile": prof,
                          "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

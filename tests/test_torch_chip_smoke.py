@@ -1,8 +1,10 @@
 """CPU rehearsal of chip_smoke.py: the main-path (GBT alone, and the four
 families of the default pool), card-against-CPU, L-BFGS and
 single-record phases, the linear search slice and the forest-shape K1
-inputs (random and a real level's slots) at a tiny size on an explicit
-CPU device, and the script's refusal to run without a card."""
+inputs (random and a real level's slots), the workflow's save-and-serve
+and compiled-serving phases at a tiny size on an explicit CPU device, the
+compiled-serving phase's wiring into both runs, and the script's refusal
+to run without a card."""
 import os
 import subprocess
 import sys
@@ -247,6 +249,70 @@ def test_serve_saved_phase(workflow_out):
     assert out["op_model_json_bytes"] > 0 and out["arrays_npz_bytes"] > 0
     assert out["ms_p50"] > 0 and out["ms_p99"] >= out["ms_p50"]
     assert out["k1_launches"] == 0
+
+
+def test_serve_compiled_phase(workflow_out):
+    """[serve-compiled] on the CPU: the compiled plan over a reload equals
+    the columnar path, the in-process server answers every request as the
+    offline guarded plan does, with nothing captured in steady state, no
+    fallback and no quarantine; the tree stages compile and agree."""
+    out = chip_smoke.phase_serve_compiled(
+        workflow_out["run"], workflow_out["holdout_records"],
+        server_records=64, threads=8, tree_rows=600,
+        tree_models=(chip_smoke.GBTClassifier(max_depth=3, num_rounds=2,
+                                              device="cpu"),
+                     chip_smoke.RandomForestClassifier(
+                         num_trees=3, max_depth=3, device="cpu")))
+    assert out["records"] == 300
+    assert out["max_abs_diff_vs_columnar"] <= 1e-12
+    assert out["bitwise_repeat"] and out["repeat_compiles"] == 0
+    assert out["graph_vs_eager_ulps"] == 0 and out["max_abs_diff_cpu"] == 0
+    assert sorted(out["capture_s"]) == [8, 16, 32, 64, 128, 256]
+    assert out["capture_s_batch"] == {}       # nothing is captured on a CPU
+    lowered = out["coverage"]["lowered"]
+    assert lowered[-1].startswith("SelectedModel(") and len(lowered) == 14
+    server = out["server"]
+    assert server["requests"] == 64 and server["mismatched_answers"] == 0
+    assert server["steady_compiles"] == 0
+    assert not any(server["counters"].values())
+    assert server["batches"] == server["full_dispatches"] \
+        + server["deadline_dispatches"]
+    assert server["ms_p99"] >= server["ms_p50"] > 0
+    assert [t["stage"] for t in out["trees"]] == [
+        "GBTClassifier", "RandomForestClassifier"]
+    assert all(t["max_abs_diff_vs_columnar"] <= 1e-12
+               and t["prediction_flips"] == 0 for t in out["trees"])
+    assert out["k1_launches"] == 0
+
+
+def test_serve_compiled_is_wired_in(monkeypatch, capsys):
+    """Both runs serve phase 8's model through phases 8b and 8c: the whole
+    smoke and ``--workflow-only``, whose run is replayed here with every
+    phase stubbed and the card faked."""
+    import inspect
+    import json
+    assert inspect.getsource(chip_smoke.main).count("phase_serving(") == 2
+    calls = []
+    monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "phase_device", lambda: {
+        "kind": "fake", "count": 1, "smi": "fake, 1 W"})
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(chip_smoke, "phase_workflow", lambda dev, rows: {
+        "run": "run", "holdout_records": list(range(1500)), "rows": rows})
+    monkeypatch.setattr(chip_smoke, "phase_serve_saved",
+                        lambda run, hold: calls.append(("8b", len(hold)))
+                        or {"k1_launches": 0})
+    monkeypatch.setattr(chip_smoke, "phase_serve_compiled",
+                        lambda run, hold: calls.append(("8c", len(hold)))
+                        or {"k1_launches": 0})
+    monkeypatch.setattr(chip_smoke, "phase_workflow_agree",
+                        lambda dev: calls.append(("9", 0)) or {})
+    assert chip_smoke.main(["--workflow-only"]) == 0
+    assert calls == [("8b", 1000), ("8c", 1500), ("9", 0)]
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["serve_compiled"] == {"k1_launches": 0}
 
 
 def test_workflow_agree_phase():

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port as a package: it runs on CUDA unless the caller
 asks for the CPU, it imports neither JAX nor the JAX package, and every
-part of the JAX package's workflow surface it has not ported raises
-NotImplementedError naming the JAX module it waits for."""
+part of the JAX package's workflow and serving surface it has not ported
+raises NotImplementedError naming the JAX module it waits for."""
 import ast
 import os
 import re
@@ -24,8 +24,13 @@ from transmogrifai_tpu_torch.features import FeatureBuilder
 from transmogrifai_tpu_torch.local import ScoreFunction, load_score_function
 from transmogrifai_tpu_torch.ops import transmogrify
 from transmogrifai_tpu_torch.plans import PreparePlan
+from transmogrifai_tpu_torch import serving
+from transmogrifai_tpu_torch.ops.numeric import RealVectorizerModel
 from transmogrifai_tpu_torch.selector import (
     BinaryClassificationModelSelector, ModelSelector)
+from transmogrifai_tpu_torch.serving import (PlanCache, ScoringPlan,
+                                             ServeConfig, ServingServer,
+                                             serve_in_process)
 from transmogrifai_tpu_torch.types import (DateList, Geolocation, PickList,
                                            Real, RealMap, Date, TextList)
 from transmogrifai_tpu_torch.utils.device import resolve_device, working_dtype
@@ -75,6 +80,10 @@ def _no_card(monkeypatch):
     lambda: WorkflowModel.load("model"),
     lambda: load_model("model"),
     lambda: load_score_function("model"),
+    lambda: ScoringPlan(WorkflowModel((_feature(Real, "x"),))),
+    lambda: PlanCache(),
+    lambda: ServingServer(ServeConfig(sentinel=False)),
+    lambda: serve_in_process({}, ServeConfig(sentinel=False)),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)
@@ -104,8 +113,19 @@ def test_device_stages_run_where_their_inputs_are():
     assert out.device.type == "cpu" and out.dtype == torch.float64
 
 
-def _score_fn():
-    return ScoreFunction(WorkflowModel((_feature(Real, "x"),)))
+def _cpu_model():
+    """x -> RealVectorizerModel -> a logistic model, fitted by hand on the
+    CPU."""
+    label = FeatureBuilder.real_nn("label").extract(
+        lambda r: r["label"]).as_response()
+    vec = RealVectorizerModel(fill_values=[0.0]).set_input(
+        _feature(Real, "x")).get_output()
+    lr = LogisticRegressionModel(np.zeros(2), 0.0, device="cpu")
+    return WorkflowModel((lr.set_input(label, vec).get_output(),))
+
+
+def _cpu_server(**config):
+    return ServingServer(ServeConfig(**config), device="cpu")
 
 
 def _load_filtered_model():
@@ -139,7 +159,8 @@ UNPORTED = [
      "workflow/workflow.py"),
     (lambda: Workflow(device="cpu").with_raw_feature_filter(None),
      "checkers/raw_feature_filter.py"),
-    (lambda: _score_fn().score_batch([{}]), "serving/plan.py"),
+    (lambda: ScoringPlan(_cpu_model(), lattice=[8, 24]),
+     "tuning/lattice.py"),
     (lambda: Workflow(device="cpu").set_reader(None),
      "readers/data_readers.py"),
     (lambda: Workflow(device="cpu").train(resume_from="ckpt"),
@@ -148,11 +169,29 @@ UNPORTED = [
     (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
     (lambda: BinaryClassificationModelSelector.with_cross_validation(
         validation="racing", device="cpu"), "selector/racing.py"),
-    (lambda: ScoreFunction(WorkflowModel(()), guardrails=True),
-     "serving/guard.py"),
+    (lambda: ScoreFunction(_cpu_model(), guardrails=True).score_batch(
+        [{"x": 1.0}]), "serving/sentinel.py"),
     (lambda: _load_filtered_model(), "checkers/raw_feature_filter.py"),
-    (lambda: WorkflowModel(()).score([], engine="compiled"),
-     "serving/plan.py"),
+    (lambda: _cpu_server(), "serving/sentinel.py"),
+    (lambda: ScoringPlan(_cpu_model()).with_guardrails(),
+     "serving/sentinel.py"),
+    (lambda: _cpu_server(sentinel=False, admission_control=object()),
+     "serving/admission.py"),
+    (lambda: _cpu_server(sentinel=False, lifecycle=object()),
+     "serving/lifecycle.py"),
+    (lambda: _cpu_server(sentinel=False).register_refit("m"),
+     "serving/lifecycle.py"),
+    (lambda: _cpu_server(sentinel=False, coalesce_policy="predicted_cost"),
+     "tuning/policy.py"),
+    (lambda: ScoringPlan(_cpu_model()).attach_artifacts({}),
+     "artifacts/"),
+    (lambda: serving.TcpServingClient, "serving/client.py"),
+    (lambda: serving.StateManager, "serving/state.py"),
+    (lambda: serving.ReplicaManager, "serving/fleet.py"),
+    (lambda: serving.FleetRouter, "serving/router.py"),
+    (lambda: serving.AdmissionController, "serving/admission.py"),
+    (lambda: serving.DriftSentinel, "serving/sentinel.py"),
+    (lambda: serving.ModelLifecycle, "serving/lifecycle.py"),
 ]
 
 
@@ -176,7 +215,12 @@ def test_sources_import_no_jax():
             "types/maps.py", "utils/uid.py", "utils/vector_meta.py",
             "examples/titanic.py", "workflow/persistence.py",
             "local/scoring.py", "utils/listener.py", "utils/table.py",
-            "utils/version.py", "utils/ref_math.py"} <= names
+            "utils/version.py", "utils/ref_math.py", "serving/plan.py",
+            "serving/guard.py", "serving/server.py", "serving/__init__.py",
+            "runtime/errors.py", "runtime/retry.py", "runtime/telemetry.py",
+            "observability/trace.py", "observability/metrics.py",
+            "tuning/registry.py", "utils/compile_time.py",
+            "utils/histogram.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -274,14 +274,22 @@ def test_score_function_serves_records(saved):
 
 
 def test_score_function_unported_parts_raise(saved):
+    """The compiled batch engine (the default) and the guardrails are
+    ported and serve the records' rows; the drift sentinel that
+    ``guardrails=True`` turns on by default is not, and raises by name."""
     model, _ = saved
     score = score_function_for(model)
-    with pytest.raises(NotImplementedError, match="serving/plan.py"):
-        score.score_batch(RECORDS)
+    name = model.result_features[0].name
+    rows = score.score_batch(RECORDS)
+    loop = score.score_batch(RECORDS, engine="records")
+    for got, want in zip(rows, loop):
+        assert got[name] == pytest.approx(want[name], abs=1e-12)
     with pytest.raises(ValueError, match="engine must be"):
         score.score_batch(RECORDS, engine="fast")
-    with pytest.raises(NotImplementedError, match="serving/guard.py"):
-        ScoreFunction(model, guardrails=True)
+    with pytest.raises(NotImplementedError, match="serving/sentinel.py"):
+        ScoreFunction(model, guardrails=True).score_batch(RECORDS)
+    guarded = ScoreFunction(model, guardrails={"sentinel": False})
+    assert guarded.score_batch(RECORDS) == rows
 
 
 def _tree_arrays(rng, trees, depth, leaf_shape):

@@ -9,10 +9,12 @@ order. The vectorizers run on the host; the model stage predicts on the
 device its model was loaded on (``predict_arrays`` copies the record's
 vector there and runs ``raw_arrays``).
 
-Batch scoring through the compiled ``ScoringPlan`` (``score_batch``'s
-default engine) and the serving guardrails wait for the port of
-``serving/``, and raise; ``score_batch(engine="records")`` loops the
-per-record path.
+Batch scoring (``score_batch``) runs through the compiled ``ScoringPlan``
+(``serving/plan.py``: one CUDA graph per row bucket on the card) by
+default; ``engine="records"`` loops the per-record path. With
+``guardrails`` set, batches go through the plan's guarded path. Unlike the
+JAX package, a plan that cannot compile raises instead of falling back to
+the record loop.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ import numpy as np
 from ..features.feature import Feature, topo_layers
 from ..features.generator import FeatureGeneratorStage
 from ..types import FeatureType, Prediction
-from ..utils.ported import not_ported
 
 _log = logging.getLogger(__name__)
 
@@ -54,9 +55,6 @@ class ScoreFunction:
 
     def __init__(self, model, result_features: Optional[Sequence[Feature]]
                  = None, guardrails: Any = False):
-        if guardrails:
-            raise not_ported("ScoreFunction(guardrails=...), the serving "
-                             "guardrails", "serving/guard.py")
         self.model = model
         self.result_features = list(result_features
                                     or model.result_features)
@@ -69,6 +67,14 @@ class ScoreFunction:
         #: count and the per-feature breakdown make that visible)
         self.extract_errors = 0
         self.extract_error_fields: Dict[str, int] = {}
+        #: serving guardrails: False = off, True = defaults, or a dict of
+        #: ``ScoringPlan.with_guardrails`` kwargs (the drift sentinel is
+        #: not ported: pass ``{"sentinel": False}``). Guarded batches attach
+        #: a ``"_guard"`` entry to quarantined or invalidated rows and keep
+        #: the ledger on ``last_guard_result``.
+        self.guardrails = guardrails
+        self.last_guard_result = None
+        self._compiled_plan = None
 
     def _extract_raw(self, record: Dict[str, Any]
                      ) -> Dict[str, FeatureType]:
@@ -117,19 +123,59 @@ class ScoreFunction:
         return {f.name: _unbox(values[f.name])
                 for f in self.result_features}
 
+    # -- batch path --------------------------------------------------------
+    def _scoring_plan(self):
+        """The compiled ScoringPlan for this model, built once: a guarded
+        one of its own (guarded scoring keeps breaker state), else the
+        model's cached plan."""
+        if self._compiled_plan is None:
+            from ..serving import ScoringPlan
+            if self.guardrails:
+                kwargs = (self.guardrails
+                          if isinstance(self.guardrails, dict) else {})
+                self._compiled_plan = ScoringPlan(
+                    self.model).compile().with_guardrails(**kwargs)
+            else:
+                builder = getattr(self.model, "scoring_plan", None)
+                self._compiled_plan = builder() if callable(builder) \
+                    else ScoringPlan(self.model).compile()
+        return self._compiled_plan
+
     def score_batch(self, records: Sequence[Dict[str, Any]],
                     engine: str = "compiled") -> List[Dict[str, Any]]:
-        """Score many records. ``engine="records"`` runs the per-record
-        path on each; the default ``engine="compiled"`` (the fused
-        ``ScoringPlan``) is not ported and raises rather than taking the
-        record loop."""
+        """Score many records in one shot. ``engine="compiled"`` (the
+        default) runs the whole batch through the plan, one graph replay
+        per chunk on the card; ``engine="records"`` loops the per-record
+        path."""
         if engine not in ("compiled", "records"):
             raise ValueError(
                 f"engine must be 'compiled' or 'records', got {engine!r}")
-        if engine == "compiled":
-            raise not_ported("ScoreFunction.score_batch(engine='compiled'), "
-                             "the ScoringPlan", "serving/plan.py")
-        return [self(r) for r in records]
+        records = list(records)
+        if engine == "records" or not records:
+            return [self(r) for r in records]
+        plan = self._scoring_plan()
+        if self.guardrails:
+            return self._score_batch_guarded(plan, records)
+        from ..features.columns import Dataset, FeatureColumn
+        boxed = [self._extract_raw(r) for r in records]
+        ds = Dataset({
+            f.name: FeatureColumn.from_values(
+                f.ftype, [b[f.name] for b in boxed])
+            for f in self.raw_features})
+        scored = plan.score_raw_dataset(ds)
+        cols = [scored[f.name] for f in self.result_features]
+        return [{f.name: _unbox(col.boxed(i))
+                 for f, col in zip(self.result_features, cols)}
+                for i in range(len(records))]
+
+    def _score_batch_guarded(self, plan, records
+                             ) -> List[Dict[str, Any]]:
+        """Guarded batch path: admission, output guards and the breaker.
+        Quarantined or invalidated rows carry a ``"_guard"`` entry with
+        machine-readable reasons instead of NaN scores."""
+        result = plan.score_guarded(records)
+        self.last_guard_result = result
+        return result.boxed_rows([f.name for f in self.result_features])
 
 
 def score_function_for(model) -> ScoreFunction:

@@ -24,6 +24,7 @@ import torch
 from ..features.columns import FeatureColumn, PredictionColumn
 from ..stages.base import BinaryEstimator, BinaryModel
 from ..types import OPVector, Prediction, RealNN
+from ..utils.device import working_dtype
 
 __all__ = ["PredictionColumn", "Predictor", "PredictionModel",
            "ClassifierModel", "check_is_response_values", "num_classes",
@@ -127,7 +128,10 @@ class PredictionModel(BinaryModel):
         return type(self).raw_arrays is not PredictionModel.raw_arrays
 
     def transform_arrays(self, arrays):
-        return self.raw_arrays(arrays[-1])
+        """``raw_arrays`` of the feature vector in the working dtype (the
+        cast ``predict_arrays`` makes of a float64 host matrix)."""
+        X = arrays[-1]
+        return self.raw_arrays(X.to(working_dtype(X.device)))
 
 
 class ClassifierModel(PredictionModel):

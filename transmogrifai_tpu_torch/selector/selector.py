@@ -144,6 +144,11 @@ class SelectedModel(PredictionModel):
         self.inner = inner
         self.summary = summary
 
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The winner's device (None before it is set)."""
+        return getattr(self.inner, "device", None)
+
     def predict_arrays(self, X) -> PredictionColumn:
         return self.inner.predict_arrays(X)
 
@@ -152,6 +157,9 @@ class SelectedModel(PredictionModel):
 
     def supports_arrays(self) -> bool:
         return self.inner is not None and self.inner.supports_arrays()
+
+    def prediction_from_raw(self, raw: np.ndarray) -> PredictionColumn:
+        return self.inner.prediction_from_raw(raw)
 
 
 def models_x_folds(model) -> int:

@@ -28,11 +28,12 @@ transformers) round-trip only when importable (``module:qualname``);
 otherwise they are dropped and the generator falls back to by-name lookup;
 a ``LambdaTransformer`` whose function was dropped raises on load.
 
-Three parts of a JAX save have no meaning for torch and are left out: the
-AOT export of the compiled scoring programs, the plan-fingerprint sidecar
-of the HLO auditor, and the drift fingerprints that feed the serving
-sentinel (``serving/`` is not ported). So is the fault-injection hook of
-the fault runtime (``runtime/``).
+Three parts of a JAX save are left out. Two have no meaning for torch:
+the AOT export of the compiled XLA scoring programs and the
+plan-fingerprint sidecar of the HLO auditor. The third, the drift
+fingerprints that feed the serving sentinel, waits for the port of the
+sentinel (``serving/sentinel.py``). So does the fault-injection hook of
+the fault runtime (``runtime/faults.py``).
 """
 from __future__ import annotations
 

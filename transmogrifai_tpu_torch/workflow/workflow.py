@@ -11,7 +11,10 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
   training matrix born on the device;
 - ``WorkflowModel.score`` runs the JAX package's columnar host path, layer
   by layer through each stage's ``transform_columns``, with the winner's
-  ``predict_arrays`` on the device;
+  ``predict_arrays`` on the device; ``engine="compiled"`` runs the
+  serving ``ScoringPlan`` instead (``serving/plan.py``: the DAG's device
+  stages composed into one program, one CUDA graph per row bucket on the
+  card), compiled once per model and cached;
 - ``WorkflowModel.save`` and ``load`` (``workflow/persistence.py``) write
   and read the JAX package's directory layout; a load names the device
   the models predict on;
@@ -19,8 +22,8 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
 
 Estimator -> fitted-model DAG rewiring uses ``Feature.copy_with_new_stages``
 as the reference does (OpWorkflow.scala:347). Workflow-level CV, the raw
-feature filter, readers, resumed searches, the lint pre-flight and the
-compiled scoring engine are not ported and raise.
+feature filter, readers, resumed searches and the lint pre-flight are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -249,16 +252,24 @@ class WorkflowModel:
     def score(self, data: Any = None, keep_intermediate: bool = False,
               engine: str = "columnar") -> Dataset:
         """Transform new data through the fitted DAG (reference
-        OpWorkflowModel.score:253) on the columnar host path; the model
-        stage predicts on its device. ``data`` is a Dataset or record
-        iterable; response features may be absent. The compiled engine
-        (``engine="compiled"``) is not ported."""
-        if engine == "compiled":
-            raise not_ported("WorkflowModel.score(engine='compiled'), the "
-                             "ScoringPlan", "serving/plan.py")
-        if engine != "columnar":
+        OpWorkflowModel.score:253). ``data`` is a Dataset or record
+        iterable; response features may be absent. ``engine``:
+
+        - ``"columnar"`` (default): every stage's host ``transform_columns``,
+          layer by layer; the model stage predicts on its device;
+        - ``"compiled"``: the serving :class:`ScoringPlan` on the model's
+          device (``scoring_plan()``), compiled once and cached.
+        """
+        if engine not in ("columnar", "compiled"):
             raise ValueError(
                 f"engine must be 'columnar' or 'compiled', got {engine!r}")
+        if engine == "compiled":
+            if keep_intermediate:
+                raise ValueError(
+                    "keep_intermediate is not supported with "
+                    "engine='compiled' (intermediates stay inside the "
+                    "device program)")
+            return self.scoring_plan().score(data)
         raw = self.raw_features()
         ds = _generate_raw_data(raw, data, require_responses=False)
         layers = topo_layers(self.result_features)
@@ -268,6 +279,14 @@ class WorkflowModel:
         keep = [f.name for f in raw if f.name in scored] + \
                [f.name for f in self.result_features]
         return scored.select(list(dict.fromkeys(keep)))
+
+    def scoring_plan(self):
+        """The compiled serving plan of this model (``serving/plan.py``),
+        built and compiled on first use and cached on the model."""
+        if getattr(self, "_scoring_plan", None) is None:
+            from ..serving import ScoringPlan
+            self._scoring_plan = ScoringPlan(self).compile()
+        return self._scoring_plan
 
     def score_and_evaluate(self, data: Any, evaluator: Evaluator,
                            label_feature: Optional[Feature] = None,
