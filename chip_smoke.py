@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch port (``transmogrifai_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
-[--workflow-rows N] [--out FILE] [--k1-only | --workflow-only]
+[--workflow-rows N] [--cv-rows N] [--out FILE]
+[--k1-only | --workflow-only | --validate-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
-``--workflow-only`` runs phases 1, 2, 8, 8b, 8c and 9):
+``--workflow-only`` runs phases 1, 2, 8, 8b, 8c, 9 and 9b-9d,
+``--validate-only`` phases 1, 2 and 9b-9d, 9b with its own exact
+search):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -86,6 +89,23 @@ Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
      1e-5, metric matrices within 2e-3 (1e-2 at the GBT points of
      min_child_weight 1, where float32 breaks gain ties among the sparse
      hash columns otherwise than float64) and the same winner;
+ 9b. [validate] the validated DAG (transmogrify, ``.sanity_check``, the
+     default pool raced at eta 3 from 1/9) on phase 8's records behind
+     the raw feature filter: the filter's seconds and exclusions, the
+     checker's fit (seconds, kept and dropped columns, the bytes a warm
+     profiled re-fit copies each way: under 1 MB to the host), the race
+     by rung and family, K1 launches by family and C, K1 at rung 0's
+     sliced shape against its plain version (exact), the winner and
+     holdout AuPR within 0.005 of phase 8's exact search, 50 of 144 fold
+     fits; then a save, compiled against columnar scoring of the holdout
+     (bitwise), 1,001 served records (within 1e-6), no host fallback;
+ 9c. [workflow-cv] the same DAG under workflow-level CV and exact CV on
+     50,000 records (``--cv-rows``): pre-pass, per-fold refit seconds and
+     widths, the fold searches, K1 launches, winner and holdout AuPR;
+ 9d. [validate-agree] both DAGs on 5,000 records on the card and on the
+     CPU with phase 9's pool: equal filter results and checker columns,
+     checker statistics within 1e-6, the same rung decisions (a flip only
+     at a reported near tie), metrics as in phase 9, the same winner;
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -508,9 +528,10 @@ def small_models(device, num_rounds: int = 20, num_trees: int = 5,
 
 
 def time_family(est, record: dict) -> None:
-    """Wrap ``est``'s search so that each call records its seconds, its
-    candidates and the K1 launches by slot count it made (the call ends
-    in the read-back of its metric matrix)."""
+    """Wrap ``est``'s search so that its calls add up their seconds, their
+    candidates and the K1 launches by slot count they made (each call ends
+    in the read-back of its metric matrix; a racing search calls a family
+    once a rung)."""
     search = est.eval_fold_grid_arrays
 
     def timed(*args, **kwargs):
@@ -519,11 +540,16 @@ def time_family(est, record: dict) -> None:
         mm = search(*args, **kwargs)
         seconds = time.perf_counter() - t0
         by_c = collections.Counter(level_hist.launches_by_c) - before
-        record[type(est).__name__] = {
-            "seconds": seconds, "candidates": int(mm.size),
-            "models_x_folds_per_s": mm.size / seconds,
-            "k1_launches": sum(by_c.values()),
-            "k1_launches_by_c": dict(sorted(by_c.items()))}
+        rec = record.setdefault(type(est).__name__, {
+            "seconds": 0.0, "candidates": 0, "calls": 0,
+            "k1_launches_by_c": {}})
+        rec["seconds"] += seconds
+        rec["candidates"] += int(mm.size)
+        rec["calls"] += 1
+        rec["models_x_folds_per_s"] = rec["candidates"] / rec["seconds"]
+        merged = collections.Counter(rec["k1_launches_by_c"]) + by_c
+        rec["k1_launches_by_c"] = dict(sorted(merged.items()))
+        rec["k1_launches"] = sum(merged.values())
         return mm
     est.eval_fold_grid_arrays = timed
 
@@ -1785,6 +1811,636 @@ def phase_workflow_agree(device, rows: int = 5000, num_rounds: int = 20,
             "cpu_s": cpu["train_score_evaluate_s"]}
 
 
+# ---------------------------------------------------------------------------
+# the feature-validation slice: [validate], [workflow-cv], [validate-agree]
+# ---------------------------------------------------------------------------
+
+#: racing's fold-fit equivalents against the exact search's under the
+#: static ladder (eta 3 from 1/9) over the 48-point default pool:
+#: 48 x 1/3 + 16 x 1 + 6 x 3 = 50 of 48 x 3 = 144
+RACING_BUDGET_SHARE = 50 / 144
+#: racing's holdout AuPR against the exact search's on the same records
+#: and split: the JAX package's own acceptance for racing (bench.py)
+RACING_AUPR_TOL = 0.005
+#: card (statistics in float64 over the float32 matrix) against CPU
+#: (float64) SanityChecker statistics, relative to max(1, |CPU value|)
+CHECKER_STATS_TOL = 1e-6
+#: bytes a SanityChecker fit on the card may copy to the host: its
+#: statistic vectors and contingency tables, never the matrix
+CHECKER_DTOH_MAX = 1 << 20
+#: slot count of the K1 launch recorded at a racing rung's shape: the RF
+#: search's level 5 (its depth-6 and depth-12 trees reach it)
+RUNG_K1_SLOTS = 32
+
+
+def validated_workflow(device, records, models=None, validation="racing",
+                       workflow_cv=False, rff=True) -> dict:
+    """The validated Titanic DAG, as ``cli/gen.py`` builds it: the
+    example's features, ``transmogrify``, ``.sanity_check(survived)`` and
+    the selector over ``models`` (default: the whole default pool) under
+    3-fold stratified CV, ``validation`` exact or racing at the static
+    ladder, on the example's 75/25 split of ``records``; with the raw
+    feature filter against the holdout records when ``rff`` and
+    workflow-level CV when ``workflow_cv``. Returns the workflow, its
+    selector, the prediction feature, the families' search records
+    (``time_family``) and the holdout records."""
+    from transmogrifai_tpu_torch.checkers import RawFeatureFilter
+    from transmogrifai_tpu_torch.workflow import Workflow
+    dev = resolve_device(device)
+    train, test = titanic.stratified_split(records)
+    survived, features = titanic.build_features()
+    checked = features.sanity_check(survived)
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, stratify=True, models=models, device=dev,
+        validation=validation)
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families)
+    pred = sel.set_input(survived, checked).get_output()
+    wf = (Workflow(device=dev).set_result_features(survived, pred)
+          .set_input_records(train))
+    if rff:
+        wf = wf.with_raw_feature_filter(RawFeatureFilter(), score_data=test)
+    if workflow_cv:
+        wf = wf.with_workflow_cv()
+    return {"workflow": wf, "selector": sel, "prediction": pred,
+            "families": families, "holdout": test}
+
+
+def spy_checker_fits(fits: list, keep_inputs: bool):
+    """Patch ``SanityChecker.fit_columns`` (the class's: a raw feature
+    filter that rewires the DAG fits a clone) to record every fit: its
+    rows and columns, kept and dropped columns and its seconds
+    (synchronized on a card); with ``keep_inputs``, a function that fits
+    again on the same inputs. Returns the function that restores it."""
+    from transmogrifai_tpu_torch.checkers import SanityChecker
+    real = SanityChecker.fit_columns
+
+    def spied(self, cols):
+        X = cols[1].data
+        seen = {"rows": int(X.shape[0]), "cols": int(X.shape[1])}
+        t0 = time.perf_counter()
+        model = real(self, cols)
+        if isinstance(X, torch.Tensor) and X.device.type == "cuda":
+            torch.cuda.synchronize()
+        seen["seconds"] = time.perf_counter() - t0
+        seen["kept"] = len(model.kept_indices)
+        seen["dropped"] = seen["cols"] - seen["kept"]
+        if keep_inputs:
+            seen["refit"] = lambda: real(self, cols)
+        fits.append(seen)
+        return model
+    SanityChecker.fit_columns = spied
+    return lambda: setattr(SanityChecker, "fit_columns", real)
+
+
+def spy_level(seen: dict, num_slots: int):
+    """Patch ``trees._level_histograms`` to keep a copy of the inputs of
+    the first K1 launch at ``num_slots`` slots (in a racing search: the
+    RF family's, at rung 0 on its sliced rows). Returns the function that
+    restores it."""
+    real = trees._level_histograms
+
+    def record(design, slot, stats, C):
+        if C == num_slots and "design" not in seen:
+            seen.update(design=design, slot=slot.clone(),
+                        stats=stats.clone(), C=C)
+        return real(design, slot, stats, C)
+    trees._level_histograms = record
+    return lambda: setattr(trees, "_level_histograms", real)
+
+
+def _train_validated(v: dict, tag: str, profile: bool) -> dict:
+    """Train ``validated_workflow``'s workflow with K1's counts zeroed just
+    before and read just after, the checker's fits recorded, and the
+    holdout scored and evaluated. Returns the run's record (the model
+    under "model")."""
+    wf = v["workflow"]
+    dev = wf.device
+    fits: list = []
+    profile = profile and dev.type == "cuda"
+    restore = spy_checker_fits(fits, profile)
+    clear_design_cache()
+    validator.reset_family_profile()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    t0 = time.perf_counter()
+    try:
+        model = wf.train()
+    finally:
+        restore()
+    train_s = time.perf_counter() - t0
+    launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
+    if profile:
+        # the last fit again, warm, under the profiler: its copies each
+        # way (the fit in the train is the process's first, and pays the
+        # one-time imports and library set-up)
+        window: dict = {}
+        profiled(fits[-1]["refit"], window)
+        fits[-1].update(
+            warm_seconds=window["wall_ms"] / 1e3,
+            **{k: window[k] for k in ("dtoh_bytes", "htod_bytes",
+                                      "dtoh_copies", "htod_copies",
+                                      "device_busy_ms")})
+    for fit in fits:
+        fit.pop("refit", None)
+    evaluator = BinaryClassificationEvaluator(
+        label_col="survived", prediction_col=v["prediction"].name)
+    t0 = time.perf_counter()
+    _, metrics = model.score_and_evaluate(v["holdout"], evaluator)
+    score_s = time.perf_counter() - t0
+    selected = next(s for s in model.stages()
+                    if type(s).__name__ == "SelectedModel")
+    checker = next(s for s in model.stages()
+                   if type(s).__name__ == "SanityCheckerModel")
+    s = selected.summary
+    plan = wf.last_prepare_plan
+    search_label = next(k for k in plan.fit_seconds
+                        if k.startswith("ModelSelector("))
+    rff = wf.raw_feature_filter_results
+    out = {"train_s": train_s, "score_evaluate_s": score_s,
+           "train_seconds": dict(wf.last_train_seconds),
+           "search_s": plan.fit_seconds[search_label],
+           "checker_fits": fits, "kept_indices": checker.kept_indices,
+           "width_before_checker": fits[-1]["cols"],
+           "width_after_checker": len(checker.kept_indices),
+           "families": v["families"], "k1_launches": launches,
+           "k1_launches_by_c": by_c,
+           "winner": s.best_model_name, "winner_params": s.best_model_params,
+           "best_metric": s.best_validation_metric,
+           "holdout_AuPR": metrics.AuPR, "holdout_AuROC": metrics.AuROC,
+           "racing": dict(s.racing),
+           "trajectories": [(r.model_name, r.grid_index, r.rung,
+                             r.pruned_at, list(r.metric_values))
+                            for r in s.validation_results],
+           "rff_exclusions": [e.to_json() for e in rff.exclusions]
+           if rff is not None else None,
+           "rff_results": rff.to_json() if rff is not None else None,
+           "rff_seconds": wf.last_train_seconds.get("raw_feature_filter"),
+           "workflow_cv": dict(wf.last_workflow_cv),
+           "checker_lowered": any(
+               label.startswith("SanityCheckerModel(")
+               for label in plan.coverage.lowered),
+           "model": model, "summary": s}
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _log_search(tag: str, run: dict) -> None:
+    for name, rec in run["families"].items():
+        log(f"[{tag}] {name}: {rec['calls']} calls, {rec['candidates']} "
+            f"models x folds in {rec['seconds']:.2f} s; K1 launches "
+            f"{rec['k1_launches']}: " + " ".join(
+                f"C={c}:{k}" for c, k in rec["k1_launches_by_c"].items()))
+    log(f"[{tag}] winner {run['winner']} {run['winner_params']} mean AuPR "
+        f"{run['best_metric']:.6f}; holdout AuPR {run['holdout_AuPR']:.6f} "
+        f"AuROC {run['holdout_AuROC']:.6f}; K1 launches "
+        f"{run['k1_launches']}: " + " ".join(
+            f"C={c}:{k}" for c, k in run["k1_launches_by_c"].items()))
+
+
+def phase_validate(device, rows: int, exact=None, models=None,
+                   tag: str = "validate", seed: int = 42,
+                   profile: bool = True) -> dict:
+    """[validate]: ``rows`` synthetic Titanic records through the
+    validated DAG (``validated_workflow``) under racing at the static
+    ladder, behind the raw feature filter against the holdout records;
+    then ``score_and_evaluate`` of the holdout, a save, a reload on the
+    card scoring the holdout through the compiled plan and the columnar
+    path, and SAMPLE_PASSENGER and 1,000 holdout records served one at a
+    time through ``load_score_function``. Prints the filter's seconds and
+    exclusions, the checker's fit (seconds, columns kept and dropped,
+    bytes copied to the host, profiled on a card), the search by family
+    and rung, candidates and pruned counts per rung, the budget spent,
+    K1 launches by family and C, the winner and holdout AuPR / AuROC
+    beside the exact search's (``exact``: phase 8's record on the same
+    records and split, else an exact run here). K1 at the racing rung's
+    sliced shape is held against its plain version. Fails unless the
+    compiled scores equal the columnar ones bit for bit, every served
+    record is within SERVE_SCORE_TOL of the batch score, no scoring batch
+    fell back to the host, the checker's gather ran in the prepare plan
+    on the device, its fit copied under CHECKER_DTOH_MAX bytes to the
+    host (profiled on a card), and, over the default pool, racing spent
+    at most RACING_BUDGET_SHARE of full CV and its holdout AuPR is within
+    RACING_AUPR_TOL of the exact search's; on a card every tree family
+    must launch K1."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.runtime import telemetry
+    from transmogrifai_tpu_torch.workflow.persistence import load_model
+    dev = resolve_device(device)
+    t_phase = time.perf_counter()
+    records = titanic.synthetic_titanic(rows, seed=seed)
+    v = validated_workflow(dev, records, models=models)
+    pred = v["prediction"].name
+    rung_k1: dict = {}
+    restore = spy_level(rung_k1, RUNG_K1_SLOTS)
+    try:
+        run = _train_validated(v, tag, profile)
+    finally:
+        restore()
+    out = {k: val for k, val in run.items()
+           if k not in ("model", "summary", "rff_results")}
+    out["rows"] = rows
+    racing = run["racing"]
+    out["rung_profile"] = list(v["selector"].validator.rung_profile)
+    fit = run["checker_fits"][-1]
+    log(f"[{tag}] {rows} records; raw feature filter {run['rff_seconds']:.3f}"
+        f" s, exclusions {json.dumps(run['rff_exclusions'])}; train "
+        f"{run['train_s']:.2f} s: " + json.dumps(
+            {k: round(val, 3) for k, val in run["train_seconds"].items()}))
+    log(f"[{tag}] SanityChecker fit on {dev} over {fit['rows']} x "
+        f"{fit['cols']}: {fit['seconds']:.3f} s in the train, "
+        f"{fit.get('warm_seconds', float('nan')):.3f} s again warm under the"
+        f" profiler (device busy {fit.get('device_busy_ms', float('nan')):.3f}"
+        f" ms); kept {fit['kept']}, dropped {fit['dropped']}; copied to the "
+        f"host {fit.get('dtoh_bytes', 'not profiled')} bytes in "
+        f"{fit.get('dtoh_copies', '-')} copies, up "
+        f"{fit.get('htod_bytes', '-')} bytes; gather on the device in the "
+        f"prepare plan: {run['checker_lowered']}")
+    log(f"[{tag}] search (selector fit) {run['search_s']:.2f} s; racing: "
+        f"{racing.get('candidatesTotal')} candidates, "
+        f"{racing.get('candidatesPruned')} pruned, budget "
+        f"{racing.get('budgetSpentFoldFits')} of "
+        f"{racing.get('budgetFullCvFoldFits')} fold fits")
+    for row, prof in zip(racing.get("rungs", []), out["rung_profile"]):
+        log(f"[{tag}] rung {row['rung']}: budget {row['budgetFraction']}, "
+            f"{row['folds']} folds x {row['rowFraction']} rows "
+            f"(matrix {prof['rows']} rows), {row['candidates']} "
+            f"candidates, {row['promoted']} promoted, {prof['seconds']:.2f} s:"
+            + " ".join(f" {k} {s_:.2f} s"
+                       for k, s_ in prof["familySeconds"].items()))
+    _log_search(tag, run)
+    if exact is None:
+        ex = _train_validated(validated_workflow(dev, records, models=models,
+                                                 validation="exact"),
+                              tag + "-exact", profile=False)
+        exact = {"holdout_AuPR": ex["holdout_AuPR"], "winner": ex["winner"],
+                 "search_s": ex["search_s"],
+                 "source": "an exact search of the validated DAG here"}
+    out["exact"] = exact
+    out["aupr_gap_vs_exact"] = run["holdout_AuPR"] - exact["holdout_AuPR"]
+    log(f"[{tag}] exact search ({exact['source']}): holdout AuPR "
+        f"{exact['holdout_AuPR']:.6f}, winner {exact['winner']}, search "
+        f"{exact['search_s']:.2f} s; racing - exact AuPR "
+        f"{out['aupr_gap_vs_exact']:+.6f} (tol {RACING_AUPR_TOL})")
+
+    # K1 at a racing rung's sliced shape, against its plain version
+    if dev.type == "cuda":
+        design = rung_k1["design"]
+        rung0_rows = out["rung_profile"][0]["rows"]
+        out["rung_k1_case"] = k1_case(
+            f"racing rung 0 RF level C={RUNG_K1_SLOTS} ({design.n} sliced "
+            f"rows of {rung0_rows})", design.ids, design.offsets,
+            rung_k1["slot"], rung_k1["stats"], rung_k1["C"],
+            design.total_bins, design.hist_plan(rung_k1["stats"].shape[1]),
+            exact=True)
+        if design.n != rung0_rows:
+            raise AssertionError(f"[{tag}] the recorded K1 launch ran on "
+                                 f"{design.n} rows, not rung 0's "
+                                 f"{rung0_rows}")
+    rung_k1.clear()
+
+    # save, reload, compiled against columnar, serve records one at a time
+    holdout = v["holdout"]
+    served_records = [titanic.SAMPLE_PASSENGER] + list(holdout[:1000])
+    tmp = tempfile.mkdtemp(prefix="validate_")
+    before = telemetry.counters()
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        run["model"].save(path)
+        out["save_s"] = time.perf_counter() - t0
+        loaded = load_model(path, device=dev)
+        t0 = time.perf_counter()
+        compiled = loaded.score(holdout, engine="compiled")
+        out["score_compiled_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        columnar = loaded.score(holdout)
+        out["score_columnar_s"] = time.perf_counter() - t0
+        plan = loaded.scoring_plan()
+        out["plan_checker_lowered"] = any(
+            label.startswith("SanityCheckerModel(")
+            for label in plan.coverage.lowered)
+        fn = load_score_function(path, device=dev)
+        served, ms = _serve_all(fn, served_records, pred, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = telemetry.counters()
+    out["host_fallback_batches"] = after.get(
+        "serving_host_fallback_batches", 0) - before.get(
+        "serving_host_fallback_batches", 0)
+    out["compiled_equals_columnar"] = bool(
+        np.array_equal(_prob(compiled, pred), _prob(columnar, pred))
+        and np.array_equal(compiled[pred].raw_prediction,
+                           columnar[pred].raw_prediction))
+    batch = [dict(columnar[pred].boxed(i).value)
+             for i in range(len(served_records) - 1)]
+    out["max_abs_diff_served"] = _max_gap(served[1:], batch)
+    out.update(serve_ms_p50=float(np.percentile(ms, 50)),
+               serve_ms_p99=float(np.percentile(ms, 99)),
+               serve_ms_mean=float(ms.mean()))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{tag}] saved in {out['save_s']:.3f} s; {len(holdout)} holdout "
+        f"records compiled {out['score_compiled_s']:.3f} s, columnar "
+        f"{out['score_columnar_s']:.3f} s, bitwise equal "
+        f"{out['compiled_equals_columnar']}; checker gather in the scoring "
+        f"plan on the device: {out['plan_checker_lowered']}; "
+        f"{len(served_records)} records served one at a time: p50 "
+        f"{out['serve_ms_p50']:.3f} ms, p99 {out['serve_ms_p99']:.3f} ms, "
+        f"max |served - batch| {out['max_abs_diff_served']:.3e} (tol "
+        f"{SERVE_SCORE_TOL}); host fallback batches "
+        f"{out['host_fallback_batches']}; phase {out['seconds']:.1f} s")
+    if not out["compiled_equals_columnar"]:
+        raise AssertionError(f"[{tag}] compiled scores differ from "
+                             f"columnar")
+    if out["max_abs_diff_served"] > SERVE_SCORE_TOL:
+        raise AssertionError(f"[{tag}] served records differ from the "
+                             f"batch score")
+    if out["host_fallback_batches"]:
+        raise AssertionError(f"[{tag}] scoring fell back to the host")
+    if not (run["checker_lowered"] and out["plan_checker_lowered"]):
+        raise AssertionError(f"[{tag}] the checker's gather did not run "
+                             f"on the device")
+    if fit.get("dtoh_bytes", 0) >= CHECKER_DTOH_MAX:
+        raise AssertionError(f"[{tag}] the checker's fit copied "
+                             f"{fit['dtoh_bytes']} bytes to the host")
+    if not racing.get("raced"):
+        raise AssertionError(f"[{tag}] the search did not race")
+    if models is None:
+        if racing["budgetSpentFoldFits"] > RACING_BUDGET_SHARE * \
+                racing["budgetFullCvFoldFits"] + 1e-9:
+            raise AssertionError(f"[{tag}] racing spent "
+                                 f"{racing['budgetSpentFoldFits']} fold fits")
+        if abs(out["aupr_gap_vs_exact"]) > RACING_AUPR_TOL:
+            raise AssertionError(f"[{tag}] racing's holdout AuPR is "
+                                 f"{out['aupr_gap_vs_exact']:+.6f} off the "
+                                 f"exact search's")
+    if dev.type == "cuda":
+        idle = [f for f, rec in run["families"].items()
+                if f in TREE_FAMILIES and rec["k1_launches"] == 0]
+        if run["k1_launches"] == 0 or idle:
+            raise AssertionError(
+                f"[{tag}] K1 never launched by {idle or 'the search'}")
+    if not 0.5 < run["holdout_AuROC"] <= 1.0:
+        raise AssertionError(f"[{tag}] holdout evaluation is off")
+    return out
+
+
+def phase_workflow_cv(device, rows: int, models=None,
+                      tag: str = "workflow-cv") -> dict:
+    """[workflow-cv]: the validated DAG of ``[validate]`` with
+    ``with_workflow_cv()`` and exact CV on ``rows`` records: the
+    prepare plan fits the vectorizers once, the checker is refit per fold
+    on the card and each fold's matrix searched on its own. Prints the
+    pre-pass seconds, each fold's refit seconds and matrix width, the
+    search seconds, K1 launches, the winner and holdout AuPR. Fails
+    unless the search covered every candidate on three folds and, on a
+    card, every tree family launched K1."""
+    dev = resolve_device(device)
+    t_phase = time.perf_counter()
+    records = titanic.synthetic_titanic(rows, seed=42)
+    v = validated_workflow(dev, records, models=models, validation="exact",
+                           workflow_cv=True)
+    run = _train_validated(v, tag, profile=False)
+    out = {k: val for k, val in run.items()
+           if k not in ("model", "summary", "rff_results")}
+    out["rows"] = rows
+    cv = run["workflow_cv"]
+    G = len(run["summary"].validation_results)
+    mxf = sum(len(r.metric_values)
+              for r in run["summary"].validation_results)
+    out["models_x_folds"] = mxf
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{tag}] {rows} records; train {run['train_s']:.2f} s: "
+        + json.dumps({k: round(val, 3)
+                      for k, val in run["train_seconds"].items()}))
+    log(f"[{tag}] pre-pass {cv['prepass_seconds']:.3f} s; per-fold checker "
+        f"refit seconds " + ", ".join(f"{s_:.3f}"
+                                      for s_ in cv["fold_refit_seconds"])
+        + f"; fold train matrices {list(zip(cv['fold_train_rows'], cv['fold_widths']))}"
+        f" (rows, width); fold search {cv['search_seconds']:.2f} s; final "
+        f"checker keeps {run['width_after_checker']} of "
+        f"{run['width_before_checker']}")
+    _log_search(tag, run)
+    log(f"[{tag}] models x folds {mxf}; phase {out['seconds']:.1f} s")
+    if mxf != 3 * G or len(cv.get("fold_widths", ())) != 3:
+        raise AssertionError(f"[{tag}] the fold search covered {mxf} models"
+                             f" x folds over {cv.get('fold_widths')}")
+    if dev.type == "cuda":
+        idle = [f for f, rec in run["families"].items()
+                if f in TREE_FAMILIES and rec["k1_launches"] == 0]
+        if run["k1_launches"] == 0 or idle:
+            raise AssertionError(
+                f"[{tag}] K1 never launched by {idle or 'the search'}")
+    if not 0.5 < run["holdout_AuROC"] <= 1.0:
+        raise AssertionError(f"[{tag}] holdout evaluation is off")
+    return out
+
+
+def spy_prunes(racer, rungs: list) -> None:
+    """Wrap a racing validator's ``_prune_rung`` to record, at each rung
+    boundary, every contender's mean metric and the kept candidates, by
+    (family, grid) index."""
+    real = racer._prune_rung
+
+    def spied(contenders, rung):
+        means = {(rc.fam, rc.gi): rc.mean() for rc in contenders}
+        keep = real(contenders, rung)
+        rungs.append({"rung": rung, "means": means,
+                      "kept": sorted((rc.fam, rc.gi) for rc in contenders
+                                     if rc.alive)})
+        return keep
+    racer._prune_rung = spied
+
+
+def _candidate_tol(result) -> float:
+    return (GBT_SMALL_LEAF_TOL if result.model_name == "GBTClassifier"
+            and result.params.get("min_child_weight", 1.0) < 10
+            else AGREE_TOL)
+
+
+def _agree_checker(card: dict, cpu: dict, tag: str) -> dict:
+    """The two runs' final checkers: kept indices equal, every statistic
+    within CHECKER_STATS_TOL of the CPU's relative to max(1, |CPU|)."""
+    stats = [next(s for s in r["model"].stages()
+                  if type(s).__name__ == "SanityCheckerModel"
+                  ).summary.column_stats for r in (card, cpu)]
+    worst = 0.0
+    for a, b in zip(*stats):
+        for key in ("variance", "mean", "min", "max", "corr_label",
+                    "cramers_v", "max_rule_confidence", "support"):
+            x, y = getattr(a, key), getattr(b, key)
+            if x is None or y is None or (np.isnan(x) and np.isnan(y)):
+                if (x is None) != (y is None):
+                    raise AssertionError(f"[{tag}] {b.name} {key}: {x} "
+                                         f"vs {y}")
+                continue
+            worst = max(worst, abs(x - y) / max(1.0, abs(y)))
+    same = card["kept_indices"] == cpu["kept_indices"]
+    log(f"[{tag}] checker kept {len(cpu['kept_indices'])} of "
+        f"{len(stats[1])} on both: {same}; max relative statistic gap "
+        f"{worst:.3e} (tol {CHECKER_STATS_TOL})")
+    if not same or worst > CHECKER_STATS_TOL:
+        raise AssertionError(f"[{tag}] card and CPU checkers disagree")
+    return {"kept_equal": same, "stats_max_rel_gap": worst}
+
+
+def _agree_matrices(card: dict, cpu: dict, tag: str) -> dict:
+    """Per-candidate metrics of two runs whose candidates reached the same
+    rung (all of them under exact CV): within AGREE_TOL
+    (GBT_SMALL_LEAF_TOL at the GBT points of min_child_weight < 10); the
+    same winner unless the CPU's top two finalist means lie within
+    AGREE_TOL."""
+    res = [r["summary"].validation_results for r in (card, cpu)]
+    gaps, worst = {}, 0.0
+    for a, b in zip(*res):
+        if (a.rung, a.pruned_at, len(a.metric_values)) != \
+                (b.rung, b.pruned_at, len(b.metric_values)):
+            continue
+        gap = float(np.max(np.abs(np.subtract(a.metric_values,
+                                              b.metric_values))))
+        worst = max(worst, gap)
+        gaps[f"{b.model_name}[{b.grid_index}]"] = gap
+        if gap > _candidate_tol(b):
+            raise AssertionError(f"[{tag}] {b.model_name}[{b.grid_index}]"
+                                 f" differs by {gap:.3e} card to CPU")
+    finals = sorted((r.mean_metric for r in res[1]
+                     if r.pruned_at is None), reverse=True)
+    close = len(finals) > 1 and finals[0] - finals[1] < AGREE_TOL
+    same = (card["winner"], card["winner_params"]) == \
+        (cpu["winner"], cpu["winner_params"])
+    log(f"[{tag}] max |card - cpu| metric {worst:.3e} over {len(gaps)} "
+        f"candidates; winner card {card['winner']} {card['winner_params']}"
+        f" cpu {cpu['winner']} {cpu['winner_params']}"
+        + (" (top two within tol)" if close else ""))
+    if not (same or close):
+        raise AssertionError(f"[{tag}] card and CPU pick other winners")
+    return {"metric_max_abs_diff": worst, "same_winner": same,
+            "metric_diff_by_candidate": gaps}
+
+
+def _agree_prunes(card_rungs: list, cpu_rungs: list, results,
+                  tag: str) -> dict:
+    """Racing's rung decisions on the card and on the CPU: each rung's
+    contenders' means within their metric tolerance, the same candidates
+    kept. A candidate kept on one side only is allowed, and reported,
+    only at a near tie: its CPU mean within its tolerance of the CPU's
+    cut (the last kept candidate's mean)."""
+    by_index = {(fi, gi): r for fi, gi, r in results}
+    flips = []
+    for a, b in zip(card_rungs, cpu_rungs):
+        for key in set(a["means"]) & set(b["means"]):
+            x, y = a["means"][key], b["means"][key]
+            if np.isfinite(y) and abs(x - y) > _candidate_tol(by_index[key]):
+                raise AssertionError(f"[{tag}] rung {b['rung']} mean of "
+                                     f"{key} differs: {x} vs {y}")
+        if a["kept"] == b["kept"]:
+            continue
+        cut = min(b["means"][k] for k in b["kept"])
+        for key in sorted(set(a["kept"]) ^ set(b["kept"])):
+            r = by_index[key]
+            gap = abs(b["means"].get(key, np.nan) - cut)
+            flips.append({"rung": b["rung"],
+                          "candidate": f"{r.model_name}[{r.grid_index}]",
+                          "cpu_mean": b["means"].get(key),
+                          "cpu_cut": cut, "gap": gap})
+            if not gap <= _candidate_tol(r):
+                raise AssertionError(f"[{tag}] rung {b['rung']} keeps "
+                                     f"other candidates: {flips[-1]}")
+    log(f"[{tag}] rung decisions: " + "; ".join(
+        f"rung {b['rung']} kept {len(b['kept'])} of {len(b['means'])}"
+        for b in cpu_rungs) + f"; near-tie flips {json.dumps(flips)}")
+    return {"prune_flips": flips,
+            "same_prunes": all(a["kept"] == b["kept"]
+                               for a, b in zip(card_rungs, cpu_rungs))}
+
+
+def phase_validate_agree(device, rows: int = 5000, num_rounds: int = 20,
+                         num_trees: int = 5) -> dict:
+    """[validate-agree]: the validated DAG on ``rows`` records on the card
+    (float32) and on the CPU (float64) with the card-against-CPU pool,
+    first racing behind the raw feature filter, then exact under
+    workflow-level CV: equal filter results; the checkers' kept indices
+    equal and their statistics within CHECKER_STATS_TOL; racing's rung
+    decisions equal but for reported near ties (``_agree_prunes``); the
+    metrics within AGREE_TOL (GBT_SMALL_LEAF_TOL at the GBT points of
+    min_child_weight < 10) and the same winner (``_agree_matrices``);
+    under workflow CV each fold's refit checker as wide on both."""
+    out = {}
+    runs = []
+    t_phase = time.perf_counter()
+    for where in (device, "cpu"):
+        dev = resolve_device(where)
+        records = titanic.synthetic_titanic(rows, seed=42)
+        v = validated_workflow(dev, records, models=small_models(
+            dev, num_rounds, num_trees))
+        rungs: list = []
+        spy_prunes(v["selector"].validator, rungs)
+        run = _train_validated(v, f"validate-agree-{dev.type}", False)
+        run["rungs"] = rungs
+        fams = {est.uid: fi
+                for fi, (est, _) in enumerate(v["selector"].models)}
+        run["pool"] = [(fams[r.model_uid], r.grid_index, r)
+                       for r in run["summary"].validation_results]
+        t0 = time.perf_counter()
+        cv = _train_validated(validated_workflow(
+            dev, records, models=small_models(dev, num_rounds, num_trees),
+            validation="exact", workflow_cv=True, rff=False),
+            f"validate-agree-cv-{dev.type}", False)
+        runs.append((run, cv))
+        log(f"[validate-agree] {dev}: racing train {run['train_s']:.2f} s, "
+            f"workflow-CV train {cv['train_s']:.2f} s "
+            f"({time.perf_counter() - t0:.2f} s with its scoring)")
+    (card, card_cv), (cpu, cpu_cv) = runs
+    if card["rff_results"] != cpu["rff_results"]:
+        raise AssertionError("[validate-agree] the raw feature filters' "
+                             "results differ")
+    out["rff_equal"] = True
+    out["checker"] = _agree_checker(card, cpu, "validate-agree")
+    out["prunes"] = _agree_prunes(card["rungs"], cpu["rungs"], cpu["pool"],
+                                  "validate-agree")
+    out["racing"] = _agree_matrices(card, cpu, "validate-agree")
+    widths = [r["workflow_cv"]["fold_widths"] for r in (card_cv, cpu_cv)]
+    log(f"[validate-agree] workflow-CV fold widths card {widths[0]} cpu "
+        f"{widths[1]}")
+    if widths[0] != widths[1]:
+        raise AssertionError("[validate-agree] the per-fold checkers keep "
+                             "other columns")
+    out["workflow_cv_checker"] = _agree_checker(card_cv, cpu_cv,
+                                                "validate-agree-cv")
+    out["workflow_cv"] = _agree_matrices(card_cv, cpu_cv,
+                                         "validate-agree-cv")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card_s"] = card["train_s"] + card_cv["train_s"]
+    out["cpu_s"] = cpu["train_s"] + cpu_cv["train_s"]
+    log(f"[validate-agree] phase {out['seconds']:.1f} s (trains: card "
+        f"{out['card_s']:.1f} s, cpu {out['cpu_s']:.1f} s)")
+    return out
+
+
+def exact_of(wf_run: dict) -> dict:
+    """Phase 8's exact search as [validate]'s reference: the same records
+    and split (``--workflow-rows``, seed 42); its DAG has no SanityChecker
+    and no raw feature filter."""
+    return {"holdout_AuPR": wf_run["holdout_AuPR"],
+            "winner": wf_run["winner"], "search_s": wf_run["search_s"],
+            "source": "phase 8 [workflow], the same records and split, "
+                      "without the checker and the filter"}
+
+
+def phase_validation(device, rows: int, cv_rows: int, exact=None) -> dict:
+    """[validate], [workflow-cv] and [validate-agree] in turn."""
+    return {"validate": phase_validate(device, rows, exact=exact),
+            "workflow_cv": phase_workflow_cv(device, cv_rows),
+            "validate_agree": phase_validate_agree(device)}
+
+
 def write_out(path, result: dict) -> None:
     """Every measurement as JSON at ``path``, when one is given."""
     if not path:
@@ -1806,8 +2462,15 @@ def main(argv=None) -> int:
     ap.add_argument("--workflow-rows", type=int, default=200_000,
                     help="records of the Titanic workflow phase")
     ap.add_argument("--workflow-only", action="store_true",
-                    help="run only the build and the two workflow phases "
+                    help="run only the build and the workflow phases "
                          "and print their JSON last")
+    ap.add_argument("--cv-rows", type=int, default=50_000,
+                    help="records of the workflow-CV phase")
+    ap.add_argument("--validate-only", action="store_true",
+                    help="run only the build and the feature-validation "
+                         "phases ([validate] with its own exact search, "
+                         "[workflow-cv], [validate-agree]) and print "
+                         "their JSON last")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1816,19 +2479,29 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     info = phase_device()
     phase_build()
+    if args.validate_only:
+        checks = phase_validation(device, args.workflow_rows, args.cv_rows)
+        write_out(args.out, {"device": info, **checks})
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps(checks, default=str))
+        return 0
     if args.workflow_only:
         wf_run = phase_workflow(device, args.workflow_rows)
         serve_saved, serve_compiled = phase_serving(wf_run)
         wf_agree = phase_workflow_agree(device)
+        checks = phase_validation(device, args.workflow_rows, args.cv_rows,
+                                  exact=exact_of(wf_run))
         write_out(args.out, {"device": info, "workflow": wf_run,
                              "serve_saved": serve_saved,
                              "serve_compiled": serve_compiled,
-                             "workflow_agree": wf_agree})
+                             "workflow_agree": wf_agree, **checks})
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(info["smi"])
         print(json.dumps({"workflow": wf_run, "serve_saved": serve_saved,
                           "serve_compiled": serve_compiled,
-                          "workflow_agree": wf_agree}, default=str))
+                          "workflow_agree": wf_agree, **checks},
+                         default=str))
         return 0
     X, y = make_data(args.rows, COLS)
     k1 = phase_k1(device, X)
@@ -1870,6 +2543,10 @@ def main(argv=None) -> int:
     # record by record, then through the compiled plan and the server
     serve_saved, serve_compiled = phase_serving(wf_run)
     wf_agree = phase_workflow_agree(device)
+    # the feature-validation paths: the validated DAG raced at phase 8's
+    # size (its exact search is phase 8's), workflow CV, card against CPU
+    checks = phase_validation(device, args.workflow_rows, args.cv_rows,
+                              exact=exact_of(wf_run))
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -1885,7 +2562,9 @@ def main(argv=None) -> int:
         "RF search, depth-12 group (6 points x 3 folds), 5 trees",
         search_slice(device, X_s, y_s))
     clear_design_cache()
-    cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"]
+    validate, wf_cv = checks["validate"], checks["workflow_cv"]
+    cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
+        validate["rung_k1_case"]]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -1905,13 +2584,24 @@ def main(argv=None) -> int:
                  for name, rec in wf_run["families"].items()},
              "launches_serve_saved": serve_saved["k1_launches"],
              "launches_serve_compiled": serve_compiled["k1_launches"],
+             "launches_validate": validate["k1_launches"],
+             "launches_validate_by_c": validate["k1_launches_by_c"],
+             "launches_validate_by_family": {
+                 name: rec["k1_launches"]
+                 for name, rec in validate["families"].items()},
+             "launches_workflow_cv": wf_cv["k1_launches"],
+             "launches_workflow_cv_by_c": wf_cv["k1_launches_by_c"],
+             "launches_workflow_cv_by_family": {
+                 name: rec["k1_launches"]
+                 for name, rec in wf_cv["families"].items()},
              "cases": cases}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "linear_ops": linear_ops, "lbfgs": lbfgs,
                          "agree": agree, "workflow": wf_run,
                          "serve_saved": serve_saved,
                          "serve_compiled": serve_compiled,
-                         "workflow_agree": wf_agree, "profile": prof,
+                         "workflow_agree": wf_agree, **checks,
+                         "profile": prof,
                          "seconds": time.perf_counter() - t_start})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(info["smi"])

@@ -2,9 +2,10 @@
 families of the default pool), card-against-CPU, L-BFGS and
 single-record phases, the linear search slice and the forest-shape K1
 inputs (random and a real level's slots), the workflow's save-and-serve
-and compiled-serving phases at a tiny size on an explicit CPU device, the
-compiled-serving phase's wiring into both runs, and the script's refusal
-to run without a card."""
+and compiled-serving phases and the feature-validation phases
+([validate], [workflow-cv], [validate-agree]) at a tiny size on an
+explicit CPU device, the serving and validation phases' wiring into the
+runs, and the script's refusal to run without a card."""
 import os
 import subprocess
 import sys
@@ -309,10 +310,71 @@ def test_serve_compiled_is_wired_in(monkeypatch, capsys):
                         or {"k1_launches": 0})
     monkeypatch.setattr(chip_smoke, "phase_workflow_agree",
                         lambda dev: calls.append(("9", 0)) or {})
+    monkeypatch.setattr(
+        chip_smoke, "phase_validation",
+        lambda dev, rows, cv_rows, exact=None: calls.append(
+            ("validation", rows, cv_rows, exact["source"][:7]))
+        or {"validate": {}, "workflow_cv": {}, "validate_agree": {}})
+    monkeypatch.setattr(chip_smoke, "exact_of",
+                        lambda wf: {"source": "phase 8 " + str(wf["rows"])})
     assert chip_smoke.main(["--workflow-only"]) == 0
-    assert calls == [("8b", 1000), ("8c", 1500), ("9", 0)]
+    assert calls == [("8b", 1000), ("8c", 1500), ("9", 0),
+                     ("validation", 200_000, 50_000, "phase 8")]
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["serve_compiled"] == {"k1_launches": 0}
+    assert inspect.getsource(chip_smoke.main).count(
+        "phase_validation(") == 3
+
+
+def _tiny_pool():
+    return chip_smoke.small_models("cpu", num_rounds=2, num_trees=2)
+
+
+def test_validate_phase():
+    """[validate] on the CPU at a tiny size (the four families with small
+    trees): the validated DAG races behind the raw feature filter, its
+    exact search runs alongside, the checker's gather runs on the device
+    in both plans, compiled scores equal columnar bit for bit, served
+    records equal the batch, no batch falls back to the host."""
+    out = chip_smoke.phase_validate("cpu", 900, models=_tiny_pool())
+    assert out["racing"]["raced"] and out["racing"]["candidatesPruned"] > 0
+    assert [r["rung"] for r in out["rung_profile"]] == [0, 1, 2]
+    assert out["rung_profile"][0]["rows"] < out["rung_profile"][1]["rows"]
+    assert out["exact"]["source"].startswith("an exact search")
+    assert out["compiled_equals_columnar"] and out["host_fallback_batches"] == 0
+    assert out["max_abs_diff_served"] <= 1e-12
+    assert out["checker_lowered"] and out["plan_checker_lowered"]
+    fit, = out["checker_fits"]
+    assert fit["cols"] > 500 and 0 < fit["kept"] < fit["cols"]
+    assert out["width_before_checker"] == fit["cols"]
+    assert out["rff_exclusions"] == [] and out["rff_seconds"] > 0
+    assert out["k1_launches"] == 0 and "rung_k1_case" not in out
+    assert sum(r["calls"] for r in out["families"].values()) >= 8
+
+
+def test_workflow_cv_phase():
+    """[workflow-cv] on the CPU: the checker refit on each fold's rows,
+    each fold searched at its own width."""
+    out = chip_smoke.phase_workflow_cv("cpu", 900, models=_tiny_pool())
+    cv = out["workflow_cv"]
+    assert len(cv["fold_widths"]) == 3 and out["models_x_folds"] == 60
+    assert len(out["checker_fits"]) == 4      # three folds, then the final
+    assert [f["cols"] for f in out["checker_fits"]] == [
+        out["width_before_checker"]] * 4
+    assert cv["fold_widths"] == [f["kept"] for f in out["checker_fits"][:3]]
+
+
+def test_validate_agree_phase():
+    """[validate-agree] with the CPU on both sides: equal filters,
+    checkers, rung decisions, metrics and winners."""
+    got = chip_smoke.phase_validate_agree("cpu", 600, num_rounds=2,
+                                          num_trees=2)
+    assert got["rff_equal"] and got["checker"]["kept_equal"]
+    assert got["checker"]["stats_max_rel_gap"] == 0.0
+    assert got["prunes"] == {"prune_flips": [], "same_prunes": True}
+    for key in ("racing", "workflow_cv"):
+        assert got[key]["metric_max_abs_diff"] == 0.0
+        assert got[key]["same_winner"]
 
 
 def test_workflow_agree_phase():

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port as a package: it runs on CUDA unless the caller
-asks for the CPU, it imports neither JAX nor the JAX package, and every
-part of the JAX package's workflow and serving surface it has not ported
-raises NotImplementedError naming the JAX module it waits for."""
+asks for the CPU, it imports neither JAX nor the JAX package, every part
+of the JAX package's workflow and serving surface it has not ported
+raises NotImplementedError naming the JAX module it waits for, and the
+feature-validation and selection options it has ported run."""
 import ast
 import os
 import re
@@ -19,6 +20,7 @@ from transmogrifai_tpu_torch.models.linear import (
 from transmogrifai_tpu_torch.models.trees import (
     DecisionTreeClassifier, GBTClassifier, GBTClassifierModel,
     RandomForestClassifier, TreeEnsembleClassifierModel)
+from transmogrifai_tpu_torch.checkers import RawFeatureFilter
 from transmogrifai_tpu_torch.examples import titanic
 from transmogrifai_tpu_torch.features import FeatureBuilder
 from transmogrifai_tpu_torch.local import ScoreFunction, load_score_function
@@ -76,6 +78,8 @@ def _no_card(monkeypatch):
     lambda: Workflow(),
     lambda: PreparePlan([_feature(Real, "x")]),
     lambda: titanic.default_selector(),
+    lambda: titanic.default_selector(validation="racing"),
+    lambda: BinaryClassificationModelSelector.with_train_validation_split(),
     lambda: titanic.run(titanic.synthetic_titanic(40)),
     lambda: WorkflowModel.load("model"),
     lambda: load_model("model"),
@@ -148,17 +152,11 @@ UNPORTED = [
     (lambda: transmogrify([_feature(Geolocation, "g")]), "ops/geo.py"),
     (lambda: transmogrify([_feature(TextList, "t")]), "ops/text.py"),
     (lambda: transmogrify([_feature(RealMap, "m")]), "ops/maps.py"),
-    (lambda: _feature(Real, "x").sanity_check(_feature(Real, "y")),
-     "checkers/sanity_checker.py"),
     (lambda: _feature(Real, "x").bucketize([0.0]), "ops/bucketizers.py"),
     (lambda: _feature(Real, "x").auto_bucketize(_feature(Real, "y")),
      "ops/bucketizers.py"),
     (lambda: _feature(PickList, "x").tokenize(), "ops/text.py"),
     (lambda: _feature(PickList, "x").lda(), "ops/text_advanced.py"),
-    (lambda: Workflow(device="cpu").with_workflow_cv(),
-     "workflow/workflow.py"),
-    (lambda: Workflow(device="cpu").with_raw_feature_filter(None),
-     "checkers/raw_feature_filter.py"),
     (lambda: ScoringPlan(_cpu_model(), lattice=[8, 24]),
      "tuning/lattice.py"),
     (lambda: Workflow(device="cpu").set_reader(None),
@@ -167,11 +165,8 @@ UNPORTED = [
      "runtime/journal.py"),
     (lambda: Workflow(device="cpu").train(validate="warn"), "lint/"),
     (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
-    (lambda: BinaryClassificationModelSelector.with_cross_validation(
-        validation="racing", device="cpu"), "selector/racing.py"),
     (lambda: ScoreFunction(_cpu_model(), guardrails=True).score_batch(
         [{"x": 1.0}]), "serving/sentinel.py"),
-    (lambda: _load_filtered_model(), "checkers/raw_feature_filter.py"),
     (lambda: _cpu_server(), "serving/sentinel.py"),
     (lambda: ScoringPlan(_cpu_model()).with_guardrails(),
      "serving/sentinel.py"),
@@ -195,13 +190,66 @@ UNPORTED = [
 ]
 
 
-@pytest.mark.parametrize("entry,module", UNPORTED,
-                         ids=[m + f"-{i}" for i, (_, m)
-                              in enumerate(UNPORTED)])
+#: the numbers the PORTED entries take in the test ids, which UNPORTED and
+#: PORTED number in one sequence
+_PORTED_AT = (5, 10, 11, 17, 19)
+_UNPORTED_IDS = [m + f"-{i}" for i, (_, m) in zip(
+    (i for i in range(len(UNPORTED) + len(_PORTED_AT))
+     if i not in _PORTED_AT), UNPORTED)]
+
+
+@pytest.mark.parametrize("entry,module", UNPORTED, ids=_UNPORTED_IDS)
 def test_unported_parts_raise_by_name(entry, module):
     with pytest.raises(NotImplementedError,
                        match=f"transmogrifai_tpu/{re.escape(module)}"):
         entry()
+
+
+def _checked_label():
+    return FeatureBuilder.real_nn("y").extract(
+        lambda r: r["y"]).as_response()
+
+
+#: (entry point, the JAX module it ports): each runs and returns
+PORTED = [
+    (lambda: transmogrify([_feature(Real, "x")]).sanity_check(
+        _checked_label()), "checkers/sanity_checker.py"),
+    (lambda: Workflow(device="cpu").with_workflow_cv(),
+     "workflow/workflow.py"),
+    (lambda: Workflow(device="cpu").with_raw_feature_filter(
+        RawFeatureFilter()), "checkers/raw_feature_filter.py"),
+    (lambda: BinaryClassificationModelSelector.with_cross_validation(
+        validation="racing", device="cpu").validator, "selector/racing.py"),
+    (lambda: _load_filtered_model().raw_feature_filter_results,
+     "checkers/raw_feature_filter.py"),
+    (lambda: BinaryClassificationModelSelector.with_train_validation_split(
+        device="cpu").validator, "selector/validator.py"),
+]
+
+
+@pytest.mark.parametrize("entry,module", PORTED, ids=[
+    m + f"-{i}" for i, (_, m) in zip(_PORTED_AT + (len(UNPORTED)
+                                                  + len(_PORTED_AT),),
+                                     PORTED)])
+def test_ported_options_run(entry, module):
+    """The feature-validation and selection options run where they
+    raised by name: the checker's output is a predictor, the racing and
+    split validators are the ported classes, a save with raw feature
+    filter results loads them."""
+    from transmogrifai_tpu_torch.checkers import RawFeatureFilterResults
+    from transmogrifai_tpu_torch.selector import (RacingCrossValidation,
+                                                  TrainValidationSplit)
+    out = entry()
+    expect = {"checkers/sanity_checker.py": lambda o: not o.is_response,
+              "workflow/workflow.py": lambda o: isinstance(o, Workflow),
+              "selector/racing.py":
+                  lambda o: isinstance(o, RacingCrossValidation),
+              "selector/validator.py":
+                  lambda o: isinstance(o, TrainValidationSplit)}
+    if module == "checkers/raw_feature_filter.py":
+        assert isinstance(out, (Workflow, RawFeatureFilterResults))
+    else:
+        assert expect[module](out)
 
 
 def test_sources_import_no_jax():
@@ -220,7 +268,9 @@ def test_sources_import_no_jax():
             "runtime/errors.py", "runtime/retry.py", "runtime/telemetry.py",
             "observability/trace.py", "observability/metrics.py",
             "tuning/registry.py", "utils/compile_time.py",
-            "utils/histogram.py"} <= names
+            "utils/histogram.py", "utils/stats.py", "checkers/__init__.py",
+            "checkers/sanity_checker.py", "checkers/raw_feature_filter.py",
+            "selector/racing.py", "selector/validator.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -1,9 +1,12 @@
 """Model persistence and local scoring of the PyTorch port, on small
-hand-built fitted stages (nothing is trained): the JAX package's
-``tests/test_persistence.py`` contract — the value codec, the feature-type
-round trip, atomic saves, the refusal of partial directories — plus what
-is the port's own: tensors saved as host arrays, device arguments never
-written, the load device, and the parts that raise by name."""
+hand-built fitted stages: the JAX package's ``tests/test_persistence.py``
+contract — the value codec, the feature-type round trip, atomic saves, the
+refusal of partial directories — plus what is the port's own: tensors
+saved as host arrays, device arguments never written, the load device,
+and the parts that raise by name. Last, a Titanic model with a
+SanityChecker trained behind a raw feature filter by both packages: its
+save carries the filter's results and reloads, and serves a record
+without a label as the JAX package's does."""
 import json
 import os
 
@@ -335,3 +338,90 @@ def test_model_layout_matches_jax(kind, tmp_path):
                            torch.device("cpu"))
     X = rng.normal(size=(20, 3))
     np.testing.assert_array_equal(back.predict_raw(X), got.predict_raw(X))
+
+
+def checked_filtered_models(root):
+    """The Titanic DAG with a SanityChecker before a fixed logistic stage,
+    trained by each package on the same 300 records' 75 % split behind a
+    raw feature filter (min_fill 0.3, which drops the 77 %-empty cabin;
+    scored against the holdout): (jax served row of ``demo_serve``, port
+    model, the port's save directory). The JAX save leaves out its AOT
+    export and plan fingerprint, which only add files."""
+    from unittest import mock
+
+    from examples import titanic as jax_titanic
+    from transmogrifai_tpu.checkers import RawFeatureFilter as JaxRFF
+    from transmogrifai_tpu.models import LogisticRegression as JaxLR
+    from transmogrifai_tpu.workflow import Workflow as JaxWorkflow
+    from transmogrifai_tpu_torch.checkers import RawFeatureFilter
+    from transmogrifai_tpu_torch.examples import titanic
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    train, test = titanic.stratified_split(
+        titanic.synthetic_titanic(400, seed=29))
+    out = {}
+    for pkg, wf, lr, rff in (
+            (jax_titanic, JaxWorkflow(), JaxLR(reg_param=0.01, max_iter=30),
+             JaxRFF(min_fill=0.3)),
+            (titanic, Workflow(device="cpu"),
+             LogisticRegression(reg_param=0.01, max_iter=30, device="cpu"),
+             RawFeatureFilter(min_fill=0.3))):
+        label, vector = pkg.build_features()
+        pred = lr.set_input(label, vector.sanity_check(label)).get_output()
+        wf = (wf.set_result_features(label, pred).set_input_records(train)
+              .with_raw_feature_filter(rff, score_data=test))
+        out[pkg is titanic] = wf.train(
+            **({} if pkg is titanic else {"validate": "off"}))
+    with mock.patch.dict(os.environ, {"TX_AOT_EXPORT": "off",
+                                      "TX_PLAN_FINGERPRINT": "off"}):
+        ref_row = jax_titanic.demo_serve(out[False], str(root / "jax"))
+    path = str(root / "port")
+    out[True].save(path)
+    return ref_row, out[True], path
+
+
+@pytest.fixture(scope="module")
+def checked(tmp_path_factory):
+    return checked_filtered_models(tmp_path_factory.mktemp("checked"))
+
+
+def test_checked_filtered_model_round_trip(checked):
+    """A model with a SanityChecker stage and raw feature filter results
+    saves in the JAX package's layout and reloads: the filter's results
+    and blacklist, the checker's kept indices and output metadata."""
+    _, model, path = checked
+    assert model.blacklisted_feature_names == ["cabin"]
+    with open(os.path.join(path, "op-model.json")) as fh:
+        doc = json.load(fh)
+    assert doc["blacklistedFeatureNames"] == ["cabin"]
+    assert [e["name"] for e in doc["rawFeatureFilterResults"]
+            ["exclusions"]] == ["cabin"]
+    stage = next(s for s in doc["stages"]
+                 if s["className"] == "SanityCheckerModel")
+    assert set(stage["ctorArgs"]) == {"kept_indices", "output_metadata"}
+    loaded = load_model(path, device="cpu")
+    assert loaded.blacklisted_feature_names == ["cabin"]
+    assert loaded.raw_feature_filter_results.to_json() == \
+        model.raw_feature_filter_results.to_json()
+    checker = [next(s for s in m.stages()
+                    if type(s).__name__ == "SanityCheckerModel")
+               for m in (model, loaded)]
+    assert checker[1].kept_indices == checker[0].kept_indices
+    assert checker[1].output_metadata == checker[0].output_metadata
+    assert "cabin" not in [f.name for f in loaded.raw_features()]
+
+
+def test_checked_model_serves_a_label_less_record_like_jax(checked):
+    """The reloaded model serves ``SAMPLE_PASSENGER``, which has no label,
+    through ``load_score_function``: the checker's label input is fed as
+    a placeholder and never read; the answer is the JAX package's
+    ``demo_serve`` answer within 1e-9."""
+    from transmogrifai_tpu_torch.examples import titanic
+    ref_row, model, path = checked
+    score = load_score_function(path, device="cpu")
+    pred = next(f.name for f in model.result_features
+                if f.name != "survived")
+    row = score(dict(titanic.SAMPLE_PASSENGER))[pred]
+    assert row["prediction"] == ref_row["prediction"]
+    for key in ("probability_0", "probability_1", "rawPrediction_1"):
+        assert row[key] == pytest.approx(ref_row[key], abs=1e-9)

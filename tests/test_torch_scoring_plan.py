@@ -237,3 +237,36 @@ def test_prewarm_and_run_eager(models):
     scored = plan.dispatch_encoded(enc)[models["lr"]["name"]]
     np.testing.assert_array_equal(scored.raw_prediction[:32],
                                   eager[0][:rows])
+
+
+@pytest.fixture(scope="module")
+def checked(tmp_path_factory):
+    from test_torch_persistence import checked_filtered_models
+    return checked_filtered_models(tmp_path_factory.mktemp("checked"))
+
+
+def test_checked_model_plan_serves_label_less_records(checked):
+    """A reloaded model with a SanityChecker stage behind a raw feature
+    filter: the checker's column gather runs inside the compiled plan,
+    whose label input is NaN-filled for records without one; the plan
+    serves ``SAMPLE_PASSENGER`` within 1e-9 of the JAX package's
+    ``demo_serve`` answer and scores holdout-like records as the columnar
+    path does, within 1e-12."""
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    ref_row, model, path = checked
+    loaded = WorkflowModel.load(path, device="cpu")
+    plan = ScoringPlan(loaded).compile()
+    assert any(label.startswith("SanityCheckerModel(")
+               for label in plan.coverage.lowered)
+    pred = next(f.name for f in loaded.result_features
+                if f.name != "survived")
+    served = plan.score([dict(titanic.SAMPLE_PASSENGER)])[pred]
+    assert served.data[0] == ref_row["prediction"]
+    assert served.probability[0, 1] == pytest.approx(
+        ref_row["probability_1"], abs=1e-9)
+    records = [{k: v for k, v in r.items() if k != "survived"}
+               for r in RECORDS[:50]]
+    compiled = loaded.score(records, engine="compiled")[pred]
+    columnar = loaded.score(records)[pred]
+    np.testing.assert_allclose(compiled.probability, columnar.probability,
+                               rtol=0, atol=1e-12)

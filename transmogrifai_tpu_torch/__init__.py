@@ -19,5 +19,9 @@ DAG's vectorizers and ``transmogrify`` (``ops/``), the prepare plan that
 runs the DAG's device stages as torch ops so the selector searches a
 matrix born on the device (``plans/prepare.py``), and ``Workflow`` /
 ``WorkflowModel`` (``workflow/``; the Titanic example in
-``examples/titanic.py``).
+``examples/titanic.py``), saving and serving (``workflow/persistence.py``,
+``local/``, ``serving/``), and feature validation and search options:
+the SanityChecker and the raw feature filter (``checkers/``),
+workflow-level CV, racing (``selector/racing.py``) and the single
+train/validation split.
 """

@@ -168,11 +168,17 @@ def stratified_split(records, label_key="survived", test_fraction=0.25,
     return train, test
 
 
-def default_selector(device="cuda", num_folds: int = 3, seed: int = 42):
+def default_selector(device="cuda", num_folds: int = 3, seed: int = 42,
+                     validation: str = "exact", eta: int = 3,
+                     min_fidelity: Optional[float] = None):
     """The example's selector: the whole default binary pool under
-    ``num_folds``-fold stratified CV, on ``device``."""
+    ``num_folds``-fold stratified CV, on ``device``.
+    ``validation="racing"`` races the pool under successive halving
+    (``selector/racing.py``) instead of training all of it to
+    completion."""
     return BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=num_folds, seed=seed, stratify=True, device=device)
+        num_folds=num_folds, seed=seed, stratify=True, device=device,
+        validation=validation, eta=eta, min_fidelity=min_fidelity)
 
 
 class TitanicRun(NamedTuple):
@@ -188,21 +194,28 @@ class TitanicRun(NamedTuple):
 
 
 def run(records, device="cuda", model_stage=None, verbose: bool = False,
-        listener=None) -> TitanicRun:
+        listener=None, workflow_cv: bool = False, validation: str = "exact",
+        min_fidelity: Optional[float] = None) -> TitanicRun:
     """Train on a stratified 75 % split of ``records`` on ``device``,
     score and evaluate the 25 % holdout. ``model_stage`` replaces the
     default selector (it must compute on ``device``); ``listener`` (a
-    ``utils.listener.WorkflowListener``) collects the per-stage
-    profile."""
+    ``utils.listener.WorkflowListener``) collects the per-stage profile.
+    ``workflow_cv=True`` enables leakage-free workflow-level CV (every
+    label-consuming selector ancestor refit per fold);
+    ``validation="racing"`` runs the default selector's search under
+    successive halving."""
     train, test = stratified_split(records)
     survived, features = build_features()
     stage = (model_stage if model_stage is not None
-             else default_selector(device))
+             else default_selector(device, validation=validation,
+                                   min_fidelity=min_fidelity))
     prediction = stage.set_input(survived, features).get_output()
     t0 = time.perf_counter()
     wf = (Workflow(device=device)
           .set_result_features(survived, prediction)
           .set_input_records(train))
+    if workflow_cv:
+        wf = wf.with_workflow_cv()
     if listener is not None:
         wf = wf.with_listener(listener)
     model = wf.train()

@@ -118,6 +118,19 @@ class FeatureColumn:
                 v = int(v) if issubclass(self.ftype, Integral) else bool(v)
         return self.ftype(v)
 
+    def is_missing(self) -> np.ndarray:
+        """Boolean mask of empty rows (host columns)."""
+        k = self.kind
+        if k == ColumnKind.NUMERIC:
+            return np.isnan(np.asarray(self.data, dtype=np.float64))
+        if k == ColumnKind.TEXT:
+            # empty string is *present* (reference: Text(Some("")) non-empty)
+            return np.asarray([v is None for v in self.data], dtype=bool)
+        if k == ColumnKind.VECTOR:
+            return np.zeros(self.n_rows, dtype=bool)
+        return np.asarray([v is None or len(v) == 0 for v in self.data],
+                          dtype=bool)
+
     def take(self, idx: np.ndarray) -> "FeatureColumn":
         return FeatureColumn(self.ftype, take_rows(self.data, idx),
                              self.metadata)
@@ -169,6 +182,9 @@ class PredictionColumn(FeatureColumn):
             probability=self.probability[i]
             if self.probability.shape[1] else None)
 
+    def is_missing(self) -> np.ndarray:
+        return np.zeros(self.n_rows, dtype=bool)
+
     def take(self, idx: np.ndarray) -> "PredictionColumn":
         return PredictionColumn(
             ftype=self.ftype, data=self.data[idx], metadata=self.metadata,
@@ -218,6 +234,11 @@ class Dataset:
 
     def select(self, names: Sequence[str]) -> "Dataset":
         return Dataset({n: self[n] for n in names})
+
+    def take(self, idx: np.ndarray) -> "Dataset":
+        """Rows ``idx`` of every column (a tensor column gathers on its
+        own device)."""
+        return Dataset({n: c.take(idx) for n, c in self._columns.items()})
 
     def __repr__(self) -> str:
         parts = ", ".join(f"{n}: {c.ftype.__name__}"

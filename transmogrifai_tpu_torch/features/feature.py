@@ -213,8 +213,8 @@ class Feature:
     def sanity_check(self, label: "Feature", **params) -> "Feature":
         """Prune this feature vector against the label
         (reference RichNumericFeature.sanityCheck:479)."""
-        raise not_ported("Feature.sanity_check (SanityChecker)",
-                         "checkers/sanity_checker.py")
+        from ..checkers import SanityChecker
+        return SanityChecker(**params).set_input(label, self).get_output()
 
     def alias(self, name: str) -> "Feature":
         """Rename via an identity stage (reference RichFeature.alias /

@@ -33,7 +33,7 @@ caches: each kernel is a few eager torch ops over the whole dataset.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,10 +92,14 @@ class PreparePlan:
         self.bytes_to_device = 0
 
     # -- public ------------------------------------------------------------
-    def execute(self, ds: Dataset) -> Tuple[Dataset, Dict[str, PipelineStage]]:
+    def execute(self, ds: Dataset,
+                prefitted: Optional[Dict[str, PipelineStage]] = None
+                ) -> Tuple[Dataset, Dict[str, PipelineStage]]:
         """Fit every estimator and materialize every stage output over
         ``ds``: returns the transformed Dataset (device columns hold
-        tensors) and the fitted models by estimator uid."""
+        tensors) and the fitted models by estimator uid. ``prefitted``
+        supplies models already fitted on THIS dataset (the workflow-CV
+        pre-pass), which are not fitted again."""
         stages = [s for layer in topo_layers(list(self.result_features))
                   for s in layer
                   if not isinstance(s, FeatureGeneratorStage)]
@@ -107,7 +111,9 @@ class PreparePlan:
         for stage in stages:
             out_name = stage.get_output().name
             if isinstance(stage, Estimator):
-                model = self._fit(stage, ds)
+                model = (prefitted or {}).get(stage.uid)
+                if model is None:
+                    model = self._fit(stage, ds)
                 fitted[stage.uid] = model
                 ds = self._transform(model, out_name, ds)
             elif isinstance(stage, Transformer):

@@ -2,10 +2,14 @@
 from .factories import BinaryClassificationModelSelector
 from .selector import (ModelSelector, ModelSelectorSummary, SelectedModel,
                        models_x_folds)
+from .racing import RacingCrossValidation, search_compiles
 from .splitters import DataBalancer, Splitter, stratified_split
-from .validator import BestEstimator, CrossValidation, ValidationResult
+from .validator import (BestEstimator, CrossValidation, TrainValidationSplit,
+                        ValidationResult)
 
 __all__ = ["BinaryClassificationModelSelector", "ModelSelector",
            "ModelSelectorSummary", "SelectedModel", "DataBalancer",
            "Splitter", "stratified_split", "BestEstimator",
-           "CrossValidation", "ValidationResult", "models_x_folds"]
+           "CrossValidation", "RacingCrossValidation",
+           "TrainValidationSplit", "ValidationResult", "models_x_folds",
+           "search_compiles"]

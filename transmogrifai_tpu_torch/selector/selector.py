@@ -2,14 +2,16 @@
 
 Counterpart of ``transmogrifai_tpu/selector/selector.py``
 (``ModelSelector.fit_arrays`` and ``fit_columns``, ``SelectedModel``,
-``ModelSelectorSummary`` with its JSON round trip and ``pretty``,
-``models_x_folds``): prepare the data with the splitter (holdout
-reserve, balancing), validate every candidate (family x grid point) under
-cross-validation, refit the winner on the full prepared training set, and
-evaluate it on the training set and the holdout. As a workflow stage the
-selector receives the prepared feature matrix as the tensor the prepare
-plan computed on the device (``Predictor.fit_columns``) and searches it
-there.
+``ModelSelectorSummary`` with its JSON round trip, racing record and
+``pretty``, ``models_x_folds``): prepare the data with the splitter
+(holdout reserve, balancing), validate every candidate (family x grid
+point) under cross-validation, racing or a train/validation split, refit
+the winner on the full prepared training set, and evaluate it on the
+training set and the holdout. Workflow-level CV presets the winner and
+the holdout split (``best_estimator``, ``preset_split``). As a workflow
+stage the selector receives the prepared feature matrix as the tensor the
+prepare plan computed on the device (``Predictor.fit_columns``) and
+searches it there.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from ..evaluators.base import EvaluationMetrics
 from ..models.base import PredictionColumn, PredictionModel, Predictor
 from ..utils.device import resolve_device, take_rows
 from .splitters import Splitter, SplitterSummary
-from .validator import BestEstimator, CrossValidation, ValidationResult
+from .validator import (BestEstimator, CrossValidation, ValidationResult,
+                        _ValidatorBase)
 
 __all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
            "models_x_folds"]
@@ -47,6 +50,10 @@ class ModelSelectorSummary:
     train_evaluation: Optional[EvaluationMetrics] = None
     holdout_evaluation: Optional[EvaluationMetrics] = None
     metric_larger_better: bool = True
+    #: multi-fidelity racing record (``RacingCrossValidation.last_report``:
+    #: rung schedule, budgets, pruned counts); empty, and absent from the
+    #: JSON, under exact validation
+    racing: Dict = field(default_factory=dict)
     #: host seconds of each stage of ``fit_arrays`` (prepare, validate,
     #: refit, evaluate); each stage ends in a read-back from the device.
     #: Kept in memory only: ``to_json`` writes the JAX package's keys
@@ -57,7 +64,7 @@ class ModelSelectorSummary:
             # a RawMetrics holder re-records the class it was loaded as
             return (getattr(m, "class_name", "") or type(m).__name__
                     if m else None)
-        return {
+        out = {
             "validationType": self.validation_type,
             "validationParameters": self.validation_parameters,
             "dataPrepParameters": self.data_prep_parameters,
@@ -79,6 +86,9 @@ class ModelSelectorSummary:
             "holdoutEvaluationClass": metrics_class(
                 self.holdout_evaluation),
         }
+        if self.racing:
+            out["racing"] = self.racing
+        return out
 
     @classmethod
     def from_json(cls, d: dict) -> "ModelSelectorSummary":
@@ -107,12 +117,14 @@ class ModelSelectorSummary:
             train_evaluation=metrics("trainEvaluation"),
             holdout_evaluation=metrics("holdoutEvaluation"),
             metric_larger_better=d.get("metricLargerBetter", True),
+            racing=d.get("racing") or {},
         )
 
     def pretty(self) -> str:
         """Human summary (reference summaryPretty,
         OpWorkflowModel.scala:204): the winner, then every grid point's
-        mean metric, best first."""
+        mean metric, best first; a raced candidate says where it was
+        pruned or that it is a finalist."""
         lines = [
             f"Selected model: {self.best_model_name} "
             f"({self.evaluation_metric}={self.best_validation_metric:.4f} "
@@ -127,8 +139,14 @@ class ModelSelectorSummary:
             return sign * m if np.isfinite(m) else np.inf
 
         for r in sorted(self.validation_results, key=rank):
+            # a pruned candidate's low-fidelity mean is not comparable to
+            # a full-CV one
+            racing = ""
+            if r.rung is not None:
+                racing = (f"  [pruned@rung{r.pruned_at}]"
+                          if r.pruned_at is not None else "  [finalist]")
             lines.append(f"  {r.model_name}[{r.grid_index}] "
-                         f"{r.params} -> {r.mean_metric:.4f}")
+                         f"{r.params} -> {r.mean_metric:.4f}{racing}")
         return "\n".join(lines)
 
 
@@ -174,15 +192,36 @@ def models_x_folds(model) -> int:
 
 class ModelSelector(Predictor):
     """Run candidates x grids under a validator and pick the winner. Every
-    candidate must compute on the selector's ``device``."""
+    candidate must compute on the selector's ``device``.
+    ``validation="racing"`` turns a ``CrossValidation`` validator into its
+    ``RacingCrossValidation`` twin (``selector/racing.py``: the same folds,
+    seed and evaluator under successive halving, ``eta`` and
+    ``min_fidelity`` its schedule)."""
 
     def __init__(self,
                  models: Sequence[Tuple[Predictor, Sequence[Dict]]] = (),
-                 validator: Optional[CrossValidation] = None,
+                 validator: Optional[_ValidatorBase] = None,
                  splitter: Optional[Splitter] = None,
                  problem_type: str = "", device="cuda",
+                 validation: str = "exact", eta: Optional[int] = None,
+                 min_fidelity: Optional[float] = None,
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
+        if validation not in ("exact", "racing"):
+            raise ValueError(f"validation must be 'exact' or 'racing', got "
+                             f"{validation!r}")
+        if validation == "racing" and validator is not None:
+            from .racing import RacingCrossValidation
+            if isinstance(validator, RacingCrossValidation):
+                pass
+            elif isinstance(validator, CrossValidation):
+                validator = RacingCrossValidation.from_cross_validation(
+                    validator, eta=eta, min_fidelity=min_fidelity)
+            else:
+                raise ValueError(
+                    "validation='racing' requires a CrossValidation "
+                    "validator (train/validation split has a single "
+                    "fold — nothing to race)")
         self.device = resolve_device(device)
         for est, _ in models:
             est_dev = getattr(est, "device", None)
@@ -194,6 +233,14 @@ class ModelSelector(Predictor):
         self.validator = validator
         self.splitter = splitter
         self.problem_type = problem_type
+        #: winner found by workflow-level CV (reference findBestEstimator,
+        #: ModelSelector.scala:113): when set, the fit skips validation
+        #: and refits it on the full data; consumed by that fit
+        self.best_estimator: Optional[BestEstimator] = None
+        #: (train_idx, test_idx) reserved by workflow-level CV before its
+        #: fold search, so that search and final fit share one split;
+        #: consumed by the next fit
+        self.preset_split = None
 
     def fit_arrays(self, X, y: np.ndarray) -> SelectedModel:
         """Search, refit and evaluate on ``X`` (n, d): numpy, or a tensor
@@ -219,8 +266,14 @@ class ModelSelector(Predictor):
         prep_results: Dict = {}
         X_hold = y_hold = None
         if self.splitter is not None:
-            self.splitter.reset_plan()
-            train_idx, test_idx = self.splitter.split(y)
+            if self.preset_split is not None:
+                # workflow-level CV reserved the holdout already; reuse
+                # its indices (and its estimated resampling plan)
+                train_idx, test_idx = self.preset_split
+                self.preset_split = None
+            else:
+                self.splitter.reset_plan()
+                train_idx, test_idx = self.splitter.split(y)
             if len(test_idx):
                 X_hold, y_hold = take_rows(X, test_idx), y[test_idx]
             X_tr, y_tr = take_rows(X, train_idx), y[train_idx]
@@ -234,8 +287,14 @@ class ModelSelector(Predictor):
 
         t1 = time.perf_counter()
         timings["prepare"] = t1 - t0
-        # 2. validation
-        best: BestEstimator = self.validator.validate(self.models, Xp, yp)
+        # 2. validation, unless workflow-level CV found the winner
+        # (ModelSelector.scala:136 bestEstimator.getOrElse); the preset is
+        # consumed, so a reused selector validates its new data
+        best: BestEstimator
+        if self.best_estimator is not None:
+            best, self.best_estimator = self.best_estimator, None
+        else:
+            best = self.validator.validate(self.models, Xp, yp)
         t2 = time.perf_counter()
         timings["validate"] = t2 - t1
 
@@ -256,6 +315,7 @@ class ModelSelector(Predictor):
         summary = ModelSelectorSummary(
             validation_type=type(self.validator).__name__,
             validation_parameters=self.validator.get_params(),
+            racing=dict(getattr(self.validator, "last_report", {}) or {}),
             data_prep_parameters=prep_params,
             data_prep_results=prep_results,
             evaluation_metric=evaluator.default_metric,

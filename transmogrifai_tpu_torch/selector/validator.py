@@ -1,16 +1,23 @@
-"""k-fold cross-validation over model families (device-resident search).
+"""Hyperparameter validation: k-fold cross-validation and the single
+train/validation split (device-resident search).
 
 Counterpart of ``transmogrifai_tpu/selector/validator.py``
-(``CrossValidation``: ``_assignments``, ``_build_fold_arrays``,
-``_try_device_eval``, ``_results_from_matrix``, ``_pick_best``,
-``ValidationResult``, ``BestEstimator``, ``family_profile``). Each family
-evaluates its whole fold x grid on its device and returns one (folds,
-grid) metric matrix. The reference's journal, retries, deadlines, mesh,
-concurrent family dispatch, racing and host evaluation path are not
-ported yet.
+(``CrossValidation``, ``TrainValidationSplit``: ``_assignments``,
+``_build_fold_arrays``, ``_try_device_eval``, ``_results_from_matrix``,
+``validate_prepared``, ``_pick_best``, ``ValidationResult``,
+``BestEstimator``, ``family_profile``). Each family evaluates its whole
+fold x grid on its device and returns one (folds, grid) metric matrix
+(``cand_idx`` narrows it to a candidate subset, as racing rungs ask); a
+family or metric without that path is validated candidate by candidate
+(``fit_arrays``, ``predict_arrays``, the evaluator on the host).
+Workflow-level CV hands ``validate_prepared`` one matrix per fold, each
+searched on its own device. Multi-fidelity racing is
+``selector/racing.py``. The reference's journal, retries, deadlines,
+quarantine, mesh and concurrent family dispatch are not ported.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -22,9 +29,12 @@ from .. import _build
 from ..evaluators.base import Evaluator
 from ..models.base import Predictor
 from ..utils.device import take_rows
+from .splitters import stratified_split
+
+_log = logging.getLogger(__name__)
 
 __all__ = ["ValidationResult", "BestEstimator", "CrossValidation",
-           "family_profile", "reset_family_profile"]
+           "TrainValidationSplit", "family_profile", "reset_family_profile"]
 
 #: per-family search accounting (seconds, nvcc build seconds, calls),
 #: accumulated across every search in this process
@@ -56,28 +66,47 @@ def reset_family_profile() -> None:
 
 @dataclass
 class ValidationResult:
-    """Metric record for one (model family, grid point)."""
+    """Metric record for one (model family, grid point).
+
+    The racing scheduler (``selector/racing.py``) annotates each record
+    with its multi-fidelity trajectory: ``rung`` is the highest rung the
+    candidate was evaluated at, ``budget_spent`` the fold-fit equivalents
+    it consumed (full CV = num_folds per candidate) and ``pruned_at`` the
+    rung where the racer dropped it (None = survived to the final
+    full-fidelity rung). All three stay None/0, and out of the JSON, under
+    exact validation."""
     model_name: str
     model_uid: str
     grid_index: int
     params: Dict
     metric_values: List[float] = field(default_factory=list)
+    rung: Optional[int] = None
+    budget_spent: float = 0.0
+    pruned_at: Optional[int] = None
 
     @property
     def mean_metric(self) -> float:
         return float(np.mean(self.metric_values))
 
     def to_json(self) -> dict:
-        return {"modelName": self.model_name, "modelUID": self.model_uid,
-                "gridIndex": self.grid_index, "params": self.params,
-                "metricValues": [float(v) for v in self.metric_values],
-                "meanMetric": self.mean_metric}
+        out = {"modelName": self.model_name, "modelUID": self.model_uid,
+               "gridIndex": self.grid_index, "params": self.params,
+               "metricValues": [float(v) for v in self.metric_values],
+               "meanMetric": self.mean_metric}
+        if self.rung is not None:
+            out["rung"] = self.rung
+            out["budgetSpent"] = float(self.budget_spent)
+            out["prunedAt"] = self.pruned_at
+        return out
 
     @classmethod
     def from_json(cls, d: dict) -> "ValidationResult":
         return cls(model_name=d["modelName"], model_uid=d["modelUID"],
                    grid_index=d["gridIndex"], params=dict(d["params"]),
-                   metric_values=list(d["metricValues"]))
+                   metric_values=list(d["metricValues"]),
+                   rung=d.get("rung"),
+                   budget_spent=d.get("budgetSpent", 0.0),
+                   pruned_at=d.get("prunedAt"))
 
 
 @dataclass
@@ -90,21 +119,20 @@ class BestEstimator:
     results: List[ValidationResult] = field(default_factory=list)
 
 
-class CrossValidation:
-    """k-fold CV with equal-sized folds."""
+class _ValidatorBase:
+    """What k-fold CV and the single split share: folds, the device
+    search, the host path and the winner's pick."""
 
-    def __init__(self, evaluator: Evaluator, num_folds: int = 3,
-                 seed: int = 42, stratify: bool = False):
-        if num_folds < 2:
-            raise ValueError("num_folds must be >= 2")
+    def __init__(self, evaluator: Evaluator, seed: int = 42,
+                 stratify: bool = False):
         self.evaluator = evaluator
-        self.num_folds = num_folds
         self.seed = seed
         self.stratify = stratify
 
-    def get_params(self) -> Dict:
-        return {"numFolds": self.num_folds, "seed": self.seed,
-                "stratify": self.stratify}
+    # -- split construction ------------------------------------------------
+    def _splits(self, y: np.ndarray
+                ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        raise NotImplementedError
 
     def _assignments(self, y: np.ndarray, k: int) -> np.ndarray:
         """Fold id per row; -1 = dropped. Folds are exactly equal-sized
@@ -125,12 +153,6 @@ class CrossValidation:
             round_robin(np.arange(len(y)))
         return assign
 
-    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
-        assign = self._assignments(y, self.num_folds)
-        return [(np.nonzero((assign != f) & (assign >= 0))[0],
-                 np.nonzero(assign == f)[0])
-                for f in range(self.num_folds)]
-
     def _build_fold_arrays(self, X, y: np.ndarray):
         """(masks (F, n), spec, X_val_st (F, nv, d), y_val_st (F, nv)):
         fold train masks over the prepared matrix and the stacked
@@ -146,16 +168,27 @@ class CrossValidation:
         y_val_st = np.stack([y[va] for _, va in splits])
         return masks, spec, X_val_st, y_val_st
 
+    def _fold_data(self, X, y: np.ndarray):
+        """[(X_tr, y_tr, X_val, y_val)] of every split, rows gathered on
+        X's device: the host path's folds."""
+        return [(take_rows(X, tr), y[tr], take_rows(X, va), y[va])
+                for tr, va in self._splits(y)]
+
+    # -- evaluation --------------------------------------------------------
     def _try_device_eval(self, estimator, grid, X, y, masks, X_val_st,
-                         y_val_st, spec) -> Optional[np.ndarray]:
+                         y_val_st, spec, cand_idx=None
+                         ) -> Optional[np.ndarray]:
         """(F, G) metric matrix from the family's fused fit+metric path,
-        or None when the family or metric has none."""
+        or None when the family or metric has none. ``cand_idx`` (racing
+        rungs) evaluates only that candidate subset: the matrix is then
+        (F, len(cand_idx))."""
         if spec is None or not hasattr(estimator, "eval_fold_grid_arrays"):
             return None
+        kwargs = {} if cand_idx is None else {"cand_idx": cand_idx}
         t0, b0 = time.perf_counter(), _build.build_seconds()
         try:
             return estimator.eval_fold_grid_arrays(
-                X, y, masks, grid, X_val_st, y_val_st, spec)
+                X, y, masks, grid, X_val_st, y_val_st, spec, **kwargs)
         except NotImplementedError:
             return None
         finally:
@@ -176,27 +209,101 @@ class CrossValidation:
                 metric_values=[float(v) for v in mm[:, gi]])
             for gi, params in enumerate(grid)]
 
+    def _family_host_results(self, estimator, grid, fold_data
+                             ) -> List[ValidationResult]:
+        """One family validated candidate by candidate: each grid point's
+        ``fit_arrays`` on a fold's train rows, ``predict_arrays`` on its
+        validation rows and the evaluator's metric. A candidate whose
+        fit rejects the data scores NaN on that fold."""
+        results: List[ValidationResult] = []
+        for gi, params in enumerate(grid):
+            candidate = estimator.with_params(**params)
+            res = ValidationResult(
+                model_name=type(estimator).__name__,
+                model_uid=estimator.uid, grid_index=gi,
+                params=dict(params))
+            for X_tr, y_tr, X_val, y_val in fold_data:
+                try:
+                    model = candidate.fit_arrays(X_tr, y_tr)
+                    metrics = self.evaluator.evaluate_arrays(
+                        y_val, model.predict_arrays(X_val))
+                    res.metric_values.append(
+                        self.evaluator.metric_from(metrics))
+                except (ValueError, FloatingPointError) as e:
+                    _log.warning("candidate %s%s failed on a fold: %s",
+                                 res.model_name, params, e)
+                    res.metric_values.append(float("nan"))
+            results.append(res)
+        return results
+
     def validate(self, models: Sequence[Tuple[Predictor, Sequence[Dict]]],
                  X, y: np.ndarray) -> BestEstimator:
         models = [(est, list(grid) or [{}]) for est, grid in models]
         masks, spec, X_val_st, y_val_st = self._build_fold_arrays(X, y)
         results: List[ValidationResult] = []
+        fold_data = None
         for estimator, grid in models:
             mm = self._try_device_eval(estimator, grid, X, y, masks,
                                        X_val_st, y_val_st, spec)
-            if mm is None:
-                raise NotImplementedError(
-                    f"{type(estimator).__name__} with metric "
-                    f"{self.evaluator.default_metric!r} has no device "
-                    f"search path, and the host path is not ported yet")
-            results.extend(self._results_from_matrix(estimator, grid, mm))
+            if mm is not None:
+                results.extend(self._results_from_matrix(estimator, grid,
+                                                         mm))
+                continue
+            if fold_data is None:
+                fold_data = self._fold_data(X, y)
+            results.extend(self._family_host_results(estimator, grid,
+                                                     fold_data))
         return self._pick_best(models, results)
 
-    def _pick_best(self, models, results: List[ValidationResult]
+    def validate_prepared(self,
+                          models: Sequence[Tuple[Predictor, Sequence[Dict]]],
+                          folds: Sequence[Tuple]) -> BestEstimator:
+        """Validate over pre-materialized per-fold data, the
+        workflow-level-CV entry point (reference OpValidator.applyDAG:228
+        + getSummary): each fold's in-CV DAG segment was refit on that
+        fold's train rows, so the feature matrices may differ across
+        folds, even in width. ``folds`` is [(X_tr, y_tr, X_val, y_val),
+        ...], each matrix numpy or a tensor on its device; each fold is
+        one device search per family."""
+        spec = self.evaluator.device_metric_spec()
+        models = [(est, list(grid) or [{}]) for est, grid in models]
+        results: List[ValidationResult] = []
+        for estimator, grid in models:
+            results.extend(self._prepared_family_results(
+                estimator, grid, folds, spec))
+        return self._pick_best(models, results)
+
+    def _prepared_family_results(self, estimator, grid, folds, spec
+                                 ) -> List[ValidationResult]:
+        """One family's results over pre-materialized folds: the device
+        search one fold at a time (fold matrices may differ in shape, so
+        they cannot stack into one call), else the host path."""
+        if spec is not None:
+            rows = []
+            for X_tr, y_tr, X_val, y_val in folds:
+                row = self._try_device_eval(
+                    estimator, grid, X_tr, y_tr, np.ones((1, len(y_tr))),
+                    X_val[None], np.asarray(y_val)[None], spec)
+                if row is None:
+                    break
+                rows.append(row[0])
+            else:
+                if rows:
+                    return self._results_from_matrix(estimator, grid,
+                                                     np.stack(rows))
+        return self._family_host_results(estimator, grid, folds)
+
+    def _pick_best(self, models, results: List[ValidationResult],
+                   rank_pool: Optional[List[ValidationResult]] = None
                    ) -> BestEstimator:
-        """Winner by mean metric; the first candidate wins a tie."""
+        """Winner by mean metric among ``rank_pool`` (default: all
+        results); the first candidate wins a tie. Racing passes only its
+        full-fidelity finalists (a pruned candidate's low-fidelity mean is
+        not comparable to a full-CV one), while every record still lands
+        in ``BestEstimator.results``."""
         sign = 1.0 if self.evaluator.is_larger_better else -1.0
-        finite = [r for r in results if np.isfinite(r.mean_metric)]
+        pool = results if rank_pool is None else rank_pool
+        finite = [r for r in pool if np.isfinite(r.mean_metric)]
         if not finite:
             raise ValueError(
                 "all validation metrics are non-finite; cannot select a "
@@ -208,3 +315,61 @@ class CrossValidation:
         return BestEstimator(estimator=winner, name=best.model_name,
                              params=best.params, metric=best.mean_metric,
                              results=results)
+
+
+class CrossValidation(_ValidatorBase):
+    """k-fold CV with equal-sized folds (reference
+    OpCrossValidation.scala:40,71)."""
+
+    validation_type = "CrossValidation"
+
+    def __init__(self, evaluator: Evaluator, num_folds: int = 3,
+                 seed: int = 42, stratify: bool = False):
+        super().__init__(evaluator, seed, stratify)
+        if num_folds < 2:
+            raise ValueError("num_folds must be >= 2")
+        self.num_folds = num_folds
+
+    def get_params(self) -> Dict:
+        return {"numFolds": self.num_folds, "seed": self.seed,
+                "stratify": self.stratify}
+
+    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
+        assign = self._assignments(y, self.num_folds)
+        return [(np.nonzero((assign != f) & (assign >= 0))[0],
+                 np.nonzero(assign == f)[0])
+                for f in range(self.num_folds)]
+
+
+class TrainValidationSplit(_ValidatorBase):
+    """Single random split (reference OpTrainValidationSplit.scala:48);
+    the JAX package's split to the index."""
+
+    validation_type = "TrainValidationSplit"
+
+    def __init__(self, evaluator: Evaluator, train_ratio: float = 0.75,
+                 seed: int = 42, stratify: bool = False):
+        super().__init__(evaluator, seed, stratify)
+        if not 0.0 < train_ratio < 1.0:
+            raise ValueError("train_ratio must be in (0, 1)")
+        self.train_ratio = train_ratio
+
+    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
+        # exact single split honoring train_ratio (stratified on request)
+        rng = np.random.default_rng(self.seed)
+        if self.stratify:
+            train_idx, val_idx = stratified_split(
+                y, 1.0 - self.train_ratio, rng)
+        else:
+            perm = rng.permutation(len(y))
+            n_val = int(round(len(y) * (1.0 - self.train_ratio)))
+            train_idx, val_idx = np.sort(perm[n_val:]), np.sort(perm[:n_val])
+        if len(val_idx) == 0 or len(train_idx) == 0:
+            raise ValueError(
+                f"train_ratio={self.train_ratio} leaves an empty train or "
+                f"validation set for n={len(y)} rows")
+        return [(train_idx, val_idx)]
+
+    def get_params(self) -> Dict:
+        return {"trainRatio": self.train_ratio, "seed": self.seed,
+                "stratify": self.stratify}

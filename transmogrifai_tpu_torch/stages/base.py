@@ -37,7 +37,7 @@ if False:  # TYPE_CHECKING without importing typing's guard at runtime:
     from ..features.feature import Feature  # noqa: F401
 
 __all__ = [
-    "PipelineStage", "Transformer", "Estimator", "Model",
+    "PipelineStage", "AllowLabelAsInput", "Transformer", "Estimator", "Model",
     "UnaryTransformer", "UnaryEstimator", "UnaryModel",
     "BinaryTransformer", "BinaryEstimator", "BinaryModel",
     "TernaryTransformer", "QuaternaryTransformer",
@@ -55,12 +55,13 @@ def register_stage_class(cls):
 
 
 def stage_class_by_name(name: str):
-    """Resolve a stage class for deserialization, importing the ops,
-    models and selector packages first so their classes register
+    """Resolve a stage class for deserialization, importing the checkers,
+    ops, models and selector packages first so their classes register
     (reference OpPipelineStageReader class-for-name,
     OpPipelineStageReader.scala:89-135)."""
     if name in _STAGE_REGISTRY:
         return _STAGE_REGISTRY[name]
+    from .. import checkers as _checkers  # noqa: F401
     from .. import models as _models  # noqa: F401
     from .. import ops as _ops  # noqa: F401
     from .. import selector as _selector  # noqa: F401
@@ -175,7 +176,9 @@ class PipelineStage:
     def output_is_response(self) -> bool:
         """A feature derived from any response is itself a response, so it
         can never silently re-enter the predictor matrix (label-leakage
-        guard; reference OpPipelineStages.scala:56 `exists(_.isResponse)`)."""
+        guard; reference OpPipelineStages.scala:56 `exists(_.isResponse)`).
+        Stages that consume the label to produce predictors (the
+        SanityChecker) mix in ``AllowLabelAsInput``."""
         return (len(self.input_features) > 0
                 and any(f.is_response for f in self.input_features))
 
@@ -223,6 +226,16 @@ class PipelineStage:
 
 class _ZeroInput:
     """Marker for stages with no inputs (feature generators)."""
+
+
+class AllowLabelAsInput:
+    """Mixin for stages allowed to consume the label while producing
+    predictor outputs (reference AllowLabelAsInput; the SanityChecker and
+    its model). Output is a response only if *every* input is."""
+
+    def output_is_response(self) -> bool:
+        return (len(self.input_features) > 0
+                and all(f.is_response for f in self.input_features))
 
 
 class Transformer(PipelineStage):

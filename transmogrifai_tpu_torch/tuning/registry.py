@@ -1,9 +1,10 @@
-"""The serving knobs' registry: the single home of the defaults the
-scoring plan and the serving loop read.
+"""The knobs' registry: the single home of the defaults the scoring plan,
+the serving loop and the racing search read.
 
-The port's copy of the ``serving.*`` entries of
+The port's copy of the ``serving.*`` and ``search.*`` entries of
 ``transmogrifai_tpu/tuning/registry.py`` (its ``Knob`` table and
-``STATIC_DEFAULTS``) that the plan and the server read. The admission
+``STATIC_DEFAULTS``) that the plan, the server and
+``selector/racing.py`` read. The admission
 knobs come with ``serving/admission.py``; the coalescing policy is
 ``ServeConfig.coalesce_policy``. Consumers import a default from
 :data:`STATIC_DEFAULTS` instead of restating the number. The JAX package's
@@ -52,6 +53,17 @@ KNOBS: Tuple[Knob, ...] = (
          kind="int_tuple",
          description="bucket sizes captured before traffic; empty means "
                      "no prewarm unless the caller names buckets"),
+    Knob(name="search.eta", default=3,
+         consumer="selector/racing.py RacingCrossValidation",
+         kind="int",
+         description="racing promotion ratio: each rung keeps the top "
+                     "1/eta"),
+    Knob(name="search.min_fidelity", default=None,
+         consumer="selector/racing.py RacingCrossValidation",
+         kind="float",
+         description="budget fraction of the first racing rung (None "
+                     "derives the classic 1/eta**2 three-rung ladder); the "
+                     "final rung is always exact full CV"),
 )
 
 #: knob name -> static default; the values consumers import

@@ -5,18 +5,65 @@ utils/src/main/java/com/salesforce/op/utils/stats/
 StreamingHistogram.java:36): a fixed number of (centroid, count) bins,
 updated in batches (sort + merge) and queried for quantiles by
 interpolation. The serving metrics keep their latency sketches in it; the
-rest of its API (merges, densities, JSON) waits for the drift sentinel.
-The JAX package merges oversized bin sets in a C++ kernel when one is
-built; the port always takes that package's numpy merge, which has the
-same closest-pair semantics.
+raw feature filter compares two of them through ``density``
+(``checkers/raw_feature_filter.numeric_histogram_js``). Its JSON form
+waits for the drift sentinel.
+
+Oversized bin sets merge their closest adjacent pair until ``max_bins``
+remain, ties to the leftmost pair. The JAX package does this in a C++
+kernel (``native/streaming_histogram.cpp``: a min-heap of (gap, left
+index) with lazy deletion, O(k log k)) or, without it, by rescanning the
+gaps each round, O(k^2); the port runs the heap in Python with the same
+arithmetic, which the raw feature filter needs for columns of 1e5 distinct
+values.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import heapq
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = ["StreamingHistogram"]
+
+
+def _merge_closest(c: List[float], n: List[float], max_bins: int
+                   ) -> Tuple[List[float], List[float]]:
+    """Merge the closest adjacent pair of the sorted bins ``(c, n)`` until
+    ``max_bins`` remain, as the JAX package's ``hist_merge`` does: a
+    min-heap of (gap, left index) over linked neighbours, a popped entry
+    skipped when its bins are gone or its gap is no longer theirs; ties go
+    to the lower index, numpy argmin's first occurrence. Returns the
+    surviving bins in order."""
+    size = len(c)
+    nxt = list(range(1, size)) + [-1]
+    prv = list(range(-1, size - 1))
+    dead = [False] * size
+    heap = [(c[i + 1] - c[i], i) for i in range(size - 1)]
+    heapq.heapify(heap)
+    remaining = size
+    while remaining > max_bins and heap:
+        gap, i = heapq.heappop(heap)
+        if dead[i]:
+            continue
+        j = nxt[i]
+        if j < 0 or dead[j] or c[j] - c[i] != gap:
+            continue
+        tot = n[i] + n[j]
+        c[i] = (c[i] * n[i] + c[j] * n[j]) / tot
+        n[i] = tot
+        dead[j] = True
+        k = nxt[j]
+        nxt[i] = k
+        if k >= 0:
+            prv[k] = i
+            heapq.heappush(heap, (c[k] - c[i], i))
+        p = prv[i]
+        if p >= 0:
+            heapq.heappush(heap, (c[i] - c[p], p))
+        remaining -= 1
+    live = [i for i in range(size) if not dead[i]]
+    return [c[i] for i in live], [n[i] for i in live]
 
 
 class StreamingHistogram:
@@ -58,19 +105,41 @@ class StreamingHistogram:
         c = np.concatenate([self.centroids, cents])
         n = np.concatenate([self.counts, cnts])
         order = np.argsort(c)
-        c, n = np.ascontiguousarray(c[order]), np.ascontiguousarray(n[order])
-        # rescan for the closest pair each round
-        while c.size > self.max_bins:
-            gaps = np.diff(c)
-            i = int(np.argmin(gaps))
-            tot = n[i] + n[i + 1]
-            c[i] = (c[i] * n[i] + c[i + 1] * n[i + 1]) / tot
-            n[i] = tot
-            c = np.delete(c, i + 1)
-            n = np.delete(n, i + 1)
-        self.centroids, self.counts = c, n
+        c, n = c[order], n[order]
+        if c.size > self.max_bins:
+            c, n = _merge_closest(c.tolist(), n.tolist(), self.max_bins)
+        self.centroids = np.ascontiguousarray(c, dtype=np.float64)
+        self.counts = np.ascontiguousarray(n, dtype=np.float64)
 
     # -- queries -----------------------------------------------------------
+    @property
+    def total(self) -> float:
+        return float(self.counts.sum())
+
+    def sum_upto(self, b: float) -> float:
+        """Estimated number of points <= b (StreamingHistogram.java sum())."""
+        c, n = self.centroids, self.counts
+        if c.size == 0:
+            return 0.0
+        if b >= c[-1]:
+            return float(n.sum())
+        if b < c[0]:
+            return 0.0
+        i = int(np.searchsorted(c, b, side="right")) - 1
+        if c.size == 1 or i == c.size - 1:
+            return float(n[:i].sum() + n[i] / 2.0)
+        # trapezoid interpolation between centroid i and i+1
+        ci, ci1, ni, ni1 = c[i], c[i + 1], n[i], n[i + 1]
+        frac = (b - ci) / (ci1 - ci) if ci1 > ci else 0.0
+        mb = ni + (ni1 - ni) * frac
+        s = (ni + mb) * frac / 2.0
+        return float(n[:i].sum() + ni / 2.0 + s)
+
+    def density(self, breakpoints: Sequence[float]) -> np.ndarray:
+        """Estimated counts falling in intervals defined by breakpoints."""
+        sums = np.asarray([self.sum_upto(b) for b in breakpoints])
+        return np.diff(np.concatenate([[0.0], sums, [self.total]]))
+
     def quantile(self, q: float) -> float:
         if not 0.0 <= q <= 1.0:
             raise ValueError("q must be in [0, 1]")

@@ -1,5 +1,5 @@
 """Workflow engine of the PyTorch port (counterpart of
 ``transmogrifai_tpu/workflow/``; the runner is not ported)."""
-from .workflow import Workflow, WorkflowModel
+from .workflow import Workflow, WorkflowModel, cut_dag
 
-__all__ = ["Workflow", "WorkflowModel"]
+__all__ = ["Workflow", "WorkflowModel", "cut_dag"]

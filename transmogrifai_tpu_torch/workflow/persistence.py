@@ -28,6 +28,12 @@ transformers) round-trip only when importable (``module:qualname``);
 otherwise they are dropped and the generator falls back to by-name lookup;
 a ``LambdaTransformer`` whose function was dropped raises on load.
 
+The raw feature filter's results and the blacklisted raw features' names
+are saved as the JAX package saves them (``rawFeatureFilterResults``,
+``blacklistedFeatureNames``). A fitted SanityChecker saves its constructor
+arguments (the kept indices and the output metadata), as there; its
+summary stays in memory.
+
 Three parts of a JAX save are left out. Two have no meaning for torch:
 the AOT export of the compiled XLA scoring programs and the
 plan-fingerprint sidecar of the HLO auditor. The third, the drift
@@ -51,7 +57,6 @@ from ..features.feature import Feature
 from ..stages.base import Estimator, PipelineStage, stage_class_by_name
 from ..types.base import feature_type_by_name
 from ..utils.device import resolve_device
-from ..utils.ported import not_ported
 from ..utils.vector_meta import VectorMetadata
 
 __all__ = ["save_model", "load_model", "stage_to_json", "stage_from_json",
@@ -323,15 +328,19 @@ def save_model(model, path: str) -> None:
             staged.add(s.uid)
             stages.append(stage_to_json(s, arrays))
     from ..utils.version import version_info
+    rff = getattr(model, "raw_feature_filter_results", None)
     doc = {
         "formatVersion": MODEL_FORMAT_VERSION,
         "versionInfo": version_info().to_json(),
         "resultFeatureUids": [f.uid for f in model.result_features],
         "features": [_feature_to_json(f) for f in feats],
         "stages": stages,
-        # the JAX package's keys; the raw feature filter is not ported
-        "rawFeatureFilterResults": None,
-        "blacklistedFeatureNames": [],
+        # reference OpWorkflowModelWriter persists RFF results into
+        # op-model.json (OpWorkflowModelWriter.scala:75-120)
+        "rawFeatureFilterResults": rff.to_json() if rff is not None
+        else None,
+        "blacklistedFeatureNames": list(
+            getattr(model, "blacklisted_feature_names", ())),
     }
     tmp = f"{path}.tmp-save{os.getpid()}"
     if os.path.isdir(tmp):
@@ -404,9 +413,6 @@ def load_model(path: str, device="cuda"):
         raise ValueError(
             f"model at {path} uses format {fmt}; this build reads up "
             f"to {MODEL_FORMAT_VERSION} — load with a newer build")
-    if doc.get("rawFeatureFilterResults"):
-        raise not_ported("loading a model with raw feature filter results",
-                         "checkers/raw_feature_filter.py")
     npz_path = os.path.join(path, ARRAYS_NPZ)
     arrays: Dict[str, np.ndarray] = {}
     needed = set(_referenced_array_keys(doc.get("stages", [])))
@@ -440,4 +446,11 @@ def load_model(path: str, device="cuda"):
             stage.input_features = parents
             stage._output_feature = f
     result = tuple(features[u] for u in doc["resultFeatureUids"])
-    return WorkflowModel(result_features=result)
+    rff = None
+    if doc.get("rawFeatureFilterResults"):
+        from ..checkers.raw_feature_filter import RawFeatureFilterResults
+        rff = RawFeatureFilterResults.from_json(
+            doc["rawFeatureFilterResults"])
+    return WorkflowModel(
+        result_features=result, raw_feature_filter_results=rff,
+        blacklisted_feature_names=doc.get("blacklistedFeatureNames", ()))

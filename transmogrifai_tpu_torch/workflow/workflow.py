@@ -18,12 +18,19 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
 - ``WorkflowModel.save`` and ``load`` (``workflow/persistence.py``) write
   and read the JAX package's directory layout; a load names the device
   the models predict on;
-- a listener (``with_listener``) collects every stage's seconds and rows.
+- a listener (``with_listener``) collects every stage's seconds and rows;
+- ``with_raw_feature_filter`` excludes raw features before any fit
+  (``checkers/raw_feature_filter.py``, host numpy over the raw columns)
+  and rewires the DAG without them;
+- ``with_workflow_cv`` refits the selector's label-consuming ancestors
+  (the SanityChecker) inside every CV fold: the prepare plan runs the
+  ancestors outside that segment once, the folds are row gathers of its
+  device matrix, the segment is refit per fold on the device, and the
+  selector searches each fold's matrix (``validate_prepared``).
 
 Estimator -> fitted-model DAG rewiring uses ``Feature.copy_with_new_stages``
-as the reference does (OpWorkflow.scala:347). Workflow-level CV, the raw
-feature filter, readers, resumed searches and the lint pre-flight are not
-ported and raise.
+as the reference does (OpWorkflow.scala:347). Readers, resumed searches
+and the lint pre-flight are not ported and raise.
 """
 from __future__ import annotations
 
@@ -31,17 +38,18 @@ import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..evaluators.base import EvaluationMetrics, Evaluator
-from ..features.columns import Dataset, FeatureColumn
+from ..features.columns import Dataset, FeatureColumn, host_column
 from ..features.feature import Feature, topo_layers
 from ..features.generator import FeatureGeneratorStage
 from ..plans.prepare import PreparePlan, raw_features as _unique_raw_features
 from ..stages.base import Estimator, PipelineStage, Transformer
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, take_rows
 from ..utils.ported import not_ported
 
-__all__ = ["Workflow", "WorkflowModel"]
+__all__ = ["Workflow", "WorkflowModel", "cut_dag"]
 
 
 def _generate_raw_data(raw_features: Sequence[Feature], data: Any,
@@ -128,6 +136,95 @@ def _validate_distinct_uids(result_features: Sequence[Feature]) -> None:
             seen[stage.uid] = stage
 
 
+def _stage_columns(stage: PipelineStage, ds: Dataset) -> List[FeatureColumn]:
+    """``stage``'s input columns: a device column as it is for a stage
+    that takes tensors (``device_inputs``), a host copy otherwise."""
+    return [ds[f.name] if stage.device_inputs else host_column(ds[f.name])
+            for f in stage.input_features]
+
+
+def _fit_segment(layers: List[List[PipelineStage]], ds: Dataset
+                 ) -> Tuple[Dataset, Dict[str, PipelineStage]]:
+    """Fit and transform a DAG segment over ``ds`` (the workflow-CV fold
+    refit; reference FitStagesUtil.fitAndTransformDAG:213): a stage that
+    takes tensors fits and transforms on the device columns it is given.
+    Returns the transformed Dataset and the fitted models by uid."""
+    fitted: Dict[str, PipelineStage] = {}
+    for layer in layers:
+        for stage in layer:
+            if isinstance(stage, Estimator):
+                model = stage.fit(Dataset(
+                    {f.name: c for f, c in zip(stage.input_features,
+                                               _stage_columns(stage, ds))}))
+                fitted[stage.uid] = model
+                ds = ds.with_column(stage.get_output().name,
+                                    model.transform_columns(
+                                        _stage_columns(model, ds)))
+            else:
+                ds = ds.with_column(stage.get_output().name,
+                                    stage.transform_columns(
+                                        _stage_columns(stage, ds)))
+    return ds, fitted
+
+
+def _transform_with_fitted(layers: List[List[PipelineStage]],
+                           fitted: Dict[str, PipelineStage],
+                           ds: Dataset) -> Dataset:
+    """Apply already-fitted stages to new rows (the validation side of a
+    workflow-CV fold; reference FittedDAG.transformers application,
+    FitStagesUtil.scala:254-292)."""
+    for layer in layers:
+        for stage in layer:
+            stage = fitted.get(stage.uid, stage)
+            ds = ds.with_column(stage.get_output().name,
+                                stage.transform_columns(
+                                    _stage_columns(stage, ds)))
+    return ds
+
+
+def cut_dag(result_features: Sequence[Feature]):
+    """Split the DAG around the ModelSelector for leakage-free
+    workflow-level CV (reference FitStagesUtil.cutDAG:305).
+
+    Returns (selector, during_layers) where ``during_layers`` are the
+    selector-ancestor layers from the first stage whose inputs mix a
+    response with predictors (e.g. SanityChecker) onward: the stages whose
+    full-data fit would leak validation-fold label information into model
+    selection. Empty when there is no selector or no label-consuming
+    ancestor. Raises on more than one selector (reference "at most 1
+    Model Selector").
+    """
+    from ..selector.selector import ModelSelector
+    layers = topo_layers(result_features)
+    selectors = [s for layer in layers for s in layer
+                 if isinstance(s, ModelSelector)]
+    if len(selectors) > 1:
+        raise ValueError(
+            f"Workflow can contain at most 1 ModelSelector for "
+            f"workflow-level CV; found {len(selectors)}")
+    if not selectors:
+        return None, []
+    ms = selectors[0]
+    anc_layers = topo_layers(list(ms.input_features))
+    first = None
+    for i, layer in enumerate(anc_layers):
+        for s in layer:
+            if isinstance(s, FeatureGeneratorStage):
+                continue
+            ins = getattr(s, "input_features", ())
+            if (any(f.is_response for f in ins)
+                    and any(not f.is_response for f in ins)):
+                first = i
+                break
+        if first is not None:
+            break
+    if first is None:
+        return ms, []
+    during = [[s for s in layer if not isinstance(s, FeatureGeneratorStage)]
+              for layer in anc_layers[first:]]
+    return ms, [l for l in during if l]
+
+
 class Workflow:
     """Declare result features + input data, then ``train()`` on
     ``device`` (reference OpWorkflow.scala:59)."""
@@ -142,6 +239,19 @@ class Workflow:
         #: host seconds of the most recent train by phase
         self.last_train_seconds: Dict[str, float] = {}
         self._listener = None
+        self._raw_feature_filter = None
+        self._rff_score_data: Any = None
+        self._workflow_cv = False
+        #: raw features removed by the RawFeatureFilter (reference
+        #: blacklistedFeatures on OpWorkflow)
+        self.blacklisted_features: Tuple[Feature, ...] = ()
+        #: RawFeatureFilterResults after train() (reference
+        #: getRawFeatureFilterResults)
+        self.raw_feature_filter_results = None
+        #: the most recent workflow-CV pre-pass and fold search: seconds
+        #: of the pre-pass, of each fold's segment refit and of the
+        #: search, and each fold's train matrix width (empty without one)
+        self.last_workflow_cv: Dict[str, Any] = {}
 
     # -- configuration -----------------------------------------------------
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -174,12 +284,23 @@ class Workflow:
 
     def with_raw_feature_filter(self, rff,
                                 score_data: Any = None) -> "Workflow":
-        raise not_ported("Workflow.with_raw_feature_filter",
-                         "checkers/raw_feature_filter.py")
+        """Enable pre-DAG raw-feature exclusion during ``train()``
+        (reference withRawFeatureFilter on OpWorkflow). ``score_data``
+        (records or a Dataset) optionally supplies scoring-time data for
+        the distribution-shift checks."""
+        self._raw_feature_filter = rff
+        self._rff_score_data = score_data
+        return self
 
     def with_workflow_cv(self) -> "Workflow":
-        raise not_ported("Workflow.with_workflow_cv (cut_dag and "
-                         "validate_prepared)", "workflow/workflow.py")
+        """Leakage-free workflow-level CV (reference withWorkflowCV,
+        OpWorkflowCore.scala:109 + OpWorkflow.scala:388-440): during
+        model selection every label-consuming ancestor stage of the
+        ModelSelector (e.g. SanityChecker) is refit inside each CV fold on
+        that fold's training rows only. The winner is then refit on the
+        full data."""
+        self._workflow_cv = True
+        return self
 
     # -- introspection -----------------------------------------------------
     def raw_features(self) -> List[Feature]:
@@ -214,20 +335,156 @@ class Workflow:
                     f"{type(stage).__name__} computes on {dev}, the "
                     f"workflow on {self.device}")
         t0 = time.perf_counter()
-        ds = _generate_raw_data(self.raw_features(), self._input_data,
+        raw = self.raw_features()
+        ds = _generate_raw_data(raw, self._input_data,
                                 require_responses=True)
         t1 = time.perf_counter()
-        plan = PreparePlan(self.result_features, device=self.device,
+        seconds = {"raw_extraction": t1 - t0}
+        result_features = self.result_features
+        self.blacklisted_features = ()
+        self.raw_feature_filter_results = None
+        self.last_workflow_cv = {}
+        if self._raw_feature_filter is not None:
+            result_features = self._filter_raw(raw, ds)
+            seconds["raw_feature_filter"] = time.perf_counter() - t1
+            _validate_distinct_uids(result_features)
+        prefitted = None
+        if self._workflow_cv:
+            t2 = time.perf_counter()
+            prefitted = self._find_best_with_workflow_cv(result_features, ds)
+            seconds["workflow_cv"] = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        plan = PreparePlan(result_features, device=self.device,
                            listener=self._listener)
-        train_ds, fitted = plan.execute(ds)
+        train_ds, fitted = plan.execute(ds, prefitted=prefitted)
         self.last_prepare_plan = plan
-        self.last_train_seconds = {"raw_extraction": t1 - t0,
-                                   "prepare_and_fit": time.perf_counter() - t1}
+        seconds["prepare_and_fit"] = time.perf_counter() - t3
+        self.last_train_seconds = seconds
         result = tuple(f.copy_with_new_stages(fitted)
-                       for f in self.result_features)
+                       for f in result_features)
         if self._listener is not None:
             self._listener.on_application_end()
-        return WorkflowModel(result_features=result, train_dataset=train_ds)
+        return WorkflowModel(
+            result_features=result, train_dataset=train_ds,
+            raw_feature_filter_results=self.raw_feature_filter_results,
+            blacklisted_feature_names=[f.name for f
+                                       in self.blacklisted_features])
+
+    def _filter_raw(self, raw: List[Feature], ds: Dataset
+                    ) -> Tuple[Feature, ...]:
+        """Run the raw feature filter over the training (and scoring) raw
+        columns and rewire the DAG without the excluded features
+        (reference generateRawData -> RawFeatureFilter
+        .generateFilteredRaw, OpWorkflow.scala:222)."""
+        from ..checkers import rewire_without
+        score_ds = None
+        if self._rff_score_data is not None:
+            score_ds = _generate_raw_data(raw, self._rff_score_data,
+                                          require_responses=False)
+        responses = [f for f in raw if f.is_response]
+        label = None
+        if len(responses) == 1 and responses[0].name in ds \
+                and ds[responses[0].name].kind == "numeric":
+            # non-numeric labels skip the null-label correlation check
+            label = np.asarray(ds[responses[0].name].data, dtype=np.float64)
+        results = self._raw_feature_filter.compute_exclusions(
+            raw, ds, score_ds, label=label)
+        self.raw_feature_filter_results = results
+        if not results.excluded_names:
+            return self.result_features
+        result_features, removed = rewire_without(
+            self.result_features, results.excluded_names)
+        self.blacklisted_features = tuple(removed)
+        return tuple(result_features)
+
+    def _find_best_with_workflow_cv(self, result_features, ds: Dataset
+                                    ) -> Optional[Dict[str, PipelineStage]]:
+        """Leakage-free model selection (reference OpWorkflow.scala:
+        388-440 + OpValidator.applyDAG:228): refit the in-CV DAG segment
+        per fold, validate the candidates on the per-fold matrices, preset
+        the winner on the selector. Returns the models the pre-pass
+        fitted (the selector's ancestors outside the segment, on the full
+        data) so that the final prepare plan reuses them; the segment
+        itself is refit on the full data there.
+
+        The pre-pass is a PreparePlan on the workflow's device over those
+        ancestors, so the fold matrices are row gathers of its device
+        matrix; the segment is refit per fold on the device. As in the
+        JAX package, the selector's splitter reserves the holdout before
+        folding, estimates one resampling plan from the search labels and
+        resamples each fold's train and validation rows with it after the
+        refit."""
+        selector, during = cut_dag(result_features)
+        if selector is None or not during:
+            return None  # nothing label-consuming feeds the selector
+        during_uids = {s.uid for layer in during for s in layer}
+        label_f, features_f = selector.input_features
+        t0 = time.perf_counter()
+        # 1. the segment's outside inputs (and the label), fitted once on
+        #    the full data: the reference's nonCVTS DAG
+        outside = [f for layer in during for s in layer
+                   for f in s.input_features
+                   if f.origin_stage is None
+                   or f.origin_stage.uid not in during_uids]
+        if label_f.origin_stage is None \
+                or label_f.origin_stage.uid not in during_uids:
+            outside.append(label_f)
+        outside = list({f.uid: f for f in outside}.values())
+        pre, prefitted = PreparePlan(outside, device=self.device
+                                     ).execute(ds)
+        if label_f.name not in pre:
+            return prefitted
+        # 2. reserve the holdout before folding so that the search never
+        #    sees it; the indices are preset on the selector so that its
+        #    final fit reuses this split
+        y_pre = host_column(pre[label_f.name]).data.astype(np.float64)
+        splitter = selector.splitter
+        reserved = None
+        if splitter is not None:
+            splitter.reset_plan()
+            tr_idx, te_idx = splitter.split(y_pre)
+            reserved = (tr_idx, te_idx)
+            if len(te_idx):
+                pre, y_pre = pre.take(tr_idx), y_pre[tr_idx]
+            est = getattr(splitter, "estimate", None)
+            if est is not None:   # one global resampling plan
+                est(y_pre)
+        t1 = time.perf_counter()
+        # 3. per fold: refit the segment on the fold's train rows,
+        #    transform its validation rows with those fitted stages, then
+        #    apply the splitter's resampling plan to both
+        validator = selector.validator
+        folds, refit_s = [], []
+        for train_idx, val_idx in validator._splits(y_pre):
+            tf = time.perf_counter()
+            tr_ds, fitted_cv = _fit_segment(during, pre.take(train_idx))
+            val_ds = _transform_with_fitted(during, fitted_cv,
+                                            pre.take(val_idx))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            refit_s.append(time.perf_counter() - tf)
+            fold = [tr_ds[features_f.name].data,
+                    host_column(tr_ds[label_f.name]).data,
+                    val_ds[features_f.name].data,
+                    host_column(val_ds[label_f.name]).data]
+            if splitter is not None:
+                ridx = splitter.prepare(fold[1])
+                vidx = splitter.prepare(fold[3])
+                fold = [take_rows(fold[0], ridx), fold[1][ridx],
+                        take_rows(fold[2], vidx), fold[3][vidx]]
+            folds.append(tuple(fold))
+        t2 = time.perf_counter()
+        selector.best_estimator = validator.validate_prepared(
+            selector.models, folds)
+        # preset only once the search succeeded
+        if reserved is not None:
+            selector.preset_split = reserved
+        self.last_workflow_cv = {
+            "prepass_seconds": t1 - t0, "fold_refit_seconds": refit_s,
+            "fold_widths": [int(f[0].shape[1]) for f in folds],
+            "fold_train_rows": [int(f[0].shape[0]) for f in folds],
+            "search_seconds": time.perf_counter() - t2}
+        return prefitted
 
 
 class WorkflowModel:
@@ -235,11 +492,17 @@ class WorkflowModel:
     transformer (reference OpWorkflowModel.scala:58)."""
 
     def __init__(self, result_features: Tuple[Feature, ...],
-                 train_dataset: Optional[Dataset] = None):
+                 train_dataset: Optional[Dataset] = None,
+                 raw_feature_filter_results=None,
+                 blacklisted_feature_names=()):
         self.result_features = tuple(result_features)
         #: transformed training data (all intermediate columns; those the
         #: prepare plan computed on the device hold tensors there)
         self.train_dataset = train_dataset
+        #: RawFeatureFilterResults carried into the fitted model and the
+        #: saved op-model.json (reference OpWorkflowModelWriter:75-120)
+        self.raw_feature_filter_results = raw_feature_filter_results
+        self.blacklisted_feature_names = list(blacklisted_feature_names)
 
     def raw_features(self) -> List[Feature]:
         return _unique_raw_features(self.result_features)
