@@ -3,12 +3,12 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--workflow-rows N] [--cv-rows N] [--out FILE]
-[--k1-only | --workflow-only | --validate-only]
+[--k1-only | --workflow-only | --validate-only | --problems-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
-``--workflow-only`` runs phases 1, 2, 8, 8b, 8c, 9 and 9b-9d,
+``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d,
 ``--validate-only`` phases 1, 2 and 9b-9d, 9b with its own exact
-search):
+search, ``--problems-only`` phases 1, 2 and 9e-9h):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -44,19 +44,24 @@ search):
      fit on both (the same iteration count, coefficients within 1e-5);
   7. single-record scoring equals batch scoring, through the winner, the
      LinearSVC, and the GBT and the 50-tree forest fitted in phase 10;
-  8. the second main path, the Titanic workflow: 200,000 synthetic
+  8. the second main path, the Titanic workflow: 100,000 synthetic
      Titanic-shaped records (``--workflow-rows``) through
      ``Workflow.train`` (typed features, transmogrify to a ~590-column
      matrix born on the card, the whole default pool under 3-fold
      stratified CV) and ``score_and_evaluate`` of the 25 % holdout:
      seconds of raw extraction, vectorizer fits, device and host-stage
      transforms, the search by family, K1 launches by family and slot
-     count, the winner and holdout AuPR / AuROC, peak memory, and the
-     bytes ``fit_columns`` copied each way (torch.profiler memcpy
-     events), which must leave the matrix on the card; a
+     count, the winner and holdout AuPR / AuROC, peak memory, and that
+     ``fit_columns`` received the matrix as a tensor on the card; a
      ``WorkflowListener`` rides along: its top stages, the models x
      folds (144) and the validator's family profile (the four families)
      beside the smoke's own family seconds;
+ 8a. [workflow-copies] the workflow on 12,000 records with the
+     card-against-CPU pool (its 9,000-row matrix binned on the card,
+     as phase 8's), the search under torch.profiler: the bytes
+     ``fit_columns`` copied each way (memcpy events), which must leave
+     the matrix on the card, and the device's idle share (phase 8's own
+     search under the profiler cost 184 s of trace handling);
  8b. [serve-saved] phase 8's model saved to a temporary directory,
      reloaded with ``load_score_function`` on the card, and
      ``SAMPLE_PASSENGER`` and 1,000 holdout records served one at a
@@ -68,7 +73,7 @@ search):
  8c. [serve-compiled] phase 8's model reloaded on the card and frozen into
      a ScoringPlan (``serving/plan.py``): its coverage, and the capture
      seconds of one CUDA graph per row bucket up to the server's
-     ``max_batch``; the 50,000 holdout records scored through graph
+     ``max_batch``; the 25,000 holdout records scored through graph
      replays (``score_batch(engine="compiled")`` and
      ``model.score(engine="compiled")``, records/s, ``bucket_profile``)
      within 1e-6 of the columnar path, bitwise equal over two runs, a
@@ -100,12 +105,41 @@ search):
      fits; then a save, compiled against columnar scoring of the holdout
      (bitwise), 1,001 served records (within 1e-6), no host fallback;
  9c. [workflow-cv] the same DAG under workflow-level CV and exact CV on
-     50,000 records (``--cv-rows``): pre-pass, per-fold refit seconds and
+     25,000 records (``--cv-rows``): pre-pass, per-fold refit seconds and
      widths, the fold searches, K1 launches, winner and holdout AuPR;
  9d. [validate-agree] both DAGs on 5,000 records on the card and on the
      CPU with phase 9's pool: equal filter results and checker columns,
      checker statistics within 1e-6, the same rung decisions (a flip only
      at a reported near tie), metrics as in phase 9, the same winner;
+ 9e. [k1-problems] K1 against its plain version at the new problem types'
+     shapes: the Iris matrix's forest (S = 3 one-hot statistics, C = 1,
+     32, 256, exact), a K = 7 forest block (S = 7, launched as blocks of
+     4 + 3 statistics, exact), the Boston regression forest's
+     [w, wy, wyy] (S = 3) and the GBT regressor's [g, h] (S = 2) at
+     C = 256, within float32 rounding; kernel, plain and ``index_add_``
+     times beside the bound;
+ 9f. [iris] the Iris example (``examples/iris.py``) on 300,000 synthetic
+     records (2,000 times the UCI data): transmogrify, the example's pool
+     (LR 8, RF 18 at 50 trees, NaiveBayes 1, DT 18, softmax XGBoost 9 =
+     54 points x 3 folds) with a DataCutter holding out 20 %: seconds by
+     stage and family, K1 launches by family and C (counted from zero
+     just before the train; every tree family must launch it), the
+     winner, holdout F1 and Error, peak memory; then save, reload, 1,001
+     holdout records served one at a time (within 1e-6 of the batch
+     score) and the holdout scored through the compiled plan (within
+     1e-6 of columnar), no host fallback, no K1 launch;
+ 9g. [boston] the same for the Boston example on 200,000 records (about
+     400 times the UCI data): the default regression pool (LinReg 8, RF
+     18, GBT 18, GLM 6 = 50 points x 3 folds) with a DataSplitter, holdout
+     RMSE and R2; then a depth-12 DecisionTreeRegressor on the prepared
+     matrix on the card (float32 [w, wy, wyy] statistics) against the
+     CPU's float64 fit: split nodes that differ;
+ 9h. [problems-agree] both examples on 3,000 records on the card and on
+     the CPU (forests at 5 trees, the same CPU draws) and a K = 7
+     multiclass array search (3,000 x 20, the default multiclass pool):
+     metric matrices within 2e-3 (relative for RMSE), the same winner
+     unless the CPU's top two lie within that; the K = 7 forests launch
+     K1 in statistic blocks;
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -179,6 +213,17 @@ SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
 RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
                   "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
+#: rows of the card-against-CPU array search (phase 6) and records of the
+#: card-against-CPU workflows (phases 9 and 9d): the sizes the tolerances
+#: were measured at (at 8,000 rows and 3,000 records an H100 came within
+#: 1.81e-3 of AGREE_TOL and past it, 1.27e-2, on LinearSVC and LR points)
+CARD_VS_CPU_ROWS = 20_000
+AGREE_RECORDS = 5_000
+#: records of the profiled workflow (8a): its matrix (9,000 x ~550) is
+#: above _DEVICE_BIN_MIN_ELEMS, so it is binned on the card as phase 8's;
+#: phase 8's own search under the profiler (26,460 K1 launches) made a
+#: 4 GB trace whose stop, export and scan took 184 s of the run
+COPIES_RECORDS = 12_000
 #: card (float32) against CPU (float64) L-BFGS coefficients at 20K rows:
 #: measured 2.8e-8 on an H100, this leaves float32 rounding a 300x margin
 #: and still fails a line search that fell back to its safe step
@@ -841,7 +886,7 @@ def tree_loop(est, X: np.ndarray, y: np.ndarray):
             float(est.min_instances_per_node), float(est.min_info_gain),
             float(est.subsampling_rate))
     return lambda: list(_forest_trees(
-        design, onehot, [lane], draws, depth=est.max_depth,
+        design, onehot, [lane], draws, kind=est.kind, depth=est.max_depth,
         num_trees=est.num_trees, impurity=est.impurity,
         bootstrap=est.bootstrap, max_features=mf, pool=pool))
 
@@ -1743,7 +1788,20 @@ def _norm_uid(name):
     return None if name is None else re.sub(r"[0-9a-f]{12}", "UID", name)
 
 
-def phase_workflow_agree(device, rows: int = 5000, num_rounds: int = 20,
+def phase_workflow_copies(device, rows: int = COPIES_RECORDS) -> dict:
+    """[workflow-copies]: the Titanic workflow on ``rows`` records with the
+    card-against-CPU pool, its search under torch.profiler: the bytes
+    ``fit_columns`` copies each way (which must stay below the matrix's:
+    the matrix stays on the card) and the device's idle share."""
+    out = phase_workflow(device, rows, tag="workflow-copies", profile=True,
+                         models=small_models(device))
+    out.pop("run")
+    out.pop("holdout_records")
+    return out
+
+
+def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
+                         num_rounds: int = 20,
                          num_trees: int = 5) -> dict:
     """The Titanic workflow on ``rows`` records on ``device`` (float32 on a
     card) and on the CPU (float64), with the card-against-CPU pool (the
@@ -2361,7 +2419,8 @@ def _agree_prunes(card_rungs: list, cpu_rungs: list, results,
                                for a, b in zip(card_rungs, cpu_rungs))}
 
 
-def phase_validate_agree(device, rows: int = 5000, num_rounds: int = 20,
+def phase_validate_agree(device, rows: int = AGREE_RECORDS,
+                         num_rounds: int = 20,
                          num_trees: int = 5) -> dict:
     """[validate-agree]: the validated DAG on ``rows`` records on the card
     (float32) and on the CPU (float64) with the card-against-CPU pool,
@@ -2441,6 +2500,516 @@ def phase_validation(device, rows: int, cv_rows: int, exact=None) -> dict:
             "validate_agree": phase_validate_agree(device)}
 
 
+# ---------------------------------------------------------------------------
+# the multiclass and regression problem types: [k1-problems], [iris],
+# [boston], [problems-agree]
+# ---------------------------------------------------------------------------
+
+#: records of the Iris path: 2,000 times the UCI data's 150
+IRIS_ROWS = 300_000
+#: records of the Boston path: about 400 times the UCI data's 506
+BOSTON_ROWS = 200_000
+#: records of each example in the card-against-CPU phase
+PROBLEMS_AGREE_ROWS = 3000
+#: trees of the forests in the card-against-CPU phase
+AGREE_TREES = 5
+#: classes and shape of the multiclass array search in that phase
+WIDE_K, WIDE_ROWS, WIDE_COLS = 7, 3000, 20
+#: a DecisionTreeRegressor fit on the Boston matrix, card against CPU:
+#: the depth whose split heaps are compared. Measured on an H100 at
+#: 200,000 x 26: no node of 4,095 differs, with the label centred on the
+#: card or not, so the card keeps the JAX package's raw statistics
+VARIANCE_DEPTH = 12
+#: card against CPU relative RMSE of a GBTRegressor point of depth 6 or
+#: more on the Boston records: its leaves hold a few rows, float32 sums of
+#: residuals break near ties in gain otherwise than float64, and a split
+#: that flips in one round moves every later round. Measured on an H100
+#: at 2,000 training rows: up to 6.43e-3 at depth 12 (min_child_weight 1),
+#: 3.21e-3 at depth 6; every other point of either example <= 4.2e-4
+GBT_REG_DEEP_TOL = 1e-2
+
+
+def iris_matrix(rows: int, seed: int = 42):
+    """The Iris DAG's prepared matrix as numpy, without the workflow: each
+    real value and its null indicator (0: the synthetic records have no
+    nulls), the label."""
+    from transmogrifai_tpu_torch.examples import iris
+    recs = iris.synthetic_iris(rows, seed)
+    vals = np.array([[r[f] for f in iris.FEATURES] for r in recs])
+    X = np.stack([vals, np.zeros_like(vals)], axis=2).reshape(rows, -1)
+    return X, np.array([r["label"] for r in recs])
+
+
+def boston_matrix(rows: int, seed: int = 42):
+    """The Boston DAG's columns as numpy (each real value with its null
+    indicator, then chas and its indicator) and medv."""
+    from transmogrifai_tpu_torch.examples import boston
+    recs = boston.synthetic_boston(rows, seed)
+    cols = [c for c in boston.COLUMNS if c not in ("chas", "medv")]
+    vals = np.array([[r[c] for c in cols + ["chas"]] for r in recs])
+    X = np.stack([vals, np.zeros_like(vals)], axis=2).reshape(rows, -1)
+    return X, np.array([r["medv"] for r in recs])
+
+
+def wide_multiclass(rows: int, cols: int, k: int, seed: int = 3):
+    """A make_data-like non-negative matrix (a fifth uniform, the rest
+    Bernoulli(0.15)) with a ``k``-class label: the argmax of k noisy
+    linear scores."""
+    rng = np.random.default_rng(seed)
+    n_num = max(cols // 5, 1)
+    X = np.concatenate([rng.uniform(size=(rows, n_num)),
+                        (rng.uniform(size=(rows, cols - n_num)) < 0.15
+                         ).astype(float)], axis=1)
+    W = rng.normal(size=(cols, k))
+    y = np.argmax(X @ W + rng.gumbel(size=(rows, k)) * 0.5, axis=1)
+    return X, y.astype(np.float64)
+
+
+def _problem_k1_stats(design, kind: str, y: np.ndarray, seed: int = 42):
+    """(n, S) statistics of a tree of each problem path: one-hot labels
+    times Poisson(1) weights times a fold mask ("cls"), [w, wy, wyy] of
+    the label centred as the card's search centres it ("reg"), or the
+    squared booster's [g, h] times the mask ("gbt")."""
+    n = design.n
+    draws = TorchDraws(seed, 1)
+    mask = (torch.arange(n) % 3 != 0).to(torch.float64)
+    w = draws.poisson(0, 1.0, n) * mask
+    if kind == "cls":
+        k = int(y.max()) + 1
+        st = np.eye(k)[y.astype(np.int64)] * w.numpy()[:, None]
+    elif kind == "reg":
+        st = np.stack([w.numpy(), w.numpy() * y, w.numpy() * y * y], 1)
+    else:
+        g = (y[mask.numpy() > 0].mean() - y) * mask.numpy()
+        st = np.stack([g, mask.numpy()], 1)
+    return _on(st, design.dtype, design.device).contiguous()
+
+
+def phase_k1_problems(device: torch.device) -> dict:
+    """[k1-problems]: K1 against its plain version at the new problem
+    paths' shapes: the Iris matrix's forest at S = 3 (C = 1, 32, 256,
+    exact), a K = 7 block (S = 7, split by ``HistPlan.stat_blocks`` into
+    4 + 3 statistics, exact), the Boston regression forest's S = 3
+    [w, wy, wyy] and the GBT regressor's S = 2 [g, h] (C = 256, within
+    float32 rounding); kernel, plain and ``index_add_`` times beside the
+    memory bound."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    cases = []
+    X, y = iris_matrix(IRIS_ROWS)
+    shapes = [("iris forest", X[:int(0.8 * IRIS_ROWS)],
+               y[:int(0.8 * IRIS_ROWS)], "cls", (1, 32, 256), True)]
+    Xw, yw = wide_multiclass(int(0.8 * IRIS_ROWS), WIDE_COLS, WIDE_K)
+    shapes.append((f"K={WIDE_K} forest block", Xw, yw, "cls", (32, 256),
+                   True))
+    Xb, yb = boston_matrix(BOSTON_ROWS)
+    nb = int(0.8 * BOSTON_ROWS)
+    shapes.append(("boston forest [w,wy,wyy]", Xb[:nb], yb[:nb], "reg",
+                   (256,), False))
+    shapes.append(("boston GBT [g,h]", Xb[:nb], yb[:nb], "gbt", (256,),
+                   False))
+    for label, Xs, ys, kind, slots, exact in shapes:
+        design = _PackedDesign(Xs, 32, device)
+        st = _problem_k1_stats(design, kind, ys)
+        plan = design.hist_plan(st.shape[1])
+        blocks = [b - a for a, b, _ in plan.stat_blocks()]
+        log(f"[k1-problems] {label}: n={design.n} d={design.d} "
+            f"TB={design.total_bins} S={st.shape[1]} launch blocks "
+            f"{blocks}")
+        for C in slots:
+            slot = torch.randint(0, C, (design.n,), generator=gen,
+                                 device=device, dtype=torch.int32)
+            case = k1_case(f"{label} C={C}", design.ids, design.offsets,
+                           slot, st, C, design.total_bins, plan,
+                           exact=exact)
+            case["stat_blocks"] = blocks
+            cases.append(case)
+        del design, st
+        clear_design_cache()
+    return {"cases": cases}
+
+
+def _serve_problem(run, tag: str, served: int = 1000) -> dict:
+    """Save the run's model, reload it on its device, serve ``served``
+    holdout records one at a time (within SERVE_SCORE_TOL of the batch
+    ``score``), and score the holdout through the compiled plan (within
+    COMPILED_SCORE_TOL of the columnar path), with no host fallback and
+    no K1 launch."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.runtime import telemetry
+    from transmogrifai_tpu_torch.workflow.persistence import load_model
+    dev = run.workflow.device
+    pred = run.prediction.name
+    holdout = run.holdout
+    records = list(holdout[:served + 1])
+    out: dict = {}
+    level_hist.launches = 0
+    before = telemetry.counters()
+    tmp = tempfile.mkdtemp(prefix=f"{tag}_")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        run.model.save(path)
+        out["save_s"] = time.perf_counter() - t0
+        out["arrays_npz_bytes"] = os.path.getsize(
+            os.path.join(path, "arrays.npz"))
+        t0 = time.perf_counter()
+        loaded = load_model(path, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = loaded.score(holdout, engine="compiled")
+        out["score_compiled_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        columnar = loaded.score(holdout)
+        out["score_columnar_s"] = time.perf_counter() - t0
+        plan = loaded.scoring_plan()
+        out["plan_fallback_stages"] = plan.fallbacks()
+        fn = load_score_function(path, device=dev)
+        rows, ms = _serve_all(fn, records, pred, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = telemetry.counters()
+    out["host_fallback_batches"] = after.get(
+        "serving_host_fallback_batches", 0) - before.get(
+        "serving_host_fallback_batches", 0)
+    a, b = compiled[pred], columnar[pred]
+    out["max_abs_diff_compiled"] = float(max(
+        np.abs(a.data - b.data).max(),
+        np.abs(a.probability - b.probability).max(initial=0.0),
+        np.abs(a.raw_prediction - b.raw_prediction).max(initial=0.0)))
+    batch = [dict(b.boxed(i).value) for i in range(len(records))]
+    out["max_abs_diff_served"] = _max_gap(rows, batch)
+    out.update(serve_ms_p50=float(np.percentile(ms, 50)),
+               serve_ms_p99=float(np.percentile(ms, 99)),
+               serve_ms_mean=float(ms.mean()), served=len(records),
+               holdout=len(holdout), k1_launches=level_hist.launches,
+               winner_class=type(next(
+                   s for s in loaded.stages()
+                   if type(s).__name__ == "SelectedModel").inner).__name__)
+    log(f"[{tag}] saved in {out['save_s']:.3f} s (arrays.npz "
+        f"{out['arrays_npz_bytes']} bytes), loaded on {dev} in "
+        f"{out['load_s']:.3f} s; {len(holdout)} holdout records compiled "
+        f"{out['score_compiled_s']:.3f} s, columnar "
+        f"{out['score_columnar_s']:.3f} s, max |compiled - columnar| "
+        f"{out['max_abs_diff_compiled']:.3e} (tol {COMPILED_SCORE_TOL}); "
+        f"{len(records)} records served one at a time: p50 "
+        f"{out['serve_ms_p50']:.3f} ms, p99 {out['serve_ms_p99']:.3f} ms, "
+        f"max |served - batch| {out['max_abs_diff_served']:.3e} (tol "
+        f"{SERVE_SCORE_TOL}); plan host stages "
+        f"{out['plan_fallback_stages']}, host fallback batches "
+        f"{out['host_fallback_batches']}; K1 launches {out['k1_launches']}")
+    if out["max_abs_diff_compiled"] > COMPILED_SCORE_TOL:
+        raise AssertionError(f"[{tag}] compiled scores differ from "
+                             f"columnar")
+    if out["max_abs_diff_served"] > SERVE_SCORE_TOL:
+        raise AssertionError(f"[{tag}] served records differ from the "
+                             f"batch score")
+    if out["host_fallback_batches"] or out["k1_launches"]:
+        raise AssertionError(f"[{tag}] serving fell back to the host or "
+                             f"launched K1")
+    return out
+
+
+def phase_problem(device, example, records, tag: str, models=None,
+                  serve: bool = True) -> dict:
+    """One problem path: ``example.run`` (``Workflow.train``: typed
+    features, transmogrify, the selector's holdout cut and search, the
+    winner's refit and holdout evaluation) on ``records`` on ``device``,
+    timed by stage and by family, K1's launches by family and slot count
+    counted from zero just before the train; then, with ``serve``, save,
+    reload and serve (``_serve_problem``). Fails unless every tree family
+    launched K1 on a card and the metrics are finite."""
+    dev = resolve_device(device)
+    sel = example.default_selector(dev, models=models)
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families)
+    clear_design_cache()
+    validator.reset_family_profile()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    run = example.run(records, device=dev, models=sel.models)
+    launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
+    selected = run.model.result_features[0].origin_stage
+    s = selected.summary
+    mm = metric_matrix(selected)
+    plan = run.workflow.last_prepare_plan
+    search_label = next(k for k in plan.fit_seconds
+                        if k.startswith("ModelSelector("))
+    X = run.model.train_dataset[run.vector.name].data
+    larger = s.metric_larger_better
+    means = mm.mean(axis=0)
+    out = {"records": len(records), "matrix_shape": list(X.shape),
+           "matrix_device": str(X.device),
+           "train_s": sum(run.workflow.last_train_seconds.values()),
+           "workflow_seconds": dict(run.workflow.last_train_seconds),
+           "search_s": plan.fit_seconds[search_label],
+           "selector_timings_s": dict(s.timings), "families": families,
+           "k1_launches": launches, "k1_launches_by_c": by_c,
+           "winner": s.best_model_name, "winner_params": s.best_model_params,
+           "winner_index": int(np.argmax(means) if larger
+                               else np.argmin(means)),
+           "best_metric": s.best_validation_metric,
+           "metric": s.evaluation_metric,
+           "holdout": run.metrics.to_json(), "metric_matrix": mm.tolist(),
+           "candidates": [(r.model_name, r.params)
+                          for r in s.validation_results],
+           "data_prep": s.data_prep_results, "run": run}
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    hold = {k: v for k, v in out["holdout"].items()
+            if isinstance(v, float)}
+    log(f"[{tag}] {len(records)} records on {dev}: prepared matrix "
+        f"{tuple(X.shape)} {X.dtype} on {X.device}; train "
+        f"{out['train_s']:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["workflow_seconds"].items())
+        + f"), search {out['search_s']:.3f} s; selector stages "
+        f"{json.dumps({k: round(v, 3) for k, v in s.timings.items()})}")
+    out["host_path_s"] = s.timings["validate"] - sum(
+        rec["seconds"] for rec in families.values())
+    log(f"[{tag}] families validated candidate by candidate on the host "
+        f"path (the multinomial LR, a family whose device search declined):"
+        f" {out['host_path_s']:.2f} s of the validate stage")
+    for name, rec in families.items():
+        log(f"[{tag}] {name}: {rec['candidates']} models x folds in "
+            f"{rec['seconds']:.2f} s; K1 launches "
+            f"{rec.get('k1_launches', 0)}: " + " ".join(
+                f"C={c}:{k}" for c, k in rec["k1_launches_by_c"].items()))
+    log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} mean "
+        f"{s.evaluation_metric} {s.best_validation_metric:.6f}; holdout "
+        + " ".join(f"{k} {v:.6f}" for k, v in hold.items())
+        + f"; K1 launches {launches}"
+        + (f"; max_memory_allocated {out['max_memory_allocated']}"
+           if "max_memory_allocated" in out else ""))
+    if not np.all(np.isfinite(mm)) or not all(np.isfinite(list(
+            hold.values()))):
+        raise AssertionError(f"[{tag}] non-finite metrics: {mm}, {hold}")
+    if dev.type == "cuda":
+        idle = [f for f in families if "Forest" in f or "Tree" in f
+                or "GBT" in f or "XGBoost" in f
+                if families[f].get("k1_launches", 0) == 0]
+        if launches == 0 or idle:
+            raise AssertionError(f"[{tag}] K1 never launched by "
+                                 f"{idle or 'the workflow'}")
+    if serve:
+        out["serve"] = _serve_problem(run, f"{tag}-serve")
+    return out
+
+
+def _variance_check(device, X: np.ndarray, y: np.ndarray) -> dict:
+    """A DecisionTreeRegressor of depth VARIANCE_DEPTH on the Boston
+    matrix on ``device`` (float32 [w, wy, wyy] statistics summed by K1 on
+    a card) against the CPU's float64 fit: the split heaps' nodes whose
+    feature or threshold differ (thresholds compared to 1e-5 of their
+    size: the card bins in float32), and both fits' RMSE on the
+    matrix."""
+    cpu = trees.DecisionTreeRegressor(max_depth=VARIANCE_DEPTH,
+                                      device="cpu").fit_arrays(X, y)
+    card = trees.DecisionTreeRegressor(max_depth=VARIANCE_DEPTH,
+                                       device=device).fit_arrays(X, y)
+    f, t = card.feats.cpu().numpy(), card.thrs.double().cpu().numpy()
+    cf, ct = cpu.feats.numpy(), cpu.thrs.numpy()
+    with np.errstate(invalid="ignore"):
+        close = (np.isinf(t) & np.isinf(ct)) | (
+            np.abs(t - ct) <= 1e-5 * np.maximum(np.abs(ct), 1.0))
+    out = {"nodes": int(cf.size),
+           "nodes_differing": int(np.sum((f != cf) | ~close)),
+           "rmse": float(np.sqrt(np.mean(
+               (card.predict_arrays(X).data - y) ** 2))),
+           "cpu_rmse": float(np.sqrt(np.mean(
+               (cpu.predict_arrays(X).data - y) ** 2)))}
+    clear_design_cache()
+    log(f"[boston] variance statistics, DecisionTreeRegressor depth "
+        f"{VARIANCE_DEPTH} on {X.shape}: split nodes differing from the "
+        f"CPU's {out['nodes_differing']} of {out['nodes']}; RMSE on "
+        f"{device} {out['rmse']:.6f}, cpu {out['cpu_rmse']:.6f}")
+    return out
+
+
+def phase_iris(device, rows: int = IRIS_ROWS) -> dict:
+    """[iris]: the Iris example (``examples/iris.py``) on ``rows``
+    synthetic records: the example's five-family pool (LR 8, RF 18 at 50
+    trees, NaiveBayes 1, DT 18, XGBoost 9 points, x 3 folds) and its
+    DataCutter(reserve_test_fraction=0.2), then save, serve and compiled
+    scoring."""
+    from transmogrifai_tpu_torch.examples import iris
+    t0 = time.perf_counter()
+    records = iris.synthetic_iris(rows)
+    gen_s = time.perf_counter() - t0
+    out = phase_problem(device, iris, records, "iris")
+    out["generate_s"] = gen_s
+    if len(out["candidates"]) != 54:
+        raise AssertionError(f"[iris] {len(out['candidates'])} candidates, "
+                             f"not the example's 54")
+    return out
+
+
+def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
+    """[boston]: the Boston example (``examples/boston.py``) on ``rows``
+    synthetic records: the default regression pool (LinearRegression 8,
+    RF 18 at 50 trees, GBT 18, GLM 6 points, x 3 folds) and its
+    DataSplitter(reserve_test_fraction=0.2), then save, serve and
+    compiled scoring; last, the variance statistics' card-against-CPU
+    check (``_variance_check``)."""
+    from transmogrifai_tpu_torch.examples import boston
+    t0 = time.perf_counter()
+    records = boston.synthetic_boston(rows)
+    gen_s = time.perf_counter() - t0
+    out = phase_problem(device, boston, records, "boston")
+    out["generate_s"] = gen_s
+    if len(out["candidates"]) != 50:
+        raise AssertionError(f"[boston] {len(out['candidates'])} "
+                             f"candidates, not the default pool's 50")
+    # the prepared matrix of every record, in record order
+    X = out["run"].model.train_dataset[out["run"].vector.name].data
+    out["variance"] = _variance_check(
+        device, X.double().cpu().numpy(),
+        np.array([r["medv"] for r in records]))
+    return out
+
+
+def _problem_models(example, device, num_trees: int = AGREE_TREES):
+    """The example's pool on ``device`` with its forests at ``num_trees``
+    trees (their grids whole)."""
+    sel = example.default_selector(device)
+    out = []
+    for est, grid in sel.models:
+        if hasattr(est, "num_trees") and type(est).__name__.startswith(
+                "RandomForest"):
+            est = est.with_params(num_trees=num_trees)
+        out.append((est, grid))
+    return out
+
+
+def _agree(card: dict, cpu: dict, tag: str, relative: bool) -> dict:
+    """Metric matrices within AGREE_TOL (relative to the CPU's value for
+    RMSE-like metrics) and the same winner unless the CPU's top two means
+    lie within it."""
+    a, b = (np.asarray(r["metric_matrix"]) for r in (card, cpu))
+    gap = np.abs(a - b) / (np.abs(b) if relative else 1.0)
+    names = [n for n, _ in cpu["candidates"]]
+    tol = np.array([GBT_REG_DEEP_TOL if n == "GBTRegressor"
+                    and p.get("max_depth", 5) >= 6 else AGREE_TOL
+                    for n, p in cpu["candidates"]])
+    by_family = {f: gap[:, [i for i, n in enumerate(names) if n == f]]
+                 .max(axis=0).tolist() for f in dict.fromkeys(names)}
+    means = b.mean(axis=0)
+    order = np.sort(means)[::-1] if not relative else np.sort(means)
+    scale = abs(order[0]) if relative else 1.0
+    close = len(order) > 1 and abs(order[0] - order[1]) < AGREE_TOL * scale
+    same = card["winner_index"] == cpu["winner_index"]
+    over = [(names[i], cpu["candidates"][i][1], float(gap[:, i].max()))
+            for i in range(gap.shape[1]) if gap[:, i].max() > tol[i]]
+    named = [(names[i], cpu["candidates"][i][1], float(gap[:, i].max()))
+             for i in range(gap.shape[1])
+             if AGREE_TOL < gap[:, i].max() <= tol[i]]
+    log(f"[problems-agree] {tag}: max |card - cpu|"
+        f"{' / |cpu|' if relative else ''} {float(gap.max()):.3e} (tol "
+        f"{AGREE_TOL}) by family and grid point {json.dumps(by_family)}; "
+        f"winner card {card['winner_index']} ({card['winner']}) cpu "
+        f"{cpu['winner_index']} ({cpu['winner']})"
+        f"{' (top two within tol)' if close else ''}; points within "
+        f"GBT_REG_DEEP_TOL {GBT_REG_DEEP_TOL} only (deep GBT regression "
+        f"trees, float32 gain ties): {named}; points over their tol "
+        f"{over}")
+    if over or not (same or close):
+        raise AssertionError(f"[problems-agree] {tag}: card and CPU "
+                             f"searches disagree")
+    return {"max_diff": float(gap.max()), "relative": relative,
+            "by_family": by_family, "same_winner": same,
+            "within_deep_gbt_tol_only": named,
+            "card_winner": card["winner"], "cpu_winner": cpu["winner"]}
+
+
+def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
+    """[problems-agree]: both examples on ``rows`` records on the card
+    (float32) and on the CPU (float64), forests at AGREE_TREES trees, the
+    draws from the same CPU generators; then a K = 7 multiclass array
+    search (WIDE_ROWS x WIDE_COLS, the default multiclass pool with its
+    forests at AGREE_TREES trees), whose forests run K1 in split
+    statistic blocks on the card."""
+    from transmogrifai_tpu_torch.examples import boston, iris
+    out = {}
+    for example, tag, relative in ((iris, "iris", False),
+                                   (boston, "boston", True)):
+        records = (example.synthetic_iris(rows, seed=7) if tag == "iris"
+                   else example.synthetic_boston(rows, seed=7))
+        t0 = time.perf_counter()
+        card = phase_problem(device, example, records, f"agree-{tag}-card",
+                             models=_problem_models(example, device),
+                             serve=False)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = phase_problem("cpu", example, records, f"agree-{tag}-cpu",
+                            models=_problem_models(example, "cpu"),
+                            serve=False)
+        cpu_s = time.perf_counter() - t0
+        out[tag] = _agree(card, cpu, tag, relative)
+        out[tag].update(card_s=card_s, cpu_s=cpu_s)
+    from transmogrifai_tpu_torch.models.registry import (
+        default_multiclass_models)
+    from transmogrifai_tpu_torch.selector import (
+        MultiClassificationModelSelector)
+    X, y = wide_multiclass(WIDE_ROWS, WIDE_COLS, WIDE_K)
+    runs = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        dev = resolve_device(where)
+        models = [(est.with_params(num_trees=AGREE_TREES)
+                   if type(est).__name__ == "RandomForestClassifier"
+                   else est, grid)
+                  for est, grid in default_multiclass_models(dev)]
+        sel = MultiClassificationModelSelector.with_cross_validation(
+            models=models, device=dev)
+        families: dict = {}
+        for est, _ in sel.models:
+            time_family(est, families)
+        level_hist.launches = 0
+        level_hist.launches_by_c.clear()
+        t0 = time.perf_counter()
+        fitted = sel.fit_arrays(X if dev.type == "cpu" else
+                                torch.as_tensor(X, dtype=torch.float32,
+                                                device=dev), y)
+        s = fitted.summary
+        mm = metric_matrix(fitted)
+        runs[side] = {
+            "metric_matrix": mm.tolist(), "winner": s.best_model_name,
+            "winner_index": int(np.argmax(mm.mean(axis=0))),
+            "candidates": [(r.model_name, r.params)
+                           for r in s.validation_results],
+            "seconds": time.perf_counter() - t0, "families": families,
+            "k1_launches": level_hist.launches,
+            "k1_launches_by_c": dict(sorted(
+                level_hist.launches_by_c.items()))}
+        log(f"[problems-agree] K={WIDE_K} array search {X.shape} on {dev}: "
+            f"{runs[side]['seconds']:.2f} s, winner "
+            f"{s.best_model_name} {s.best_model_params}; K1 launches "
+            f"{level_hist.launches}")
+    out[f"k{WIDE_K}"] = _agree(runs["card"], runs["cpu"], f"K={WIDE_K}",
+                               False)
+    out[f"k{WIDE_K}"]["k1_launches"] = runs["card"]["k1_launches"]
+    out[f"k{WIDE_K}"]["k1_launches_by_c"] = runs["card"]["k1_launches_by_c"]
+    if resolve_device(device).type == "cuda" and \
+            runs["card"]["k1_launches"] == 0:
+        raise AssertionError(f"[problems-agree] the K={WIDE_K} search "
+                             f"launched no K1")
+    clear_design_cache()
+    return out
+
+
+def phase_problems(device) -> dict:
+    """The four phases of the multiclass and regression slice."""
+    out = {"k1": phase_k1_problems(device)}
+    out["iris"] = phase_iris(device)
+    out["boston"] = phase_boston(device)
+    out["agree"] = phase_problems_agree(device)
+    return out
+
+
 def write_out(path, result: dict) -> None:
     """Every measurement as JSON at ``path``, when one is given."""
     if not path:
@@ -2448,6 +3017,23 @@ def write_out(path, result: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(result, fh, indent=1, default=str)
+
+
+class Laps:
+    """Wall seconds of each phase of a run, in order (each lap ends where
+    the next begins)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._t, 1)
+        self._t = now
+
+    def log(self) -> None:
+        log(f"[phase-seconds] {json.dumps(self.seconds)}")
 
 
 def main(argv=None) -> int:
@@ -2459,26 +3045,42 @@ def main(argv=None) -> int:
                     help="stop after phase 3 and print its JSON last: "
                          "times K1 alone, e.g. in edited copies of a "
                          "checkout run in turns")
-    ap.add_argument("--workflow-rows", type=int, default=200_000,
+    ap.add_argument("--workflow-rows", type=int, default=100_000,
                     help="records of the Titanic workflow phase")
     ap.add_argument("--workflow-only", action="store_true",
                     help="run only the build and the workflow phases "
                          "and print their JSON last")
-    ap.add_argument("--cv-rows", type=int, default=50_000,
+    ap.add_argument("--cv-rows", type=int, default=25_000,
                     help="records of the workflow-CV phase")
     ap.add_argument("--validate-only", action="store_true",
                     help="run only the build and the feature-validation "
                          "phases ([validate] with its own exact search, "
                          "[workflow-cv], [validate-agree]) and print "
                          "their JSON last")
+    ap.add_argument("--problems-only", action="store_true",
+                    help="run only the build and the multiclass and "
+                         "regression phases ([k1-problems], [iris], "
+                         "[boston], [problems-agree]) and print their "
+                         "JSON last")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     device = resolve_device("cuda")
+    laps = Laps()
     info = phase_device()
     phase_build()
+    laps("device+build")
+    if args.problems_only:
+        problems = phase_problems(device)
+        laps("9e-9h problems")
+        write_out(args.out, {"device": info, "problems": problems})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"problems": problems}, default=str))
+        return 0
     if args.validate_only:
         checks = phase_validation(device, args.workflow_rows, args.cv_rows)
         write_out(args.out, {"device": info, **checks})
@@ -2487,7 +3089,8 @@ def main(argv=None) -> int:
         print(json.dumps(checks, default=str))
         return 0
     if args.workflow_only:
-        wf_run = phase_workflow(device, args.workflow_rows)
+        wf_run = phase_workflow(device, args.workflow_rows, profile=False)
+        wf_run["copies"] = phase_workflow_copies(device)
         serve_saved, serve_compiled = phase_serving(wf_run)
         wf_agree = phase_workflow_agree(device)
         checks = phase_validation(device, args.workflow_rows, args.cv_rows,
@@ -2504,14 +3107,17 @@ def main(argv=None) -> int:
                          default=str))
         return 0
     X, y = make_data(args.rows, COLS)
+    laps("data")
     k1 = phase_k1(device, X)
     k1["forest"] = phase_k1_forest(device, X, y)
+    laps("3 k1")
     if args.k1_only:
         write_out(args.out, {"device": info, "k1": k1})
         log(info["smi"])
         print(json.dumps({"k1": k1}))
         return 0
     main_run = phase_main(device, X, y)
+    laps("4 main")
     selected = main_run.pop("selected")
     # K1's share of the search: launches at each C times its time there,
     # at each family's shape (the refit at the winner's)
@@ -2529,24 +3135,36 @@ def main(argv=None) -> int:
             f"{k1_s[name]:.3f} s of {rec['seconds']:.2f} s")
     main_run["k1_seconds_estimate"] = k1_s
     phase_serve(selected, X[-1000:])
+    laps("7 serve")
     # the linear products and the search profiles run on the search's
     # own rows
     X_s, y_s = search_rows(X, y)
     linear_ops = phase_linear_ops(device, X_s, y_s)
     lbfgs, svc = phase_lbfgs(device, X, y)
     phase_serve(svc, X[-1000:], tag="serve-svc")
-    agree = phase_card_vs_cpu(device, 20_000, COLS)
+    laps("5 linear")
+    agree = phase_card_vs_cpu(device, CARD_VS_CPU_ROWS, COLS)
+    laps("6 agree")
     # the second main path: the Titanic workflow, its matrix born on the
     # card; K1's counts are zeroed inside, just before its train
-    wf_run = phase_workflow(device, args.workflow_rows)
+    wf_run = phase_workflow(device, args.workflow_rows, profile=False)
+    wf_run["copies"] = phase_workflow_copies(device)
+    laps("8 workflow")
     # the third and fourth paths: save, reload and serve phase 8's model
     # record by record, then through the compiled plan and the server
     serve_saved, serve_compiled = phase_serving(wf_run)
+    laps("8b-8c serving")
     wf_agree = phase_workflow_agree(device)
+    laps("9 wf-agree")
     # the feature-validation paths: the validated DAG raced at phase 8's
     # size (its exact search is phase 8's), workflow CV, card against CPU
     checks = phase_validation(device, args.workflow_rows, args.cv_rows,
                               exact=exact_of(wf_run))
+    laps("9b-9d validation")
+    # the multiclass and regression paths: Iris and Boston, each counted
+    # from zero just before its train
+    problems = phase_problems(device)
+    laps("9e-9h problems")
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -2562,9 +3180,10 @@ def main(argv=None) -> int:
         "RF search, depth-12 group (6 points x 3 folds), 5 trees",
         search_slice(device, X_s, y_s))
     clear_design_cache()
+    laps("10 profiles")
     validate, wf_cv = checks["validate"], checks["workflow_cv"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
-        validate["rung_k1_case"]]
+        validate["rung_k1_case"]] + problems["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -2595,14 +3214,23 @@ def main(argv=None) -> int:
                  name: rec["k1_launches"]
                  for name, rec in wf_cv["families"].items()},
              "cases": cases}
+    for tag in ("iris", "boston"):
+        run = problems[tag]
+        entry[f"launches_{tag}"] = run["k1_launches"]
+        entry[f"launches_{tag}_by_c"] = run["k1_launches_by_c"]
+        entry[f"launches_{tag}_by_family"] = {
+            name: rec.get("k1_launches", 0)
+            for name, rec in run["families"].items()}
     write_out(args.out, {"device": info, "k1": k1, "main": main_run,
                          "linear_ops": linear_ops, "lbfgs": lbfgs,
                          "agree": agree, "workflow": wf_run,
                          "serve_saved": serve_saved,
                          "serve_compiled": serve_compiled,
                          "workflow_agree": wf_agree, **checks,
-                         "profile": prof,
+                         "problems": problems, "profile": prof,
+                         "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})
+    laps.log()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(info["smi"])
     print(json.dumps({"kernels": [entry]}))

@@ -2,10 +2,12 @@
 families of the default pool), card-against-CPU, L-BFGS and
 single-record phases, the linear search slice and the forest-shape K1
 inputs (random and a real level's slots), the workflow's save-and-serve
-and compiled-serving phases and the feature-validation phases
-([validate], [workflow-cv], [validate-agree]) at a tiny size on an
-explicit CPU device, the serving and validation phases' wiring into the
-runs, and the script's refusal to run without a card."""
+and compiled-serving phases, the feature-validation phases
+([validate], [workflow-cv], [validate-agree]) and the multiclass and
+regression phases ([k1-problems]' inputs, [iris], [boston],
+[problems-agree]) at a tiny size on an explicit CPU device, the serving,
+validation and problem phases' wiring into the runs (``--problems-only``
+among them), and the script's refusal to run without a card."""
 import os
 import subprocess
 import sys
@@ -300,8 +302,10 @@ def test_serve_compiled_is_wired_in(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_device", lambda: {
         "kind": "fake", "count": 1, "smi": "fake, 1 W"})
     monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
-    monkeypatch.setattr(chip_smoke, "phase_workflow", lambda dev, rows: {
-        "run": "run", "holdout_records": list(range(1500)), "rows": rows})
+    monkeypatch.setattr(chip_smoke, "phase_workflow",
+                        lambda dev, rows, **kw: {
+                            "run": "run", "holdout_records": list(range(1500)),
+                            "rows": rows})
     monkeypatch.setattr(chip_smoke, "phase_serve_saved",
                         lambda run, hold: calls.append(("8b", len(hold)))
                         or {"k1_launches": 0})
@@ -319,7 +323,7 @@ def test_serve_compiled_is_wired_in(monkeypatch, capsys):
                         lambda wf: {"source": "phase 8 " + str(wf["rows"])})
     assert chip_smoke.main(["--workflow-only"]) == 0
     assert calls == [("8b", 1000), ("8c", 1500), ("9", 0),
-                     ("validation", 200_000, 50_000, "phase 8")]
+                     ("validation", 100_000, 25_000, "phase 8")]
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["serve_compiled"] == {"k1_launches": 0}
     assert inspect.getsource(chip_smoke.main).count(
@@ -450,3 +454,137 @@ def test_memcpy_window_reads_copy_bytes():
     assert out == {"dtoh_bytes": 4000004, "htod_bytes": 1000000,
                    "dtoh_copies": 2, "htod_copies": 1}
     assert abs(busy - (540.824 + 21.311 + 100.5 + 2.0 + 3.616) / 1e3) < 1e-12
+
+
+_PROBLEM_MODELS = chip_smoke._problem_models
+
+
+def _small_problem_models(example, device, num_trees=1):
+    """The example's pool with every grid cut to two points, forests at
+    one tree and boosters at two rounds (a CPU rehearsal's size)."""
+    out = []
+    for est, grid in _PROBLEM_MODELS(example, device, num_trees):
+        name = type(est).__name__
+        if name == "XGBoostClassifier":
+            est = est.with_params(num_round=2)
+        if name == "GBTRegressor":
+            est = est.with_params(num_rounds=2)
+        out.append((est, grid[:2]))
+    return out
+
+
+@pytest.mark.parametrize("name", ["iris", "boston"])
+def test_problem_phase(name):
+    """[iris] / [boston] on the CPU at a tiny size: the example's run with
+    every family timed, the metric matrix finite, then save, reload,
+    records served one at a time within 1e-6 of the batch and the
+    compiled plan within 1e-6 of columnar, no fallback, no K1 launch."""
+    from transmogrifai_tpu_torch.examples import boston, iris
+    example = iris if name == "iris" else boston
+    records = (iris.synthetic_iris(300) if name == "iris"
+               else boston.synthetic_boston(300))
+    out = chip_smoke.phase_problem(
+        "cpu", example, records, name,
+        models=_small_problem_models(example, "cpu"))
+    fams = (list(iris.IRIS_FAMILIES) if name == "iris" else
+            ["LinearRegression", "RandomForestRegressor", "GBTRegressor",
+             "GeneralizedLinearRegression"])
+    # the multinomial LR has no device search: it is timed as host path
+    timed = [f for f in fams if f != "LogisticRegression"]
+    assert list(out["families"]) == timed
+    assert out["metric"] == ("F1" if name == "iris"
+                             else "RootMeanSquaredError")
+    mm = np.asarray(out["metric_matrix"])
+    assert mm.shape == (3, 2 * len(fams) - (name == "iris"))
+    assert np.all(np.isfinite(mm)) and out["k1_launches"] == 0
+    serve = out["serve"]
+    assert serve["max_abs_diff_served"] <= 1e-6
+    assert serve["max_abs_diff_compiled"] <= 1e-6
+    assert serve["host_fallback_batches"] == 0 == serve["k1_launches"]
+    assert serve["served"] == min(1001, serve["holdout"])
+
+
+def test_variance_check():
+    """The card-against-CPU tree comparison, the CPU on both sides:
+    nothing differs."""
+    X, y = chip_smoke.boston_matrix(400)
+    out = chip_smoke._variance_check("cpu", X, y)
+    assert out["nodes"] == 2 ** chip_smoke.VARIANCE_DEPTH - 1
+    assert out["nodes_differing"] == 0 and out["rmse"] == out["cpu_rmse"]
+
+
+def test_problems_agree_phase(monkeypatch):
+    """[problems-agree] with the CPU on both sides, at a tiny size: the
+    examples' and the K = 7 search's metric matrices agree exactly."""
+    monkeypatch.setattr(chip_smoke, "WIDE_ROWS", 240)
+    monkeypatch.setattr(chip_smoke, "_problem_models",
+                        lambda example, device: _small_problem_models(
+                            example, device))
+    out = chip_smoke.phase_problems_agree("cpu", rows=240)
+    for tag in ("iris", "boston", f"k{chip_smoke.WIDE_K}"):
+        assert out[tag]["max_diff"] == 0.0 and out[tag]["same_winner"]
+    assert out["boston"]["relative"] and not out["iris"]["relative"]
+
+
+def test_problem_k1_inputs():
+    """[k1-problems]' inputs: the Iris matrix (four reals and their null
+    indicators), the Boston matrix (twelve reals, chas, indicators), the
+    K = 7 matrix; the statistics of each path (integer one-hot weights, the
+    centred [w, wy, wyy], [g, h]); a K = 7 block splits 4 + 3 and its
+    plain histogram equals the blocks' concatenated."""
+    from transmogrifai_tpu_torch.models.trees import _PackedDesign
+    X, y = chip_smoke.iris_matrix(300)
+    assert X.shape == (300, 8) and not X[:, 1::2].any()
+    assert set(np.unique(y)) == {0.0, 1.0, 2.0}
+    Xb, yb = chip_smoke.boston_matrix(300)
+    assert Xb.shape == (300, 26) and 5.0 <= yb.min() and yb.max() <= 50.0
+    Xw, yw = chip_smoke.wide_multiclass(600, 20, 7)
+    assert Xw.shape == (600, 20) and len(np.unique(yw)) == 7
+    assert (Xw >= 0).all()
+    cpu = torch.device("cpu")
+    for Xs, ys, kind, S in ((X, y, "cls", 3), (Xw, yw, "cls", 7),
+                            (Xb, yb, "reg", 3), (Xb, yb, "gbt", 2)):
+        design = _PackedDesign(Xs, 32, cpu)
+        st = chip_smoke._problem_k1_stats(design, kind, ys)
+        assert st.shape == (design.n, S) and not st[::3].any()
+        if kind == "cls":
+            assert torch.equal(st, st.round())
+        plan = design.hist_plan(S)
+        blocks = plan.stat_blocks()
+        assert [b - a for a, b, _ in blocks] == ([4, 3] if S == 7 else [S])
+        slot = torch.randint(0, 32, (design.n,), dtype=torch.int32)
+        whole = chip_smoke.level_hist_plain(design.ids, design.offsets,
+                                            slot, st, 32, design.total_bins)
+        parts = torch.cat([chip_smoke.level_hist_plain(
+            design.ids, design.offsets, slot, st[:, a:b].contiguous(), 32,
+            design.total_bins) for a, b, _ in blocks], dim=2)
+        assert torch.equal(whole, parts)
+
+
+def test_problems_are_wired_in(monkeypatch, capsys):
+    """``--problems-only`` runs phases 1, 2 and the four problem phases
+    and prints their JSON last; the whole smoke runs them too and lists
+    the Iris and Boston launches on K1's line."""
+    import inspect
+    import json
+    src = inspect.getsource(chip_smoke.main)
+    assert src.count("phase_problems(device)") == 2
+    assert "launches_{tag}" in src
+    calls = []
+    monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "phase_device", lambda: {
+        "kind": "fake", "count": 1, "smi": "fake, 1 W"})
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+    for name in ("phase_k1_problems", "phase_iris", "phase_boston",
+                 "phase_problems_agree"):
+        monkeypatch.setattr(chip_smoke, name,
+                            lambda dev, name=name: calls.append(name)
+                            or {"phase": name})
+    assert chip_smoke.main(["--problems-only"]) == 0
+    assert calls == ["phase_k1_problems", "phase_iris", "phase_boston",
+                     "phase_problems_agree"]
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["problems"]["iris"] == {"phase": "phase_iris"}
+    assert set(last["problems"]) == {"k1", "iris", "boston", "agree"}

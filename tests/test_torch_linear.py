@@ -239,7 +239,7 @@ def test_eval_linear_fold_grid_matches_jax(kind, standardize):
 
 def test_eval_fold_grid_entry_points():
     """The estimators' search entry point equals the kernel's, on a grid
-    subset; an unported kind is named."""
+    subset; an unknown kind is named."""
     X, y = _data(n=240)
     assign, masks = _folds(len(y))
     X_val = np.stack([X[assign == f] for f in range(3)])
@@ -253,8 +253,8 @@ def test_eval_fold_grid_entry_points():
         "svc", X, y, masks, [[0.2, 0.0], [0.01, 0.0]], X_val, y_val, spec,
         max_iter=10, device="cpu")
     np.testing.assert_array_equal(got, direct)
-    with pytest.raises(NotImplementedError, match="linear_regression_core"):
-        tcv.eval_linear_fold_grid("squared", X, y, masks, [[0.1, 0.0]],
+    with pytest.raises(ValueError, match="unknown linear kind 'hinge'"):
+        tcv.eval_linear_fold_grid("hinge", X, y, masks, [[0.1, 0.0]],
                                   X_val, y_val, spec, device="cpu")
     with pytest.raises(NotImplementedError, match="elastic_net_param"):
         est.eval_fold_grid_arrays(X, y, masks, [{"elastic_net_param": 0.5}],
@@ -335,9 +335,13 @@ def test_fista_single_fit_iterate_count(fit_data, monkeypatch):
 
 
 def test_multinomial_and_fold_grid_models_are_named():
+    """Three classes fit the multinomial model ((3, d) coefficients, its
+    parity is in test_torch_multiclass.py); the fold x grid path that
+    returns models is still named as not ported."""
     X, y = _data(n=60)
     y3 = np.arange(60) % 3.0
-    with pytest.raises(NotImplementedError, match="_fit_multinomial"):
-        tl.LogisticRegression(device="cpu").fit_arrays(X, y3)
+    model = tl.LogisticRegression(device="cpu").fit_arrays(X, y3)
+    assert tuple(model.coefficients.shape) == (3, X.shape[1])
+    assert model.predict_arrays(X).probability.shape == (60, 3)
     with pytest.raises(NotImplementedError, match="fit_fold_grid_arrays"):
         tl.LinearSVC(device="cpu").fit_fold_grid_arrays(X, y, None, [{}])

@@ -309,3 +309,84 @@ print("ok", len({modules!r}))
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _problem_entries():
+    """The multiclass and regression entry points: the new families, their
+    models, the two selector factories and the examples."""
+    from transmogrifai_tpu_torch.examples import boston, iris
+    from transmogrifai_tpu_torch.models import (
+        DecisionTreeRegressor, GBTMulticlassClassifierModel, GBTRegressor,
+        GBTRegressorModel, GeneralizedLinearRegression,
+        GeneralizedLinearRegressionModel, LinearRegression,
+        LinearRegressionModel, NaiveBayes, NaiveBayesModel,
+        RandomForestRegressor, TreeEnsembleRegressorModel,
+        XGBoostClassifier, XGBoostRegressor)
+    from transmogrifai_tpu_torch.selector import (
+        MultiClassificationModelSelector, RegressionModelSelector)
+    return [
+        lambda: NaiveBayes(),
+        lambda: NaiveBayesModel(np.zeros(3), np.zeros((3, 2))),
+        lambda: GeneralizedLinearRegression(),
+        lambda: GeneralizedLinearRegressionModel(np.zeros(2), 0.0),
+        lambda: LinearRegression(),
+        lambda: LinearRegressionModel(np.zeros(2), 0.0),
+        lambda: LogisticRegressionModel(np.zeros((3, 2)), np.zeros(3)),
+        lambda: RandomForestRegressor(),
+        lambda: DecisionTreeRegressor(),
+        lambda: GBTRegressor(),
+        lambda: XGBoostClassifier(),
+        lambda: XGBoostRegressor(),
+        lambda: TreeEnsembleRegressorModel(np.zeros((1, 1)),
+                                           np.zeros((1, 1)),
+                                           np.zeros((1, 2)), depth=1),
+        lambda: GBTRegressorModel(np.zeros((1, 1)), np.zeros((1, 1)),
+                                  np.zeros((1, 2)), depth=1),
+        lambda: GBTMulticlassClassifierModel(
+            np.zeros((1, 3, 1)), np.zeros((1, 3, 1)), np.zeros((1, 3, 2)),
+            depth=1, base=np.zeros(3)),
+        lambda: MultiClassificationModelSelector.with_cross_validation(),
+        lambda: MultiClassificationModelSelector
+        .with_train_validation_split(),
+        lambda: RegressionModelSelector.with_cross_validation(),
+        lambda: RegressionModelSelector.with_cross_validation(
+            validation="racing"),
+        lambda: iris.default_selector(),
+        lambda: boston.default_selector(),
+        lambda: iris.run(iris.synthetic_iris(30)),
+        lambda: boston.run(boston.synthetic_boston(30)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(23))
+def test_problem_entries_need_a_card(i, monkeypatch):
+    """Every multiclass and regression entry point defaults to CUDA and
+    raises without a card."""
+    entries = _problem_entries()
+    assert len(entries) == 23
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entries[i]()
+
+
+def test_problem_sources_are_walked():
+    """The modules this slice added are among those the AST walk and the
+    hidden-package import cover."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"evaluators/multiclass.py", "evaluators/regression.py",
+            "models/bayes.py", "models/glm.py", "models/registry.py",
+            "examples/iris.py", "examples/boston.py",
+            "models/convert.py"} <= names
+
+
+def test_unported_family_raises_by_name():
+    """The JAX package's multiclass opt-in MLP is not ported: asking for
+    it by name raises, naming its module."""
+    from transmogrifai_tpu_torch.selector import (
+        MultiClassificationModelSelector)
+    with pytest.raises(NotImplementedError,
+                       match="transmogrifai_tpu/models/mlp.py"):
+        MultiClassificationModelSelector.with_cross_validation(
+            model_types_to_use=["XGBoostClassifier",
+                                "MultilayerPerceptronClassifier"],
+            device="cpu")

@@ -128,18 +128,26 @@ def test_default_grid_is_the_reference_grid():
 
 
 def test_unported_families_are_named():
-    """With no filter the selector builds the default pool; a family
-    outside it (NaiveBayes, the reference's opt-in pool) raises an error
-    that names it; filters keep the pool's order."""
+    """With no filter the selector builds the default pool; a family the
+    port does not have (the JAX package's MLP) raises an error that names
+    it; filters keep the pool's order, and pick the opt-in families
+    (NaiveBayes) after the default ones."""
     sel = BinaryClassificationModelSelector.with_cross_validation(
         device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == [
         "LogisticRegression", "RandomForestClassifier", "GBTClassifier",
         "LinearSVC"]
     assert sum(len(g) for _, g in sel.models) == 48
-    with pytest.raises(NotImplementedError, match="NaiveBayes"):
+    with pytest.raises(NotImplementedError,
+                       match="MultilayerPerceptronClassifier"):
         BinaryClassificationModelSelector.with_cross_validation(
-            model_types_to_use=["GBTClassifier", "NaiveBayes"], device="cpu")
+            model_types_to_use=["GBTClassifier",
+                                "MultilayerPerceptronClassifier"],
+            device="cpu")
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["NaiveBayes", "GBTClassifier"], device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == [
+        "GBTClassifier", "NaiveBayes"]
     sel = BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["LinearSVC", "GBTClassifier"], device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == [

@@ -84,6 +84,9 @@ def metrics_from_json(class_name: str, d: Dict[str, Any]
                 if nested is not None and isinstance(v, dict):
                     v = metrics_from_json(nested.__name__, v)
                 kwargs[f.name] = v
+            hook = getattr(sub, "_decode_json_kwargs", None)
+            if hook is not None:
+                kwargs = hook(kwargs)
             return sub(**kwargs)
     return RawMetrics(class_name=class_name, data=dict(d))
 

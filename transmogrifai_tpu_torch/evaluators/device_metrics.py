@@ -1,4 +1,4 @@
-"""On-device validation metrics for the selector search (binary part).
+"""On-device validation metrics for the selector search.
 
 Counterpart of ``transmogrifai_tpu/evaluators/device_metrics.py``. The
 search computes each candidate's metric where the candidate was fitted,
@@ -7,7 +7,9 @@ evaluator exactly (tie-aware Spark ``BinaryClassificationMetrics`` curves,
 ``evaluators/binary.py`` ``_curve_points``): every position's cumulative
 counts are replaced by the counts at the end of its score-tie run (a
 reversed running minimum over end-of-run indices), so duplicated curve
-points add zero-width trapezoids.
+points add zero-width trapezoids. The multiclass metrics are weighted over
+all K classes with absent classes at zero weight (the host loop over the
+labels present); the regression metrics are RMSE, MSE, R² and MAE.
 """
 from __future__ import annotations
 
@@ -17,19 +19,23 @@ import torch
 
 from ..utils import ref_math
 
-__all__ = ["BINARY_METRICS", "binary_from_raw_pair", "binary_from_sigmoid",
+__all__ = ["BINARY_METRICS", "MULTICLASS_METRICS", "REGRESSION_METRICS",
+           "binary_from_raw_pair", "binary_from_sigmoid",
            "binary_from_votes", "binary_metric", "metric_fn",
-           "softmax_probability", "vote_probability"]
+           "multiclass_metric", "regression_metric", "softmax_probability",
+           "vote_probability"]
 
 BINARY_METRICS = ("AuPR", "AuROC", "Precision", "Recall", "F1", "Error")
+MULTICLASS_METRICS = ("F1", "Precision", "Recall", "Error")
+REGRESSION_METRICS = ("RootMeanSquaredError", "MeanSquaredError", "R2",
+                      "MeanAbsoluteError")
 
 
 def softmax_probability(raw: torch.Tensor) -> torch.Tensor:
     """(n, K) max-shifted softmax — the twin of
-    ``ClassifierModel.raw_to_probability``."""
-    shifted = raw - torch.amax(raw, dim=1, keepdim=True)
-    e = torch.exp(shifted)
-    return e / torch.sum(e, dim=1, keepdim=True)
+    ``ClassifierModel.raw_to_probability`` (on the CPU with the JAX
+    package's CPU ``exp``, ``utils/ref_math.py``)."""
+    return ref_math.softmax(raw, dim=1)
 
 
 def binary_from_raw_pair(raw: torch.Tensor):
@@ -128,12 +134,73 @@ def binary_metric(y: torch.Tensor, score: torch.Tensor,
                        / torch.clamp(precision + recall, min=1e-300), 0.0)
 
 
+def multiclass_metric(y: torch.Tensor, prob: torch.Tensor,
+                      metric: str) -> torch.Tensor:
+    """Scalar multiclass metric from the (n, K) probability matrix (hard
+    label = argmax, the first index on ties, as the host ``np.argmax``).
+    Weighted precision, recall and F1 over all K classes; a class absent
+    from ``y`` carries zero weight, so the sum equals the host loop over
+    ``np.unique(y)``."""
+    if metric not in MULTICLASS_METRICS:
+        raise ValueError(f"unsupported multiclass device metric {metric!r}")
+    k = prob.shape[1]
+    pred = torch.argmax(prob, dim=1)
+    yi = y.long()
+    n = max(y.shape[0], 1)
+    if metric == "Error":
+        return torch.mean((pred != yi).to(prob.dtype))
+    eye = torch.eye(k, dtype=prob.dtype, device=prob.device)
+    y_oh = eye[yi]
+    p_oh = eye[pred]
+    tp = torch.sum(y_oh * p_oh, dim=0)
+    fp = torch.sum(p_oh, dim=0) - tp
+    fn = torch.sum(y_oh, dim=0) - tp
+    weight = torch.sum(y_oh, dim=0) / n
+    p = torch.where(tp + fp > 0, tp / torch.clamp(tp + fp, min=1.0), 0.0)
+    r = torch.where(tp + fn > 0, tp / torch.clamp(tp + fn, min=1.0), 0.0)
+    if metric == "Precision":
+        return torch.sum(weight * p)
+    if metric == "Recall":
+        return torch.sum(weight * r)
+    f = torch.where(p + r > 0,
+                    2.0 * p * r / torch.clamp(p + r, min=1e-300), 0.0)
+    return torch.sum(weight * f)
+
+
+def regression_metric(y: torch.Tensor, pred: torch.Tensor,
+                      metric: str) -> torch.Tensor:
+    """Scalar regression metric (``evaluators/regression.py`` on the
+    device); R² is 0 for a constant label."""
+    if metric not in REGRESSION_METRICS:
+        raise ValueError(f"unsupported regression device metric {metric!r}")
+    err = pred - y
+    if metric == "MeanAbsoluteError":
+        return torch.mean(torch.abs(err))
+    mse = torch.mean(err * err)
+    if metric == "MeanSquaredError":
+        return mse
+    if metric == "RootMeanSquaredError":
+        return torch.sqrt(mse)
+    ss_tot = torch.sum((y - torch.mean(y)) ** 2)
+    return torch.where(ss_tot > 0, 1.0 - torch.sum(err * err) / ss_tot,
+                       torch.zeros((), dtype=err.dtype, device=err.device))
+
+
 def metric_fn(kind: str, metric: str) -> Callable:
-    """(y_val, scores) -> scalar for a validator metric spec; ``scores``
-    is a (score, plabel) pair from :func:`binary_from_sigmoid`,
-    :func:`binary_from_votes`, :func:`binary_from_raw_pair`, or a raw
-    margin with its sign label (LinearSVC). Only the binary kind is
-    ported."""
+    """(y_val, scores) -> scalar for a validator metric spec.
+
+    kind "binary"     : ``scores`` is a (score, plabel) pair from
+                        :func:`binary_from_sigmoid`,
+                        :func:`binary_from_votes`,
+                        :func:`binary_from_raw_pair`, or a raw margin with
+                        its sign label (LinearSVC)
+    kind "multiclass" : ``scores`` is the (n, K) probability matrix
+    kind "regression" : ``scores`` is the (n,) predicted values
+    """
     if kind == "binary":
         return lambda y, s: binary_metric(y, s[0], s[1], metric)
-    raise NotImplementedError(f"metric kind {kind!r} is not ported yet")
+    if kind == "multiclass":
+        return lambda y, s: multiclass_metric(y, s, metric)
+    if kind == "regression":
+        return lambda y, s: regression_metric(y, s, metric)
+    raise ValueError(f"unknown metric kind {kind!r}")

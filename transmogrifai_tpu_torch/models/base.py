@@ -27,8 +27,16 @@ from ..types import OPVector, Prediction, RealNN
 from ..utils.device import working_dtype
 
 __all__ = ["PredictionColumn", "Predictor", "PredictionModel",
-           "ClassifierModel", "check_is_response_values", "num_classes",
+           "ClassifierModel", "RegressionModel", "FamilyPreconditionError",
+           "check_fold_classes", "check_is_response_values", "num_classes",
            "subset_grid"]
+
+
+class FamilyPreconditionError(ValueError):
+    """The data violates a model family's preconditions (NaiveBayes on
+    negative features). A ValueError, so the per-candidate validation
+    path scores the candidate NaN on the fold instead of failing the
+    search."""
 
 
 def check_is_response_values(label, features) -> None:
@@ -53,6 +61,21 @@ def subset_grid(grid, cand_idx):
     if cand_idx is None:
         return grid
     return [grid[int(i)] for i in np.asarray(cand_idx).ravel()]
+
+
+def check_fold_classes(y, masks) -> None:
+    """The fold x grid searches size their class-dependent arrays (one-hot
+    statistics, K-class parameters) from all of ``y``, while a fit on one
+    fold's rows sizes them from that fold's labels: when a fold's train
+    rows miss a class the two differ, so raise NotImplementedError and let
+    the validator fit that family candidate by candidate."""
+    y = np.asarray(y)
+    n_all = len(np.unique(y))
+    for row in np.asarray(masks):
+        if len(np.unique(y[row > 0])) != n_all:
+            raise NotImplementedError(
+                "a fold's train split lacks a label class; per-fold "
+                "architectures would differ")
 
 
 def _features(col: FeatureColumn):
@@ -159,3 +182,20 @@ class ClassifierModel(PredictionModel):
 
     def predict_arrays(self, X) -> PredictionColumn:
         return self.prediction_from_raw(self.predict_raw(X))
+
+
+class RegressionModel(PredictionModel):
+    """Regressor: prediction only. Subclasses set ``device`` and ``dtype``
+    and implement ``raw_arrays`` (the (n,) predicted values)."""
+
+    def predict_values(self, X) -> np.ndarray:
+        """(n,) predicted values on the host."""
+        Xt = torch.as_tensor(X, dtype=self.dtype, device=self.device)
+        return self.raw_arrays(Xt).cpu().numpy().astype(np.float64)
+
+    def prediction_from_raw(self, raw: np.ndarray) -> PredictionColumn:
+        return PredictionColumn.from_arrays(np.asarray(raw,
+                                                       dtype=np.float64))
+
+    def predict_arrays(self, X) -> PredictionColumn:
+        return self.prediction_from_raw(self.predict_values(X))

@@ -5,17 +5,31 @@ The JAX package's fitted ``GBTClassifierModel`` holds numpy arrays
 its ``TreeEnsembleClassifierModel`` (random forests, decision trees) the
 same without ``base``; its binary ``LogisticRegressionModel`` and
 ``LinearSVCModel`` hold ``coefficients`` (d,) and ``intercept``. The
-port's models built from them predict the same probabilities and labels.
+multiclass and regression families add the multinomial
+``LogisticRegressionModel`` ((K, d) coefficients, (K,) intercepts),
+``NaiveBayesModel`` (``pi`` (K,), ``theta`` (K, d)),
+``LinearRegressionModel`` and ``GeneralizedLinearRegressionModel``
+(coefficients, intercept, link), the regressor forests
+(``TreeEnsembleRegressorModel``: leaves (T, 2^depth)), ``GBTRegressorModel``
+and the softmax booster's ``GBTMulticlassClassifierModel`` (feats, thrs
+(R, K, H), leaves (R, K, L), base (K,)). The port's models built from them
+predict the same probabilities, labels and values. :func:`from_jax_model`
+takes any of them by its class name.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .linear import LinearSVCModel, LogisticRegressionModel
-from .trees import GBTClassifierModel, TreeEnsembleClassifierModel
+from .bayes import NaiveBayesModel
+from .glm import GeneralizedLinearRegressionModel
+from .linear import (LinearRegressionModel, LinearSVCModel,
+                     LogisticRegressionModel)
+from .trees import (GBTClassifierModel, GBTMulticlassClassifierModel,
+                    GBTRegressorModel, TreeEnsembleClassifierModel,
+                    TreeEnsembleRegressorModel)
 
-__all__ = ["forest_from_numpy", "gbt_from_numpy", "logistic_from_numpy",
-           "svc_from_numpy"]
+__all__ = ["forest_from_numpy", "from_jax_model", "gbt_from_numpy",
+           "logistic_from_numpy", "svc_from_numpy"]
 
 
 def gbt_from_numpy(feats: np.ndarray, thrs: np.ndarray, leaves: np.ndarray,
@@ -47,8 +61,9 @@ def forest_from_numpy(feats: np.ndarray, thrs: np.ndarray,
 
 def logistic_from_numpy(coefficients: np.ndarray, intercept,
                         device="cuda") -> LogisticRegressionModel:
-    """Port-side binary ``LogisticRegressionModel`` from the reference
-    model's ``coefficients`` (d,) and ``intercept``."""
+    """Port-side ``LogisticRegressionModel`` from the reference model's
+    ``coefficients`` (d,) and ``intercept`` (binary) or (K, d) and (K,)
+    (multinomial)."""
     return LogisticRegressionModel(coefficients, intercept, device=device)
 
 
@@ -57,3 +72,47 @@ def svc_from_numpy(coefficients: np.ndarray, intercept,
     """Port-side ``LinearSVCModel`` from the reference model's
     ``coefficients`` (d,) and ``intercept``."""
     return LinearSVCModel(coefficients, intercept, device=device)
+
+
+#: the port's model class of each JAX package model class, and the numpy
+#: attributes its constructor takes
+_MODELS = {
+    "LogisticRegressionModel": (LogisticRegressionModel,
+                                ("coefficients", "intercept")),
+    "LinearSVCModel": (LinearSVCModel, ("coefficients", "intercept")),
+    "LinearRegressionModel": (LinearRegressionModel,
+                              ("coefficients", "intercept")),
+    "GeneralizedLinearRegressionModel": (
+        GeneralizedLinearRegressionModel, ("coefficients", "intercept",
+                                           "link")),
+    "NaiveBayesModel": (NaiveBayesModel, ("pi", "theta", "model_type")),
+    "TreeEnsembleClassifierModel": (
+        TreeEnsembleClassifierModel,
+        ("feats", "thrs", "leaves", "depth", "n_features")),
+    "TreeEnsembleRegressorModel": (
+        TreeEnsembleRegressorModel,
+        ("feats", "thrs", "leaves", "depth", "n_features")),
+    "GBTClassifierModel": (
+        GBTClassifierModel,
+        ("feats", "thrs", "leaves", "depth", "base", "n_features")),
+    "GBTRegressorModel": (
+        GBTRegressorModel,
+        ("feats", "thrs", "leaves", "depth", "base", "n_features")),
+    "GBTMulticlassClassifierModel": (
+        GBTMulticlassClassifierModel,
+        ("feats", "thrs", "leaves", "depth", "base", "n_features")),
+}
+
+
+def from_jax_model(model, device="cuda"):
+    """The port's counterpart of a fitted JAX package model, by its class
+    name, built from its numpy attributes (copies) on ``device``."""
+    name = type(model).__name__
+    if name not in _MODELS:
+        raise ValueError(f"no port counterpart for {name}")
+    cls, attrs = _MODELS[name]
+    kwargs = {}
+    for a in attrs:
+        v = getattr(model, a)
+        kwargs[a] = np.array(v) if isinstance(v, np.ndarray) else v
+    return cls(**kwargs, device=device)

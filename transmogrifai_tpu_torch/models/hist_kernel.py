@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,10 +126,13 @@ class HistPlan:
 
     __slots__ = ("groups", "n_groups", "w_max", "S", "id_bytes", "stride",
                  "d", "total_bins", "rows", "stage_bytes", "hist_budget",
-                 "pos_of_bin", "group_rows", "_launch")
+                 "pos_of_bin", "group_rows", "_launch", "widths", "device",
+                 "_blocks")
 
     def __init__(self, widths: Sequence[int], S: int, device: torch.device):
         widths = [int(w) for w in widths]
+        self.widths, self.device = widths, device
+        self._blocks: Dict[int, "HistPlan"] = {}
         d = len(widths)
         self.S, self.d = int(S), d
         self.id_bytes = id_bytes_for(widths)
@@ -187,6 +190,25 @@ class HistPlan:
             stages = min(MAX_STAGES, free // self.stage_bytes)
             got = self._launch[C] = (c_tile, stages, copies)
         return got
+
+    def stat_blocks(self) -> List[Tuple[int, int, "HistPlan"]]:
+        """(first, last + 1, plan) of each block of at most MAX_STATS
+        statistics the kernel takes in one launch: S split into
+        ceil(S / MAX_STATS) blocks of balanced widths (S = 7: 4 + 3), each
+        block with its own plan over the same design."""
+        k = -(-self.S // MAX_STATS)
+        cuts = [-(-i * self.S // k) for i in range(k + 1)]
+        out = []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            w = b - a
+            if w == self.S:
+                out.append((a, b, self))
+                continue
+            sub = self._blocks.get(w)
+            if sub is None:
+                sub = self._blocks[w] = HistPlan(self.widths, w, self.device)
+            out.append((a, b, sub))
+        return out
 
     def smem_bytes(self, C: int) -> int:
         """Dynamic shared memory of one block at ``C`` slots."""
@@ -272,7 +294,9 @@ def level_hist(ids: torch.Tensor, offsets: torch.Tensor, slot: torch.Tensor,
     CUDA device launch K1 (``level_hist.launches`` counts the launches,
     ``level_hist.launches_by_c`` them by slot count); tensors on the CPU
     take :func:`level_hist_plain`. ``plan`` is the design's
-    :class:`HistPlan` for S statistics (the CPU path ignores it)."""
+    :class:`HistPlan` for S statistics (the CPU path ignores it). More
+    than MAX_STATS statistics launch once per block of
+    :meth:`HistPlan.stat_blocks`, the blocks concatenated along S."""
     if ids.device.type == "cpu":
         return level_hist_plain(ids, offsets, slot, stats, num_slots,
                                 total_bins)
@@ -282,6 +306,13 @@ def level_hist(ids: torch.Tensor, offsets: torch.Tensor, slot: torch.Tensor,
     n = ids.shape[0]
     d = offsets.shape[0] if offsets.dim() == 1 else 0
     S = stats.shape[1] if stats.dim() == 2 else 0
+    if S > MAX_STATS and plan is not None and plan.S == S:
+        # one launch per block of at most MAX_STATS statistics over the
+        # same ids and slots (a K-class forest with K > 4)
+        return torch.cat([
+            level_hist(ids, offsets, slot, stats[:, a:b].contiguous(),
+                       num_slots, total_bins, sub)
+            for a, b, sub in plan.stat_blocks()], dim=2)
     _check(ids, offsets, slot, stats, S)
     C, TB = int(num_slots), int(total_bins)
     out = torch.zeros((C, TB, S), dtype=torch.float32, device=ids.device)

@@ -1,7 +1,8 @@
-"""Linear family in PyTorch: binary logistic regression and linear SVC.
+"""Linear family in PyTorch: logistic regression (binomial and
+multinomial), linear regression and linear SVC.
 
-Counterpart of ``transmogrifai_tpu/models/linear.py`` restricted to the
-binary classifiers of the default pool. The weighted fit cores, the
+Counterpart of ``transmogrifai_tpu/models/linear.py``. The weighted fit
+cores, the
 standardization and its inverse, the elastic-net and squared-hinge
 objectives and the solver choice are the JAX package's; how they run
 differs:
@@ -17,10 +18,15 @@ differs:
 - gradients are closed-form, one ``X @ V`` and one ``X^T @ R`` product
   for all candidates per solver iteration (``models/solvers.py``).
 
+Multinomial logistic regression (K > 2 labels) fits one model at a time,
+its K class rows standing in for the candidate axis of the same products
+(``_fit_multinomial_logistic``); as in the JAX package, its fold x grid
+search is validated candidate by candidate. Linear regression solves the
+ridge normal equations, or runs FISTA when an L1 term is set
+(``linear_regression_core``).
+
 Numbers: float32 on CUDA (TF32 off), float64 on the CPU
-(``utils/device.py``). Multinomial logistic regression
-(``_fit_multinomial_logistic``), ``LinearRegression`` and
-``fit_fold_grid_arrays`` are not ported yet.
+(``utils/device.py``). ``fit_fold_grid_arrays`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,12 +37,14 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device, working_dtype
-from .base import (ClassifierModel, PredictionColumn, Predictor, num_classes,
-                   subset_grid)
+from .base import (ClassifierModel, PredictionColumn, Predictor,
+                   RegressionModel, subset_grid)
 from .solvers import design_lipschitz, fista_minimize, lbfgs_minimize
 
 __all__ = ["LogisticRegression", "LogisticRegressionModel", "LinearSVC",
-           "LinearSVCModel", "binary_logistic_core", "linear_svc_core"]
+           "LinearSVCModel", "LinearRegression", "LinearRegressionModel",
+           "binary_logistic_core", "linear_regression_core",
+           "linear_svc_core"]
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +275,129 @@ def linear_svc_core(X, y, W, reg, alpha=0.0, *, fit_intercept: bool = True,
                         device=device)
 
 
+def linear_regression_core(X, y, W, reg, alpha, *,
+                           fit_intercept: bool = True,
+                           standardize: bool = True, max_iter: int = 100,
+                           solver: str = "auto", device="cuda"):
+    """Weighted least squares with the elastic-net penalty l2 = reg (1 -
+    alpha), l1 = reg alpha on the standardized design, shaped as
+    :func:`binary_logistic_core`: (coefficients (C, d), intercepts (C,))
+    for C = len(reg) candidates over the F rows of ``W``. The label is
+    centred on each fold's weighted mean (with an intercept). Without an
+    L1 term in the batch, each candidate solves its ridge normal equations;
+    with one, every candidate runs FISTA on the half mean squared error
+    for 5 * ``max_iter`` iterations (``solver="fista"``, the search) or to
+    a step below 1e-7."""
+    reg, alpha = _candidates(reg), _candidates(alpha)
+    l2_np, l1_np = reg * (1.0 - alpha), reg * alpha
+    dev = resolve_device(device)
+    design = _prep(X, W, standardize, dev)
+    dtype = design.Xc.dtype
+    d = design.Xc.shape[1]
+    F = design.W.shape[0]
+    C = len(reg)
+    G = C // F
+    if C != F * G:
+        raise ValueError(f"{C} candidates do not split over {F} folds")
+    fold = torch.arange(C, device=dev) // G
+    y_t = torch.as_tensor(np.asarray(y), dtype=dtype).to(dev)
+    ybar = (design.W @ y_t) / design.wsum if fit_intercept else \
+        torch.zeros(F, dtype=dtype, device=dev)
+    l2 = torch.as_tensor(l2_np, dtype=dtype).to(dev)
+    if not np.any(l1_np > 0):
+        wv = torch.empty((C, d), dtype=dtype, device=dev)
+        eye = torch.eye(d, dtype=dtype, device=dev)
+        for f in range(F):
+            Xs = (design.Xc - design.mu[f]) / design.sigma[f]
+            wr = design.W[f] / design.wsum[f]
+            A = Xs.T @ (wr[:, None] * Xs)
+            rhs = Xs.T @ (wr * (y_t - ybar[f]))
+            for c in range(f * G, (f + 1) * G):
+                # a singular system leaves LAPACK's non-finite solution
+                # (as jnp.linalg.solve does) instead of raising
+                wv[c] = torch.linalg.solve_ex(A + l2[c] * eye, rhs)[0]
+    else:
+        yc = y_t[:, None] - ybar[None, :]          # (n, F)
+        per_row = design.W.T / design.wsum         # (n, F)
+
+        def grad(V):
+            r = design.matvec(V) - yc.repeat_interleave(G, dim=1)
+            return design.rmatvec(design.fold_rows(r, per_row)) \
+                + l2[:, None] * V
+
+        lip_fold = design_lipschitz(design.Xc, 0.0, 1.0, w=design.W,
+                                    mu=design.mu, sigma=design.sigma)
+        lip = lip_fold.repeat_interleave(G) + l2 + 1e-3
+        l1 = torch.as_tensor(l1_np, dtype=dtype).to(dev)
+        wv, _ = fista_minimize(
+            grad, l1, torch.zeros((C, d), dtype=dtype, device=dev), lip,
+            max_iter=max_iter * 5, tol=0.0 if solver == "fista" else 1e-7)
+    w_orig = wv / design.sigma[fold]
+    if not fit_intercept:
+        return w_orig, torch.zeros(C, dtype=dtype, device=dev)
+    return w_orig, ybar[fold] - torch.sum(w_orig * design.mu_orig[fold],
+                                          dim=1)
+
+
+def _fit_multinomial_logistic(X, y, reg: float, alpha: float, *, k: int,
+                              fit_intercept: bool, standardize: bool,
+                              max_iter: int, device):
+    """Multinomial (softmax) logistic fit on every row of ``X`` ->
+    (coefficients (k, d), intercepts (k,)) in X's space: the mean negative
+    log-likelihood plus l2/2 |W|^2, L-BFGS, or FISTA to a step below 1e-7
+    when ``reg * alpha`` > 0. The k class rows take the candidate axis of
+    the implicitly standardized design, so one ``X @ V`` and one ``X^T @
+    R`` give every class's margins and gradient."""
+    dev = resolve_device(device)
+    n = len(y)
+    design = _prep(X, np.ones((1, n)), standardize, dev)
+    dtype = design.Xc.dtype
+    d = design.Xc.shape[1]
+    eye = torch.eye(k, dtype=dtype, device=dev)
+    onehot = eye[torch.as_tensor(np.asarray(y), device=dev).long()]
+    l2, l1 = float(reg) * (1.0 - float(alpha)), float(reg) * float(alpha)
+
+    def margins(Z):                                # Z (k, d + 1) -> (n, k)
+        m = design.matvec(Z[:, :d])
+        return m + Z[:, d] if fit_intercept else m
+
+    def finish(Z, R):
+        g = torch.empty_like(Z)
+        g[:, :d] = design.rmatvec(R) + l2 * Z[:, :d]
+        g[:, d] = torch.sum(R, dim=0) if fit_intercept else 0.0
+        return g
+
+    def grad(Z):
+        return finish(Z, (torch.softmax(margins(Z), dim=1) - onehot) / n)
+
+    W0 = torch.zeros((k, d + 1), dtype=dtype, device=dev)
+    if l1 > 0:
+        lam = design_lipschitz(design.Xc, 0.0, 0.5, w=design.W,
+                               mu=design.mu, sigma=design.sigma)
+        mask = torch.ones((k, d + 1), dtype=dtype, device=dev)
+        mask[:, d] = 0.0                           # no L1 on the intercepts
+        flat, _ = fista_minimize(
+            lambda z: grad(z.view(k, d + 1)).reshape(1, -1), l1,
+            W0.reshape(1, -1), lam + l2 + 0.5, max_iter=max_iter * 5,
+            tol=1e-7, l1_mask=mask.reshape(-1))
+        params = flat.view(k, d + 1)
+    else:
+        def vg(z):
+            Z = z.view(k, d + 1)
+            m = margins(Z)
+            logp = torch.log_softmax(m, dim=1)
+            value = (-torch.sum(onehot * logp) / n
+                     + 0.5 * l2 * torch.sum(Z[:, :d] ** 2))
+            R = (torch.exp(logp) - onehot) / n
+            return value, finish(Z, R).reshape(-1)
+        params = lbfgs_minimize(vg, W0.reshape(-1),
+                                max_iter=max_iter)[0].view(k, d + 1)
+    wv = params[:, :d]
+    b = params[:, d] if fit_intercept else torch.zeros(k, dtype=dtype,
+                                                       device=dev)
+    return _unstandardize_coefs(wv, b, design.mu_orig[0], design.sigma[0])
+
+
 def _grid_to_reg_alpha(estimator, grid,
                        allowed=("reg_param", "elastic_net_param")
                        ) -> np.ndarray:
@@ -286,16 +417,23 @@ def _grid_to_reg_alpha(estimator, grid,
     return out
 
 
-def _check_binary(y, family: str) -> None:
-    if num_classes(y) > 2:
-        raise NotImplementedError(
-            f"{family}: only binary labels are ported (multinomial "
-            f"logistic regression, _fit_multinomial_logistic, is not)")
-
-
 # ---------------------------------------------------------------------------
 # estimators and models
 # ---------------------------------------------------------------------------
+
+def _feature_order_margins(X: torch.Tensor, coef: torch.Tensor
+                           ) -> torch.Tensor:
+    """Each row's products with ``coef`` (d,) or with each row of ``coef``
+    (k, d), added in feature order (the last row of a running sum over the
+    features): (n,) or (n, k). A row's margin is then the same bit for bit
+    whatever batch it is scored in; a matrix product lets the card's BLAS
+    pick its kernel, and so its order of additions, by the batch's size
+    (up to 8 float32 ulps apart between buckets of the serving plan)."""
+    if coef.dim() == 1:
+        return torch.cumsum((X * coef).t(), dim=0)[-1]
+    return torch.cumsum(X.t()[:, :, None] * coef.t()[:, None, :],
+                        dim=0)[-1]
+
 
 class _LinearModel(ClassifierModel):
     """Binary linear classifier: margins X.coef + intercept, raw
@@ -312,20 +450,37 @@ class _LinearModel(ClassifierModel):
         self.intercept = float(np.asarray(intercept).reshape(()))
 
     def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
-        """(n, 2) raw pair [-m, m] of the margins m. Each row's products
-        are added in feature order (the last row of a running sum over the
-        features), so a row's margin is the same bit for bit whatever
-        batch it is scored in: a matrix product lets the card's BLAS pick
-        its kernel, and so its order of additions, by the batch's size
-        (up to 8 float32 ulps apart between buckets of the serving
-        plan)."""
-        m = torch.cumsum((X * self.coefficients).t(), dim=0)[-1] \
-            + self.intercept
+        """(n, 2) raw pair [-m, m] of the margins m, added in feature
+        order (``_feature_order_margins``)."""
+        m = _feature_order_margins(X, self.coefficients) + self.intercept
         return torch.stack([-m, m], dim=1)
 
 
 class LogisticRegressionModel(_LinearModel):
-    """Binary logistic model: softmax probability of the raw pair."""
+    """Logistic model: softmax probability of the raw margins. Binary
+    models hold ``coefficients`` (d,) and raw pairs [-m, m]; multinomial
+    ones (k, d) coefficients and (k,) intercepts, raw margins X W^T + b."""
+
+    def __init__(self, coefficients, intercept, device="cuda",
+                 uid: Optional[str] = None):
+        coef = np.asarray(coefficients, dtype=np.float64)
+        if coef.ndim == 1:
+            super().__init__(coef, intercept, device=device, uid=uid)
+            return
+        ClassifierModel.__init__(self, uid=uid)
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device)
+        self.coefficients = torch.from_numpy(np.array(coef)).to(
+            self.device, self.dtype)
+        self.intercept = torch.from_numpy(
+            np.array(intercept, dtype=np.float64).reshape(-1)).to(
+                self.device, self.dtype)
+
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        if self.coefficients.dim() == 1:
+            return super().raw_arrays(X)
+        return (_feature_order_margins(X, self.coefficients)
+                + self.intercept)
 
 
 class LinearSVCModel(_LinearModel):
@@ -347,7 +502,18 @@ class _LinearEstimator(Predictor):
     core = None
 
     def fit_arrays(self, X, y):
-        _check_binary(y, type(self).__name__)
+        k = int(np.max(y)) + 1 if len(y) else 2
+        if k > 2:
+            if self.kind != "logistic":
+                raise ValueError(f"{type(self).__name__} takes binary "
+                                 f"labels only")
+            coef, b = _fit_multinomial_logistic(
+                X, y, self.reg_param, self.elastic_net_param, k=k,
+                fit_intercept=self.fit_intercept,
+                standardize=self.standardization, max_iter=self.max_iter,
+                device=self.device)
+            return self.model_type(coef.cpu().numpy(), b.cpu().numpy(),
+                                   device=self.device)
         coef, b = self.core(
             X, y, np.ones((1, len(y))), self.reg_param,
             getattr(self, "elastic_net_param", 0.0),
@@ -375,7 +541,10 @@ class _LinearEstimator(Predictor):
         if spec[0] != "binary":
             raise NotImplementedError(
                 f"{type(self).__name__} device eval is binary-only")
-        _check_binary(y, type(self).__name__)
+        if len(y) and int(np.max(y)) + 1 > 2:
+            # the multinomial search is validated candidate by candidate,
+            # as in the JAX package
+            raise NotImplementedError("batched kernel is binary-only")
         from ..parallel.cv import eval_linear_fold_grid
         ga = _grid_to_reg_alpha(self, subset_grid(grid, cand_idx),
                                 allowed=self.grid_params)
@@ -433,3 +602,64 @@ class LinearSVC(_LinearEstimator):
         self.fit_intercept = fit_intercept
         self.standardization = standardization
         self.device = resolve_device(device)
+
+
+class LinearRegressionModel(RegressionModel):
+    """Linear regression model: X.coef + intercept, added in feature order
+    (``_feature_order_margins``); the coefficients live on ``device``."""
+
+    def __init__(self, coefficients, intercept: float = 0.0, device="cuda",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device)
+        self.coefficients = torch.from_numpy(
+            np.array(coefficients, dtype=np.float64).reshape(-1)).to(
+                self.device, self.dtype)
+        self.intercept = float(intercept)
+
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        return _feature_order_margins(X, self.coefficients) + self.intercept
+
+
+class LinearRegression(Predictor):
+    """OLS / ridge / elastic-net linear regression (reference
+    OpLinearRegression.scala). ``tol`` is accepted for the reference's API
+    and read by no solver, as there."""
+
+    def __init__(self, reg_param: float = 0.0, elastic_net_param: float = 0.0,
+                 max_iter: int = 100, tol: float = 1e-6,
+                 fit_intercept: bool = True, standardization: bool = True,
+                 device="cuda", uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.reg_param = reg_param
+        self.elastic_net_param = elastic_net_param
+        self.max_iter = max_iter
+        self.tol = tol
+        self.fit_intercept = fit_intercept
+        self.standardization = standardization
+        self.device = resolve_device(device)
+
+    def fit_arrays(self, X, y) -> LinearRegressionModel:
+        coef, b = linear_regression_core(
+            X, y, np.ones((1, len(y))), self.reg_param,
+            self.elastic_net_param, fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)
+        return LinearRegressionModel(coef[0].cpu().numpy(),
+                                     float(b[0].cpu()), device=self.device)
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search (see ``parallel/cv``); predicted values
+        feed the regression metric."""
+        if spec[0] != "regression":
+            raise NotImplementedError(
+                "linear-regression device eval needs a regression metric")
+        from ..parallel.cv import eval_linear_fold_grid
+        ga = _grid_to_reg_alpha(self, subset_grid(grid, cand_idx))
+        return eval_linear_fold_grid(
+            "squared", X, y, masks, ga, X_val, y_val, spec,
+            fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)

@@ -1,14 +1,17 @@
 """Tree families in PyTorch: gradient-boosted trees, random forests and
-decision trees (binary classification).
+decision trees, for binary and multiclass classification and regression.
 
-Counterpart of ``transmogrifai_tpu/models/trees.py`` restricted to the
-classifiers of the default binary pool: packed binning
+Counterpart of ``transmogrifai_tpu/models/trees.py``: packed binning
 (``_PackedDesign``), the level-wise builder (``_grow_tree``) with
 active-node slot compression and per-node feature subsets, the gini,
-entropy and second-order gains, boosting (``_gbt_body``), bagged forests
-over per-tree stratified feature pools (``_forest_trees``), traversal,
-the estimators and their models, and the fold x grid searches that fit
-every (fold, grid point) candidate and score it with the on-device metric.
+entropy, variance and second-order gains, boosting on the logistic and
+squared objectives (``_gbt_body``) and on the K-class softmax
+(``_gbt_softmax_body``, XGBoost's ``multi:softprob``), bagged forests over
+per-tree stratified feature pools (``_forest_trees``: K-class one-hot or
+[w, wy, wyy] statistics), traversal, the estimators and their models
+(with the XGBoost facades), and the fold x grid searches that fit every
+(fold, grid point) candidate and score it with the on-device metric.
+GBTClassifier stays binary, as in the JAX package.
 
 Where the JAX package jit-compiles and vmaps, the port runs eagerly:
 
@@ -39,13 +42,18 @@ import torch
 
 from ..utils import ref_math
 from ..utils.device import resolve_device, working_dtype
-from .base import ClassifierModel, Predictor, num_classes, subset_grid
+from .base import (ClassifierModel, Predictor, RegressionModel,
+                   check_fold_classes, num_classes, subset_grid)
 from .draws import TorchDraws
 from .hist_kernel import HistPlan, compact_ids, level_hist, padded_stride
 
-__all__ = ["DecisionTreeClassifier", "GBTClassifier", "GBTClassifierModel",
-           "RandomForestClassifier", "TreeEnsembleClassifierModel",
-           "clear_design_cache"]
+__all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
+           "GBTClassifier", "GBTClassifierModel",
+           "GBTMulticlassClassifierModel", "GBTRegressor",
+           "GBTRegressorModel", "RandomForestClassifier",
+           "RandomForestRegressor", "TreeEnsembleClassifierModel",
+           "TreeEnsembleRegressorModel", "XGBoostClassifier",
+           "XGBoostRegressor", "clear_design_cache"]
 
 #: matrix element count (rows x features) from which a design on CUDA
 #: is binned on the card (f32 sorts) instead of by the exact f64 host
@@ -357,6 +365,22 @@ def _entropy_gain(min_instances: float):
     return _impurity_gain(impurity_weighted, min_instances)
 
 
+def _variance_gain(min_instances: float):
+    """MLlib 'variance': the reduction of the sum of squared errors over
+    statistics [w, wy, wyy], per unit of the parent's weight; -inf where a
+    child weighs less than ``min_instances``."""
+    def sse(s):
+        return s[..., 2] - s[..., 1] ** 2 / torch.clamp(s[..., 0], min=1e-12)
+
+    def gain(left, right, total):
+        wp = torch.clamp(total[..., 0], min=1e-12)
+        g = (sse(total) - sse(left) - sse(right)) / wp
+        ok = ((left[..., 0] >= min_instances)
+              & (right[..., 0] >= min_instances))
+        return torch.where(ok, g, -torch.inf)
+    return gain
+
+
 def _grow_tree(design, stats: torch.Tensor, *, depth: int, gain_fn,
                min_info_gain: float = 0.0,
                max_features: Optional[int] = None,
@@ -494,28 +518,56 @@ def _predict_leaves(X: torch.Tensor, feats: torch.Tensor,
 # boosting
 # ---------------------------------------------------------------------------
 
+def _masked_mean(y: torch.Tensor, mask: Optional[torch.Tensor], n: int
+                 ) -> torch.Tensor:
+    """Mean label of the masked rows: ``sum(y) * (1/n)`` for the single
+    fit (``mask=None``), as XLA folds the JAX package's constant mask; the
+    search's masks divide, as its kernel does. The sums are added in
+    XLA's CPU order (``ref_math.xla_sum``) on the CPU: a real label's mean
+    moves by an ulp otherwise, and with it every residual of a squared
+    boosting round."""
+    if mask is None:
+        return ref_math.xla_sum(y) * (1.0 / max(n, 1))
+    return ref_math.xla_sum(mask * y) / torch.clamp(ref_math.xla_sum(mask),
+                                                    min=1.0)
+
+
+def _boost_tree(design, g, h, m, *, depth, step_size, reg_lambda,
+                gain_fn):
+    """One boosting tree on the masked gradients and hessians: (feat heap,
+    thr heap, leaf values, final node per row). A leaf value is
+    -step * G / (H + lambda), 0 where the leaf holds no statistics."""
+    feat, thr, leaf_stats, node = _grow_tree(
+        design, torch.stack([g * m, h * m], dim=1), depth=depth,
+        gain_fn=gain_fn)
+    vals = -step_size * leaf_stats[:, 0] / (leaf_stats[:, 1] + reg_lambda)
+    vals = torch.where(torch.sum(torch.abs(leaf_stats), dim=1) > 0, vals,
+                       0.0)
+    return feat, thr, vals, node
+
+
 def _gbt_body(design: _PackedDesign, y: torch.Tensor,
               mask: Optional[torch.Tensor], *, depth: int, num_rounds: int,
               step_size: float, reg_lambda: float, gamma: float,
               min_child_weight: float, subsample: float, seed: int,
-              draws=None):
-    """Logistic boosting with row-mask semantics: masked rows get zero
-    gradient and hessian; the base margin is the log-odds of the masked
-    mean label. ``mask=None`` is the single fit on every row, whose mean
-    is ``sum(y) * (1/n)`` as XLA folds the JAX package's constant mask;
-    the search's masks divide, as its kernel does. Below ``subsample=1``
-    each round r keeps the rows of ``bernoulli(r, subsample, n)`` from the
-    draws provider (``draws``, a factory of ``models/draws.py``,
-    TorchDraws by default). Returns (feats (R, H), thrs (R, H), leaves
-    (R, L), base 0-d tensor)."""
+              draws=None, objective: str = "logistic"):
+    """Boosting with row-mask semantics: masked rows get zero gradient and
+    hessian. ``objective`` "logistic" (binary classification: the base
+    margin is the log-odds of the masked mean label, gradients p - y and
+    p (1 - p)) or "squared" (regression: the base is the masked mean,
+    gradients m - y and 1). Below ``subsample=1`` each round r keeps the
+    rows of ``bernoulli(r, subsample, n)`` from the draws provider
+    (``draws``, a factory of ``models/draws.py``, TorchDraws by default).
+    Returns (feats (R, H), thrs (R, H), leaves (R, L), base 0-d tensor)."""
     n = design.n
+    mean_y = _masked_mean(y, mask, n)
     if mask is None:
         mask = torch.ones_like(y)
-        mean_y = torch.sum(y) * (1.0 / max(n, 1))
+    if objective == "logistic":
+        p0 = torch.clamp(mean_y, 1e-6, 1 - 1e-6)
+        base = ref_math.log(p0 / (1 - p0))
     else:
-        mean_y = torch.sum(mask * y) / torch.clamp(torch.sum(mask), min=1.0)
-    p0 = torch.clamp(mean_y, 1e-6, 1 - 1e-6)
-    base = ref_math.log(p0 / (1 - p0))
+        base = mean_y
     margins = base.expand(n)
     rows = None
     if subsample < 1.0:
@@ -523,23 +575,72 @@ def _gbt_body(design: _PackedDesign, y: torch.Tensor,
     gain_fn = _xgb_gain(reg_lambda, gamma, min_child_weight)
     feats, thrs, leaves = [], [], []
     for r in range(num_rounds):
-        p = ref_math.sigmoid(margins)
-        g = p - y
-        h = torch.clamp(p * (1 - p), min=1e-12)
+        if objective == "logistic":
+            p = ref_math.sigmoid(margins)
+            g = p - y
+            h = torch.clamp(p * (1 - p), min=1e-12)
+        else:
+            g = margins - y
+            h = torch.ones_like(y)
         m = mask
         if rows is not None:
             m = _on(rows.bernoulli(r, subsample, n), y.dtype,
                     design.device) * mask
-        feat, thr, leaf_stats, node = _grow_tree(
-            design, torch.stack([g * m, h * m], dim=1), depth=depth,
-            gain_fn=gain_fn)
-        vals = -step_size * leaf_stats[:, 0] / (leaf_stats[:, 1] + reg_lambda)
-        vals = torch.where(torch.sum(torch.abs(leaf_stats), dim=1) > 0,
-                           vals, 0.0)
+        feat, thr, vals, node = _boost_tree(
+            design, g, h, m, depth=depth, step_size=step_size,
+            reg_lambda=reg_lambda, gain_fn=gain_fn)
         margins = margins + vals[node.long()]
         feats.append(feat)
         thrs.append(thr)
         leaves.append(vals)
+    return torch.stack(feats), torch.stack(thrs), torch.stack(leaves), base
+
+
+def _gbt_softmax_body(design: _PackedDesign, y: torch.Tensor,
+                      mask: Optional[torch.Tensor], *, num_classes: int,
+                      depth: int, num_rounds: int, step_size: float,
+                      reg_lambda: float, gamma: float,
+                      min_child_weight: float, subsample: float, seed: int,
+                      draws=None):
+    """K-class softmax boosting (XGBoost's ``multi:softprob``): each round
+    grows one tree per class on the softmax gradients g_k = p_k - [y = k]
+    and hessians h_k = p_k (1 - p_k) of the same margins, the K trees one
+    after another (the JAX package vmaps them); the base margins are the
+    log class priors of the masked rows. Returns (feats (R, K, H), thrs
+    (R, K, H), leaves (R, K, L), base (K,))."""
+    n = design.n
+    K = int(num_classes)
+    if mask is None:
+        mask = torch.ones_like(y)
+    eye = torch.eye(K, dtype=y.dtype, device=y.device)
+    onehot = eye[y.long()]
+    counts = torch.sum(mask[:, None] * onehot, dim=0)
+    priors = torch.clamp(counts / torch.clamp(torch.sum(counts), min=1.0),
+                         1e-6, 1.0)
+    base = ref_math.log(priors)
+    margins = base.expand(n, K)
+    rows = None
+    if subsample < 1.0:
+        rows = (draws or TorchDraws)(seed, num_rounds)
+    gain_fn = _xgb_gain(reg_lambda, gamma, min_child_weight)
+    feats, thrs, leaves = [], [], []
+    for r in range(num_rounds):
+        p = ref_math.softmax(margins, dim=1)
+        g = p - onehot
+        h = torch.clamp(p * (1.0 - p), min=1e-12)
+        m = mask
+        if rows is not None:
+            m = _on(rows.bernoulli(r, subsample, n), y.dtype,
+                    design.device) * mask
+        out = [_boost_tree(design, g[:, k], h[:, k], m, depth=depth,
+                           step_size=step_size, reg_lambda=reg_lambda,
+                           gain_fn=gain_fn) for k in range(K)]
+        delta = torch.stack([vals[node.long()] for _, _, vals, node in out],
+                            dim=1)
+        margins = margins + delta
+        feats.append(torch.stack([o[0] for o in out]))
+        thrs.append(torch.stack([o[1] for o in out]))
+        leaves.append(torch.stack([o[2] for o in out]))
     return torch.stack(feats), torch.stack(thrs), torch.stack(leaves), base
 
 
@@ -559,6 +660,17 @@ def _gbt_margins(X: torch.Tensor, feats, thrs, leaves, base, depth: int):
     return base + _tree_sum(torch.gather(leaves, 1, leaf))
 
 
+def _softmax_margins(X: torch.Tensor, feats, thrs, leaves, base,
+                     depth: int) -> torch.Tensor:
+    """(n, K) margins of a softmax booster (feats, thrs (R, K, H), leaves
+    (R, K, L), base (K,)): each class's trees summed in round order."""
+    R, K, H = feats.shape
+    leaf = _predict_leaves(X, feats.reshape(R * K, H),
+                           thrs.reshape(R * K, H), depth)      # (R*K, n)
+    vals = torch.gather(leaves.reshape(R * K, -1), 1, leaf)
+    return base + _tree_sum(vals.view(R, K, -1)).t()
+
+
 def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``x`` (tensor or array) as a tensor of ``dtype`` on ``device``;
     arrays are copied, so a read-only numpy buffer is never aliased. A
@@ -572,7 +684,21 @@ def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return x.to(device=device, dtype=dtype)
 
 
-class GBTClassifierModel(ClassifierModel):
+class _TreeArrays:
+    """A fitted model's trees (split features, thresholds, leaves) on
+    ``device``, from numpy or tensors."""
+
+    def _set_trees(self, feats, thrs, leaves, depth, n_features, device):
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device)
+        self.feats = _on(feats, torch.int32, self.device)
+        self.thrs = _on(thrs, self.dtype, self.device)
+        self.leaves = _on(leaves, self.dtype, self.device)
+        self.depth = int(depth)
+        self.n_features = int(n_features)
+
+
+class GBTClassifierModel(_TreeArrays, ClassifierModel):
     """Boosted binary classifier: sigmoid over summed leaf margins. The
     trees live on ``device``; ``predict_arrays`` takes numpy or a tensor
     and returns numpy."""
@@ -580,15 +706,9 @@ class GBTClassifierModel(ClassifierModel):
     def __init__(self, feats, thrs, leaves, depth: int, base: float = 0.0,
                  n_features: int = 0, device="cuda",
                  uid: Optional[str] = None):
-        super().__init__(uid=uid)
-        self.device = resolve_device(device)
-        self.dtype = working_dtype(self.device)
-        self.feats = _on(feats, torch.int32, self.device)
-        self.thrs = _on(thrs, self.dtype, self.device)
-        self.leaves = _on(leaves, self.dtype, self.device)
-        self.depth = int(depth)
+        ClassifierModel.__init__(self, uid=uid)
+        self._set_trees(feats, thrs, leaves, depth, n_features, device)
         self.base = float(base)
-        self.n_features = int(n_features)
 
     def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
         """(n, 2) raw pair [-m, m] of the boosted margins m."""
@@ -601,14 +721,49 @@ class GBTClassifierModel(ClassifierModel):
         return np.stack([1 - p, p], axis=1)
 
 
+class GBTRegressorModel(_TreeArrays, RegressionModel):
+    """Boosted regressor: base plus the summed leaf values."""
+
+    def __init__(self, feats, thrs, leaves, depth: int, base: float = 0.0,
+                 n_features: int = 0, device="cuda",
+                 uid: Optional[str] = None):
+        RegressionModel.__init__(self, uid=uid)
+        self._set_trees(feats, thrs, leaves, depth, n_features, device)
+        self.base = float(base)
+
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        return _gbt_margins(X, self.feats, self.thrs, self.leaves,
+                            self.base, self.depth)
+
+
+class GBTMulticlassClassifierModel(_TreeArrays, ClassifierModel):
+    """K-class softmax booster: raw predictions are the per-class margins
+    (``feats``, ``thrs`` (R, K, H), ``leaves`` (R, K, L), ``base`` (K,)),
+    whose softmax is the probability."""
+
+    def __init__(self, feats, thrs, leaves, depth: int, base,
+                 n_features: int = 0, device="cuda",
+                 uid: Optional[str] = None):
+        ClassifierModel.__init__(self, uid=uid)
+        self._set_trees(feats, thrs, leaves, depth, n_features, device)
+        self.base = _on(base, self.dtype, self.device).reshape(-1)
+
+    def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
+        return _softmax_margins(X, self.feats, self.thrs, self.leaves,
+                                self.base, self.depth)
+
+
 # ---------------------------------------------------------------------------
 # fold x grid search
 # ---------------------------------------------------------------------------
 
 #: grid parameters that vary per candidate vs those that fix a shape group
+#: ("eta" and "num_round" are the XGBoost facades' names of step_size and
+#: num_rounds)
 _GBT_TRACED = ("step_size", "reg_lambda", "gamma", "min_child_weight",
-               "subsample")
+               "subsample", "eta")
 _GBT_SKEY = ("max_depth", "num_rounds", "max_bins", "seed")
+_GBT_STATIC = _GBT_SKEY + ("num_round",)
 
 
 def _check_binary(y) -> None:
@@ -643,15 +798,19 @@ def _candidate_groups(est, grid, skey: Sequence[str]
     return list(groups.values())
 
 
-def _gbt_fold_grid(est: "GBTClassifier", X, y, masks, grid, X_val, y_val,
-                   spec) -> np.ndarray:
+def _gbt_fold_grid(est, X, y, masks, grid, X_val, y_val, spec,
+                   objective: str = "logistic",
+                   num_classes: int = 0) -> np.ndarray:
     """(F, G) validation metrics of every (fold, grid point) candidate:
     each a masked fit on the whole prepared matrix (mask = the fold's
     train rows, bin edges from the whole matrix as in the JAX search),
-    then the on-device metric on the fold's validation rows. Fold-major
-    within each static group; only the matrix reaches the host."""
+    then the on-device metric on the fold's validation rows: the sigmoid
+    pair of the margins (``objective`` "logistic"), the values
+    ("squared"), or the softmax of the K class margins ("softmax", with
+    ``num_classes``). Fold-major within each static group; only the
+    matrix reaches the host."""
     from ..evaluators.device_metrics import binary_from_sigmoid, metric_fn
-    grid = _check_grid(grid, _GBT_TRACED + _GBT_SKEY, "GBT")
+    grid = _check_grid(grid, _GBT_TRACED + _GBT_STATIC, "GBT")
     dev, dtype = est.device, working_dtype(est.device)
     masks = np.asarray(masks, dtype=np.float64)
     F = masks.shape[0]
@@ -665,17 +824,29 @@ def _gbt_fold_grid(est: "GBTClassifier", X, y, masks, grid, X_val, y_val,
         design = _design_args(X, members[0][1].max_bins, dev)
         for f in range(F):
             for gi, cand in members:
-                feats, thrs, leaves, base = _gbt_body(
-                    design, y_t, masks_t[f], **cand._fit_kwargs())
-                margin = _gbt_margins(Xv[f], feats, thrs, leaves, base,
-                                      cand.max_depth)
-                mm[f, gi] = mfn(yv[f], binary_from_sigmoid(margin))
+                if objective == "softmax":
+                    fit = _gbt_softmax_body(design, y_t, masks_t[f],
+                                            num_classes=num_classes,
+                                            **cand._fit_kwargs())
+                    scores = ref_math.softmax(_softmax_margins(
+                        Xv[f], *fit, cand.max_depth), dim=1)
+                else:
+                    fit = _gbt_body(design, y_t, masks_t[f],
+                                    objective=objective,
+                                    **cand._fit_kwargs())
+                    scores = _gbt_margins(Xv[f], *fit, cand.max_depth)
+                    if objective == "logistic":
+                        scores = binary_from_sigmoid(scores)
+                mm[f, gi] = mfn(yv[f], scores)
     return mm.cpu().numpy().astype(np.float64)
 
 
-class GBTClassifier(Predictor):
-    """Gradient-boosted binary classifier with second-order (XGBoost-
-    style) split gains on the logistic objective."""
+class _BoosterBase(Predictor):
+    """Shared parameters and single fit of the boosters: ``objective``
+    names the boosting body's loss and ``model_cls`` the model it fits."""
+
+    objective = "logistic"
+    model_cls = GBTClassifierModel
 
     def __init__(self, num_rounds: int = 20, max_depth: int = 5,
                  step_size: float = 0.1, max_bins: int = 32,
@@ -709,6 +880,22 @@ class GBTClassifier(Predictor):
                     subsample=float(self.subsample), seed=int(self.seed),
                     draws=self.draws)
 
+    def _fit_boosted(self, X, y):
+        design = _design_args(X, self.max_bins, self.device)
+        y_t = torch.as_tensor(np.asarray(y), dtype=design.dtype,
+                              device=self.device)
+        feats, thrs, leaves, base = _gbt_body(
+            design, y_t, None, objective=self.objective,
+            **self._fit_kwargs())
+        return self.model_cls(feats, thrs, leaves, depth=self.max_depth,
+                              base=float(base), n_features=X.shape[1],
+                              device=self.device)
+
+
+class GBTClassifier(_BoosterBase):
+    """Gradient-boosted binary classifier with second-order (XGBoost-
+    style) split gains on the logistic objective."""
+
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:
         """Device-resident search: fused fit + validation metric, (F, G)
@@ -716,20 +903,118 @@ class GBTClassifier(Predictor):
         if spec[0] != "binary":
             raise NotImplementedError(
                 "GBT-classifier device eval is binary-only")
-        _check_binary(y)
+        if np.setdiff1d(np.unique(y), [0.0, 1.0]).size:
+            raise NotImplementedError(
+                "the GBT search requires binary labels {0, 1}")
         return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
                               X_val, y_val, spec)
 
     def fit_arrays(self, X, y) -> GBTClassifierModel:
         _check_binary(y)
+        return self._fit_boosted(X, y)
+
+
+class GBTRegressor(_BoosterBase):
+    """Gradient-boosted regressor on the squared loss (reference
+    OpGBTRegressor.scala), second-order split gains."""
+
+    objective = "squared"
+    model_cls = GBTRegressorModel
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search (see _gbt_fold_grid)."""
+        if spec[0] != "regression":
+            raise NotImplementedError(
+                "GBT-regressor device eval needs a regression metric")
+        return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
+                              X_val, y_val, spec, objective="squared")
+
+    def fit_arrays(self, X, y) -> GBTRegressorModel:
+        return self._fit_boosted(X, y)
+
+
+def _xgb_init(self, eta, max_depth, num_round, reg_lambda, gamma,
+              min_child_weight, subsample, max_bins, seed, device, draws,
+              uid):
+    _BoosterBase.__init__(
+        self, num_rounds=num_round, max_depth=max_depth, step_size=eta,
+        max_bins=max_bins, reg_lambda=reg_lambda, gamma=gamma,
+        min_child_weight=min_child_weight, subsample=subsample, seed=seed,
+        device=device, draws=draws, uid=uid)
+    self.eta = eta
+    self.num_round = num_round
+
+
+class XGBoostClassifier(GBTClassifier):
+    """XGBoost-named facade over the histogram booster (reference
+    OpXGBoostClassifier.scala): binary labels boost the logistic
+    objective as GBTClassifier does; K > 2 classes boost the softmax
+    objective (``multi:softprob``, ``_gbt_softmax_body``)."""
+
+    def __init__(self, eta: float = 0.3, max_depth: int = 6,
+                 num_round: int = 100, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 subsample: float = 1.0, max_bins: int = 256,
+                 seed: int = 42, device="cuda", draws=None,
+                 uid: Optional[str] = None):
+        _xgb_init(self, eta, max_depth, num_round, reg_lambda, gamma,
+                  min_child_weight, subsample, max_bins, seed, device,
+                  draws, uid)
+
+    @staticmethod
+    def _check_classes(y, k: int, error=NotImplementedError) -> None:
+        bad = np.setdiff1d(np.unique(y), np.arange(k, dtype=np.float64))
+        if bad.size:
+            raise error(f"XGBoostClassifier needs integer class labels "
+                        f"0..{k - 1}; got {bad.tolist()}")
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Binary labels: the GBT search. K > 2 classes: the softmax
+        booster's fused fit and multiclass metric per candidate."""
+        k = num_classes(y)
+        if k <= 2:
+            return GBTClassifier.eval_fold_grid_arrays(
+                self, X, y, masks, grid, X_val, y_val, spec,
+                cand_idx=cand_idx)
+        if spec[0] != "multiclass":
+            raise NotImplementedError(
+                "softmax-GBT device eval needs a multiclass metric")
+        self._check_classes(y, k)
+        check_fold_classes(y, masks)
+        return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
+                              X_val, y_val, spec, objective="softmax",
+                              num_classes=k)
+
+    def fit_arrays(self, X, y):
+        k = num_classes(y)
+        if k <= 2:
+            return GBTClassifier.fit_arrays(self, X, y)
+        self._check_classes(y, k, ValueError)
         design = _design_args(X, self.max_bins, self.device)
         y_t = torch.as_tensor(np.asarray(y), dtype=design.dtype,
                               device=self.device)
-        feats, thrs, leaves, base = _gbt_body(design, y_t, None,
-                                              **self._fit_kwargs())
-        return GBTClassifierModel(feats, thrs, leaves, depth=self.max_depth,
-                                  base=float(base), n_features=X.shape[1],
-                                  device=self.device)
+        feats, thrs, leaves, base = _gbt_softmax_body(
+            design, y_t, None, num_classes=k, **self._fit_kwargs())
+        return GBTMulticlassClassifierModel(
+            feats, thrs, leaves, depth=self.max_depth, base=base,
+            n_features=X.shape[1], device=self.device)
+
+
+class XGBoostRegressor(GBTRegressor):
+    """XGBoost-named facade over the squared-loss booster (reference
+    OpXGBoostRegressor.scala)."""
+
+    def __init__(self, eta: float = 0.3, max_depth: int = 6,
+                 num_round: int = 100, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 subsample: float = 1.0, max_bins: int = 256,
+                 seed: int = 42, device="cuda", draws=None,
+                 uid: Optional[str] = None):
+        _xgb_init(self, eta, max_depth, num_round, reg_lambda, gamma,
+                  min_child_weight, subsample, max_bins, seed, device,
+                  draws, uid)
 
 
 # ---------------------------------------------------------------------------
@@ -889,22 +1174,27 @@ def _node_uniforms(draws, t: int, device: torch.device):
     return node_u
 
 
-def _forest_trees(design: _PackedDesign, onehot: torch.Tensor, lanes,
-                  draws, *, depth: int, num_trees: int, impurity: str,
-                  bootstrap: bool, max_features: Optional[int],
-                  pool: Optional[_ForestPool]):
+def _forest_trees(design: _PackedDesign, labels: torch.Tensor, lanes,
+                  draws, *, kind: str, depth: int, num_trees: int,
+                  impurity: str, bootstrap: bool,
+                  max_features: Optional[int], pool: Optional[_ForestPool]):
     """Grow one forest per lane, tree by tree; yields (tree, lane, feat
-    heap, thr heap, leaf class distributions (2^depth, K)).
+    heap, thr heap, leaves).
 
     ``lanes`` holds (mask (n,), min_instances, min_info_gain,
     subsampling_rate) per candidate. Tree t's pool, Poisson weights and
     node uniforms depend only on (draws, t, rate), so they are drawn once
-    and shared by every lane. Statistics are one-hot labels times
-    (weight x mask); a leaf holds its class distribution, 1/K when
-    empty."""
+    and shared by every lane. ``kind`` "cls": ``labels`` is the (n, K)
+    one-hot, the statistics are it times (weight x mask), a leaf holds its
+    class distribution (2^depth, K), 1/K when empty. ``kind`` "reg":
+    ``labels`` is the (n,) label, the statistics [w, wy, wyy] feed the
+    variance gain and a leaf holds its mean wy / w (2^depth,)."""
     dev = design.device
-    K = onehot.shape[1]
-    gain = _gini_gain if impurity == "gini" else _entropy_gain
+    if kind == "cls":
+        K = labels.shape[1]
+        gain = _gini_gain if impurity == "gini" else _entropy_gain
+    else:
+        gain = _variance_gain
     for t in range(num_trees):
         tree_design = design if pool is None else pool.tree(t, draws)
         feat_map = None if pool is None else tree_design.feat_map
@@ -917,46 +1207,62 @@ def _forest_trees(design: _PackedDesign, onehot: torch.Tensor, lanes,
             if bootstrap:
                 if rate not in weights:
                     weights[rate] = _on(draws.poisson(t, rate, design.n),
-                                        onehot.dtype, dev)
+                                        labels.dtype, dev)
                 w = weights[rate] * mask
+            if kind == "cls":
+                stats = labels * w[:, None]
+            else:
+                wy = w * labels
+                stats = torch.stack([w, wy, wy * labels], dim=1)
             feat, thr, leaf_stats, _ = _grow_tree(
-                tree_design, onehot * w[:, None], depth=depth,
-                gain_fn=gain(min_inst), min_info_gain=min_gain,
-                max_features=max_features, node_u=node_u, feat_map=feat_map)
-            lw = torch.sum(leaf_stats, dim=-1, keepdim=True)
-            leaf = torch.where(lw > 0, leaf_stats / torch.clamp(lw, min=1e-12),
-                               1.0 / K)
+                tree_design, stats, depth=depth, gain_fn=gain(min_inst),
+                min_info_gain=min_gain, max_features=max_features,
+                node_u=node_u, feat_map=feat_map)
+            if kind == "cls":
+                lw = torch.sum(leaf_stats, dim=-1, keepdim=True)
+                leaf = torch.where(
+                    lw > 0, leaf_stats / torch.clamp(lw, min=1e-12), 1.0 / K)
+            else:
+                leaf = (leaf_stats[:, 1]
+                        / torch.clamp(leaf_stats[:, 0], min=1e-12))
             yield t, i, feat, thr, leaf
 
 
-class TreeEnsembleClassifierModel(ClassifierModel):
-    """Random-forest / decision-tree classifier: the mean over trees of
-    the leaf class distributions (the reference's normalized vote
-    averaging). ``leaves`` is (T, 2^depth, K); the trees live on
-    ``device``."""
-
-    def __init__(self, feats, thrs, leaves, depth: int, n_features: int = 0,
-                 device="cuda", uid: Optional[str] = None):
-        super().__init__(uid=uid)
-        self.device = resolve_device(device)
-        self.dtype = working_dtype(self.device)
-        self.feats = _on(feats, torch.int32, self.device)
-        self.thrs = _on(thrs, self.dtype, self.device)
-        self.leaves = _on(leaves, self.dtype, self.device)
-        self.depth = int(depth)
-        self.n_features = int(n_features)
+class _EnsembleModel(_TreeArrays):
+    """Trees of a forest on ``device``: the mean over trees of the leaf
+    values (class distributions (T, 2^depth, K) or values (T, 2^depth))
+    reached by each row, the tree-order sum divided by T as the JAX
+    model's host scoring (``np.mean``) computes it."""
 
     def raw_arrays(self, X: torch.Tensor) -> torch.Tensor:
-        """(n, K) mean over trees of the leaf class distributions: the
-        tree-order sum divided by T, as the JAX model's host scoring
-        (``np.mean``) computes it."""
         leaf = _predict_leaves(X, self.feats, self.thrs, self.depth)
         tree = torch.arange(leaf.shape[0], device=self.device)[:, None]
         return _tree_sum(self.leaves[tree, leaf]) / leaf.shape[0]
 
+
+class TreeEnsembleClassifierModel(_EnsembleModel, ClassifierModel):
+    """Random-forest / decision-tree classifier: the mean over trees of the
+    leaf class distributions (the reference's normalized vote
+    averaging)."""
+
+    def __init__(self, feats, thrs, leaves, depth: int, n_features: int = 0,
+                 device="cuda", uid: Optional[str] = None):
+        ClassifierModel.__init__(self, uid=uid)
+        self._set_trees(feats, thrs, leaves, depth, n_features, device)
+
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         s = np.sum(raw, axis=1, keepdims=True)
         return raw / np.where(s > 0, s, 1.0)
+
+
+class TreeEnsembleRegressorModel(_EnsembleModel, RegressionModel):
+    """Random-forest / decision-tree regressor: the mean over trees of the
+    leaf values."""
+
+    def __init__(self, feats, thrs, leaves, depth: int, n_features: int = 0,
+                 device="cuda", uid: Optional[str] = None):
+        RegressionModel.__init__(self, uid=uid)
+        self._set_trees(feats, thrs, leaves, depth, n_features, device)
 
 
 #: grid parameters that vary per candidate vs those that fix a shape group
@@ -967,50 +1273,62 @@ _FOREST_STATIC = ("max_depth", "num_trees", "max_bins", "impurity",
 
 
 def _forest_setup(est, X, y, device: torch.device):
-    """(design, one-hot labels, pool or None, max_features, draws) of a
-    static group: per-node subsets (and so pools) only with bootstrap."""
+    """(design, labels, pool or None, max_features, draws) of a static
+    group: the one-hot labels of a classifier (K from all of ``y``) or the
+    label of a regressor; per-node subsets (and so pools) only with
+    bootstrap."""
     design = _design_args(X, est.max_bins, device)
-    onehot = _on(np.eye(num_classes(y))[np.asarray(y).astype(np.int64)],
-                 design.dtype, device)
-    mf = (_resolve_max_features(est.feature_subset_strategy, design.d, True)
+    if est.kind == "cls":
+        labels = _on(np.eye(num_classes(y))[np.asarray(y).astype(np.int64)],
+                     design.dtype, device)
+    else:
+        labels = _on(np.asarray(y, dtype=np.float64), design.dtype, device)
+    mf = (_resolve_max_features(est.feature_subset_strategy, design.d,
+                                est.kind == "cls")
           if est.bootstrap else None)
     classes, cfg, mf = _pool_plan(design.widths, mf)
     pool = None if cfg is None else _ForestPool(design, classes, cfg)
     # K1's plan uploads its tables (a wait for the card): before the loop
-    (design if pool is None else pool).hist_plan(onehot.shape[1])
+    S = labels.shape[1] if est.kind == "cls" else 3
+    (design if pool is None else pool).hist_plan(S)
     draws = (est.draws or TorchDraws)(est.seed, est.num_trees)
-    return design, onehot, pool, mf, draws
+    return design, labels, pool, mf, draws
 
 
 def _forest_fold_grid(est, X, y, masks, grid, X_val, y_val,
                       spec) -> np.ndarray:
     """(F, G) validation metrics of every (fold, grid point) forest
     candidate: masked fits on the whole prepared matrix, grown tree by
-    tree for every lane of a static group at once, each lane's votes on
-    its fold's validation rows summed as its trees come; then the mean
-    over trees and the on-device metric. Only the matrix reaches the
-    host."""
-    from ..evaluators.device_metrics import binary_from_votes, metric_fn
+    tree for every lane of a static group at once, each lane's leaf values
+    on its fold's validation rows summed as its trees come; then the mean
+    over trees (votes to the binary pair or the class probabilities, or
+    the regression values) and the on-device metric. Only the matrix
+    reaches the host."""
+    from ..evaluators.device_metrics import (binary_from_votes, metric_fn,
+                                             vote_probability)
     grid = _check_grid(grid, _FOREST_TRACED + _FOREST_STATIC, "forest")
     dev, dtype = est.device, working_dtype(est.device)
     masks = np.asarray(masks, dtype=np.float64)
     F = masks.shape[0]
     mfn = metric_fn(*spec)
+    score = {"binary": binary_from_votes, "multiclass": vote_probability,
+             "regression": lambda v: v}[spec[0]]
     masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
     Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
     yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
     mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
     for members in _candidate_groups(est, grid, _FOREST_STATIC):
         cand0 = members[0][1]
-        design, onehot, pool, mf, draws = _forest_setup(cand0, X, y, dev)
+        design, labels, pool, mf, draws = _forest_setup(cand0, X, y, dev)
         lanes = [(masks_t[f], float(c.min_instances_per_node),
                   float(c.min_info_gain), float(c.subsampling_rate))
                  for f in range(F) for _, c in members]
         votes: List[Optional[torch.Tensor]] = [None] * len(lanes)
         depth = cand0.max_depth
         for _, i, feat, thr, leaf in _forest_trees(
-                design, onehot, lanes, draws, depth=depth,
-                num_trees=cand0.num_trees, impurity=cand0.impurity,
+                design, labels, lanes, draws, kind=cand0.kind, depth=depth,
+                num_trees=cand0.num_trees,
+                impurity=cand0.impurity,
                 bootstrap=cand0.bootstrap, max_features=mf, pool=pool):
             f = i // len(members)
             v = leaf[_predict_leaves(Xv[f], feat[None], thr[None], depth)[0]]
@@ -1019,45 +1337,74 @@ def _forest_fold_grid(est, X, y, masks, grid, X_val, y_val,
             f, j = divmod(i, len(members))
             # the mean as XLA computes it: times the reciprocal of T
             mm[f, members[j][0]] = mfn(
-                yv[f], binary_from_votes(v * (1.0 / cand0.num_trees)))
+                yv[f], score(v * (1.0 / cand0.num_trees)))
     return mm.cpu().numpy().astype(np.float64)
 
 
-class _ForestClassifierBase(Predictor):
-    """Shared search and fit of the tree-ensemble classifiers."""
+class _ForestBase(Predictor):
+    """Shared search and fit of the tree ensembles; ``kind`` "cls"
+    (classifiers) or "reg" (regressors)."""
 
+    kind = "cls"
     num_trees = 1
     bootstrap = False
     subsampling_rate = 1.0
     feature_subset_strategy = "all"
     draws = None
 
-    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
-                              cand_idx=None) -> np.ndarray:
-        """Device-resident search: fused fit + validation metric, (F, G)
-        matrix out (see _forest_fold_grid)."""
-        if spec[0] != "binary" or num_classes(y) != 2:
-            raise NotImplementedError(
-                "the forest-classifier device eval is binary-only")
-        return _forest_fold_grid(self, X, y, masks,
-                                 subset_grid(grid, cand_idx), X_val, y_val,
-                                 spec)
-
-    def fit_arrays(self, X, y) -> TreeEnsembleClassifierModel:
-        design, onehot, pool, mf, draws = _forest_setup(self, X, y,
+    def fit_arrays(self, X, y):
+        design, labels, pool, mf, draws = _forest_setup(self, X, y,
                                                         self.device)
         lane = (torch.ones(design.n, dtype=design.dtype, device=self.device),
                 float(self.min_instances_per_node), float(self.min_info_gain),
                 float(self.subsampling_rate))
         trees = [(f, t, leaf) for _, _, f, t, leaf in _forest_trees(
-            design, onehot, [lane], draws, depth=int(self.max_depth),
-            num_trees=int(self.num_trees), impurity=self.impurity,
+            design, labels, [lane], draws, kind=self.kind,
+            depth=int(self.max_depth), num_trees=int(self.num_trees),
+            impurity=self.impurity,
             bootstrap=self.bootstrap, max_features=mf, pool=pool)]
         feats, thrs, leaves = (torch.stack(a) for a in zip(*trees))
-        return TreeEnsembleClassifierModel(feats, thrs, leaves,
-                                           depth=self.max_depth,
-                                           n_features=X.shape[1],
-                                           device=self.device)
+        model_cls = (TreeEnsembleClassifierModel if self.kind == "cls"
+                     else TreeEnsembleRegressorModel)
+        return model_cls(feats, thrs, leaves, depth=self.max_depth,
+                         n_features=X.shape[1], device=self.device)
+
+
+class _ForestClassifierBase(_ForestBase):
+    """Shared search of the tree-ensemble classifiers (binary and K-class
+    one-hot statistics)."""
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search: fused fit + validation metric, (F, G)
+        matrix out (see _forest_fold_grid)."""
+        if spec[0] == "binary" and num_classes(y) != 2:
+            raise NotImplementedError(
+                "binary device eval needs binary labels")
+        if spec[0] not in ("binary", "multiclass"):
+            raise NotImplementedError(
+                "forest-classifier device eval needs a classification "
+                "metric")
+        return _forest_fold_grid(self, X, y, masks,
+                                 subset_grid(grid, cand_idx), X_val, y_val,
+                                 spec)
+
+
+class _ForestRegressorBase(_ForestBase):
+    """Shared search of the tree-ensemble regressors (variance gain)."""
+
+    kind = "reg"
+    impurity = ""
+
+    def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
+                              cand_idx=None) -> np.ndarray:
+        """Device-resident search (see _forest_fold_grid)."""
+        if spec[0] != "regression":
+            raise NotImplementedError(
+                "forest-regressor device eval needs a regression metric")
+        return _forest_fold_grid(self, X, y, masks,
+                                 subset_grid(grid, cand_idx), X_val, y_val,
+                                 spec)
 
 
 class DecisionTreeClassifier(_ForestClassifierBase):
@@ -1074,6 +1421,22 @@ class DecisionTreeClassifier(_ForestClassifierBase):
         self.min_instances_per_node = min_instances_per_node
         self.min_info_gain = min_info_gain
         self.impurity = impurity
+        self.seed = seed
+        self.device = resolve_device(device)
+
+
+class DecisionTreeRegressor(_ForestRegressorBase):
+    """Single regression tree, variance impurity, every feature at every
+    node; draws nothing."""
+
+    def __init__(self, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 seed: int = 42, device="cuda", uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
         self.seed = seed
         self.device = resolve_device(device)
 
@@ -1103,6 +1466,32 @@ class RandomForestClassifier(_ForestClassifierBase):
         self.subsampling_rate = subsampling_rate
         self.feature_subset_strategy = feature_subset_strategy
         self.impurity = impurity
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.draws = draws
+
+
+class RandomForestRegressor(_ForestRegressorBase):
+    """Bagged regression trees (reference OpRandomForestRegressor.scala):
+    Poisson row weights, a stratified feature pool per tree and a third of
+    the features per node by default."""
+
+    bootstrap = True
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 max_bins: int = 32, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, subsampling_rate: float = 1.0,
+                 feature_subset_strategy: str = "auto", seed: int = 42,
+                 device="cuda", draws=None, uid: Optional[str] = None):
+        """``draws``: as RandomForestClassifier's."""
+        super().__init__(uid=uid)
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.subsampling_rate = subsampling_rate
+        self.feature_subset_strategy = feature_subset_strategy
         self.seed = seed
         self.device = resolve_device(device)
         self.draws = draws

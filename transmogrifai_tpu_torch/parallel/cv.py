@@ -1,13 +1,15 @@
 """Fold x grid fitting and scoring of the linear family in one batch.
 
-Counterpart of ``transmogrifai_tpu/parallel/cv.py`` (``LINEAR_KERNELS``,
+Counterpart of ``transmogrifai_tpu/parallel/cv.py`` (``LINEAR_KERNELS``:
+logistic, squared and SVC;
 ``eval_linear_fold_grid``, ``_candidate_fit``, ``_candidate_eval``), local
 path only: every (fold, grid point) candidate is one row of the batched
 fit cores of ``models/linear.py``, fold-major (candidate ``f * G + g``),
 with the F fold masks as row weights and never repeated per grid point.
-Each candidate runs FISTA with a fixed trip count, as in the JAX search,
-then its validation metric is computed on the device; only the (F, G)
-metric matrix reaches the host. The mesh path (models x data sharding)
+Each candidate runs FISTA with a fixed trip count, as in the JAX search
+(the squared loss without an L1 term in the grid solves its normal
+equations), then its validation metric is computed on the device; only
+the (F, G) metric matrix reaches the host. The mesh path (models x data sharding)
 is not ported yet.
 """
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from ..evaluators.device_metrics import binary_from_raw_pair, metric_fn
-from ..models.linear import binary_logistic_core, linear_svc_core
+from ..models.linear import (binary_logistic_core, linear_regression_core,
+                             linear_svc_core)
 from ..utils.device import resolve_device, working_dtype
 
 __all__ = ["LINEAR_KERNELS", "eval_linear_fold_grid"]
@@ -27,6 +30,7 @@ __all__ = ["LINEAR_KERNELS", "eval_linear_fold_grid"]
 #: *, fit_intercept, standardize, max_iter, solver, device)
 LINEAR_KERNELS = {
     "logistic": binary_logistic_core,
+    "squared": linear_regression_core,
     "svc": linear_svc_core,
 }
 
@@ -45,9 +49,8 @@ def eval_linear_fold_grid(kind: str, X, y, masks, grid, X_val, y_val,
     spec  : (kind, metric) for ``evaluators.device_metrics.metric_fn``
     """
     if kind not in LINEAR_KERNELS:
-        raise NotImplementedError(
-            f"linear kind {kind!r} is not ported yet (ported: "
-            f"{sorted(LINEAR_KERNELS)}; linear_regression_core is not)")
+        raise ValueError(f"unknown linear kind {kind!r} (kinds: "
+                         f"{sorted(LINEAR_KERNELS)})")
     dev = resolve_device(device)
     dtype = working_dtype(dev)
     grid = np.asarray(grid, dtype=np.float64).reshape(-1, 2)
@@ -85,8 +88,11 @@ def _candidate_eval(kind: str, spec: tuple, m: torch.Tensor,
     """One candidate's validation metric from its margins ``m``, with the
     host model's score semantics: logistic ranks by the softmax
     probability of the [-m, m] pair, SVC by the raw margin (no
-    probability, as in MLlib) with the margin's sign as its label."""
-    if kind == "svc":
+    probability, as in MLlib) with the margin's sign as its label, a
+    regression metric takes the predicted values."""
+    if spec[0] == "regression":
+        scores = m
+    elif kind == "svc":
         scores = (m, (m > 0).to(m.dtype))
     else:
         scores = binary_from_raw_pair(torch.stack([-m, m], dim=1))

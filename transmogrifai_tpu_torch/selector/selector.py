@@ -279,6 +279,14 @@ class ModelSelector(Predictor):
             X_tr, y_tr = take_rows(X, train_idx), y[train_idx]
             idx = self.splitter.prepare(y_tr)
             Xp, yp = take_rows(X_tr, idx), y_tr[idx]
+            kept = getattr(self.splitter, "labels_kept", None)
+            if kept is not None and X_hold is not None:
+                # the refit model cannot predict the labels the cutter
+                # dropped: the holdout keeps only the kept ones
+                hold = np.nonzero(np.isin(y_hold, kept))[0]
+                X_hold, y_hold = take_rows(X_hold, hold), y_hold[hold]
+                if not len(y_hold):
+                    X_hold = y_hold = None
             summ = self.splitter.summary or SplitterSummary()
             prep_params = summ.parameters
             prep_results = summ.results

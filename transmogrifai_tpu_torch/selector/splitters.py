@@ -1,8 +1,10 @@
-"""Data splitters: holdout reserve and class balancing (numpy).
+"""Data splitters: holdout reserve, class balancing and label cutting
+(numpy).
 
 Counterpart of ``transmogrifai_tpu/selector/splitters.py`` (``Splitter``,
-``DataBalancer``, ``stratified_split``); the same seed gives the same
-indices. Splitters are index computations over the label vector.
+``DataSplitter``, ``DataBalancer``, ``DataCutter``, ``stratified_split``);
+the same seed gives the same indices. Splitters are index computations
+over the label vector.
 """
 from __future__ import annotations
 
@@ -11,8 +13,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SplitterSummary", "Splitter", "DataBalancer",
-           "stratified_split"]
+__all__ = ["SplitterSummary", "Splitter", "DataSplitter", "DataBalancer",
+           "DataCutter", "stratified_split"]
 
 
 def stratified_split(y: np.ndarray, test_fraction: float,
@@ -78,6 +80,20 @@ class Splitter:
     def get_params(self) -> Dict:
         return {"reserve_test_fraction": self.reserve_test_fraction,
                 "seed": self.seed}
+
+
+class DataSplitter(Splitter):
+    """Plain splitter of regression problems: an unstratified seeded
+    holdout, every training row kept."""
+
+    def split(self, y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        n = len(y)
+        if self.reserve_test_fraction <= 0.0:
+            return np.arange(n), np.zeros(0, dtype=np.int64)
+        rng = np.random.default_rng(self.seed)
+        perm = rng.permutation(n)
+        n_test = int(round(n * self.reserve_test_fraction))
+        return np.sort(perm[n_test:]), np.sort(perm[:n_test])
 
 
 class DataBalancer(Splitter):
@@ -175,3 +191,54 @@ class DataBalancer(Splitter):
         p.update({"sample_fraction": self.sample_fraction,
                   "max_training_sample": self.max_training_sample})
         return p
+
+
+class DataCutter(Splitter):
+    """Multiclass label cutter: drops the labels below
+    ``min_label_fraction`` of the rows and keeps at most
+    ``max_label_categories`` of the most frequent ones. The kept labels are
+    estimated once from the global labels and reused by every later
+    ``prepare``."""
+
+    def __init__(self, min_label_fraction: float = 0.0,
+                 max_label_categories: int = 100,
+                 reserve_test_fraction: float = 0.0, seed: int = 42):
+        super().__init__(reserve_test_fraction, seed)
+        if not 0.0 <= min_label_fraction < 0.5:
+            raise ValueError("min_label_fraction must be in [0, 0.5)")
+        self.min_label_fraction = min_label_fraction
+        self.max_label_categories = max_label_categories
+        self.labels_kept: Optional[np.ndarray] = None
+
+    def reset_plan(self) -> None:
+        self.labels_kept = None
+
+    def estimate(self, y: np.ndarray) -> None:
+        """Decide which labels survive, from the label counts."""
+        labels, counts = np.unique(y, return_counts=True)
+        frac = counts / max(len(y), 1)
+        keep = labels[frac >= self.min_label_fraction]
+        if len(keep) > self.max_label_categories:
+            order = np.argsort(-counts[np.isin(labels, keep)])
+            keep = keep[order[:self.max_label_categories]]
+        if len(keep) == 0:
+            raise ValueError(
+                f"DataCutter dropped every label: no class reaches "
+                f"min_label_fraction={self.min_label_fraction} "
+                f"(label fractions: "
+                f"{dict(zip(labels.tolist(), np.round(frac, 4).tolist()))})")
+        self.labels_kept = np.sort(keep)
+        dropped = sorted(set(labels.tolist()) - set(keep.tolist()))
+        self.summary = SplitterSummary(
+            splitter="DataCutter",
+            parameters={"min_label_fraction": self.min_label_fraction,
+                        "max_label_categories": self.max_label_categories},
+            results={"labelsKept": self.labels_kept.tolist(),
+                     "labelsDropped": dropped})
+
+    def prepare(self, y: np.ndarray) -> np.ndarray:
+        """Row indices of the kept labels (estimated from ``y`` when no
+        estimate ran)."""
+        if self.labels_kept is None:
+            self.estimate(y)
+        return np.nonzero(np.isin(y, self.labels_kept))[0]

@@ -27,7 +27,7 @@ import torch
 
 from .. import _build
 from ..evaluators.base import Evaluator
-from ..models.base import Predictor
+from ..models.base import FamilyPreconditionError, Predictor
 from ..utils.device import take_rows
 from .splitters import stratified_split
 
@@ -190,6 +190,12 @@ class _ValidatorBase:
             return estimator.eval_fold_grid_arrays(
                 X, y, masks, grid, X_val_st, y_val_st, spec, **kwargs)
         except NotImplementedError:
+            return None
+        except FamilyPreconditionError as e:
+            # the data violates the family's preconditions (NaiveBayes on
+            # negative features): the host path scores it NaN per fold
+            _log.warning("device eval of %s rejected the data: %s",
+                         type(estimator).__name__, e)
             return None
         finally:
             rec = _FAMILY_PROFILE.setdefault(

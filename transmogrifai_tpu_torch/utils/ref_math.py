@@ -25,7 +25,10 @@ import struct
 
 import torch
 
-__all__ = ["sigmoid", "log"]
+__all__ = ["exp", "log", "sigmoid", "softmax", "xla_sum"]
+
+#: XLA's CPU reductions add this many elements a window
+_WINDOW = 32
 
 
 def _f64(bits: str) -> float:
@@ -120,6 +123,44 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     den = torch.where(xn > _EXP_HI, torch.inf, den)
     r = 1.0 / den
     return torch.where(r < _TINY, 0.0, r)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` as XLA's CPU code computes it for ``jnp.exp`` (the softmax
+    of the boosting gradients and of the metric): the product ((e*s)*s)*s
+    * t, a subnormal result flushed to zero. Other tensors:
+    ``torch.exp``."""
+    if not _emulated(x):
+        return torch.exp(x)
+    e, s, t = _exp_parts(x)
+    r = e * s * s * s * t
+    r = torch.where(x < _EXP_LO, 0.0, r)
+    r = torch.where(x > _EXP_HI, torch.inf, r)
+    r = torch.where(r < _TINY, 0.0, r)
+    return torch.where(torch.isnan(x), x, r)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax``: exp of the max-shifted values over their sum,
+    with :func:`exp` (XLA's CPU exp on float64 CPU tensors)."""
+    e = exp(x - torch.amax(x, dim=dim, keepdim=True))
+    return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a 1-D tensor as XLA's CPU code adds a float64 ``jnp.sum``:
+    up to 32 elements in order; more are padded with zeros to a multiple
+    of 32 (half the padding before, the larger half after), added 32 at a
+    time in order, and the window sums reduced the same way. Other
+    tensors: ``torch.sum``."""
+    if not _emulated(x):
+        return torch.sum(x)
+    n = x.shape[0]
+    if n <= _WINDOW:
+        return torch.cumsum(x, 0)[-1] if n else x.new_zeros(())
+    pad = -n % _WINDOW
+    w = torch.cat([x.new_zeros(pad // 2), x, x.new_zeros(pad - pad // 2)])
+    return xla_sum(torch.cumsum(w.view(-1, _WINDOW), 1)[:, -1])
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
