@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch port (``transmogrifai_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
-[--workflow-rows N] [--cv-rows N] [--out FILE]
-[--k1-only | --workflow-only | --validate-only | --problems-only]
+[--workflow-rows N] [--cv-rows N] [--families-rows N] [--out FILE]
+[--k1-only | --workflow-only | --validate-only | --problems-only |
+--families-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
 ``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d,
 ``--validate-only`` phases 1, 2 and 9b-9d, 9b with its own exact
-search, ``--problems-only`` phases 1, 2 and 9e-9h):
+search, ``--problems-only`` phases 1, 2 and 9e-9h, ``--families-only``
+phases 1, 2, 9i and 9j):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -38,7 +40,8 @@ search, ``--problems-only`` phases 1, 2 and 9e-9h):
      (the search's own ~900K training rows), timed against their bounds;
      a LinearSVC fit (L-BFGS) on the 1M rows;
   6. the same four families with the linear ones' full grids and 4-point
-     tree grids (RF at 5 trees) at 20,000 x 100 rows on the card
+     tree grids (RF at 5 trees, GBT at 5 rounds: the card-against-CPU
+     pool of phases 6, 9 and 9j) at 20,000 x 100 rows on the card
      (float32) and on the CPU (float64), draws from the same CPU
      generators: metric matrices within 2e-3, and the L-BFGS LinearSVC
      fit on both (the same iteration count, coefficients within 1e-5);
@@ -135,11 +138,34 @@ search, ``--problems-only`` phases 1, 2 and 9e-9h):
      matrix on the card (float32 [w, wy, wyy] statistics) against the
      CPU's float64 fit: split nodes that differ;
  9h. [problems-agree] both examples on 3,000 records on the card and on
-     the CPU (forests at 5 trees, the same CPU draws) and a K = 7
-     multiclass array search (3,000 x 20, the default multiclass pool):
-     metric matrices within 2e-3 (relative for RMSE), the same winner
-     unless the CPU's top two lie within that; the K = 7 forests launch
-     K1 in statistic blocks;
+     the CPU (forests at 5 trees, boosters at 5 rounds, the same CPU
+     draws) and a K = 7 multiclass array search (3,000 x 20, the default
+     multiclass pool): metric matrices within 2e-3 (relative for RMSE),
+     the same winner unless the CPU's top two lie within that; the K = 7
+     forests launch K1 in statistic blocks;
+ 9i. [families] the every-family workflow (``examples/families.py``: the
+     JAX package's family DAG of dates, date lists, maps of every kind,
+     text, sets, numerics, with a geolocation, tokens and both
+     bucketizers, ~1,095 columns) on 100,000 testkit records
+     (``--families-rows``) with the whole default pool under 3-fold CV:
+     seconds by stage and of the ported stages (fit, device or host
+     transform), K1 launches by family and C (every tree family and the
+     auto-bucketizer's one-feature tree must launch it), winner, holdout
+     AuPR / AuROC, peak memory; [k1-families]: K1 against its plain
+     version at the bucketizer's d = 1 design (C = 1, 2) and on the
+     family matrix (forest statistics at C = 1, 32, 256, exact; the GBT's
+     [g, h] at C = 256), with ``index_add_`` times and the bound; then
+     save, reload, the holdout scored through the compiled plan (bitwise
+     the columnar path) and 1,001 records served one at a time (within
+     1e-6), no host fallback, no K1 launch;
+ 9j. [families-agree] the same DAG on 5,000 records on the card and on
+     the CPU with the card-against-CPU pool (GBT at 5 rounds): metadata
+     equal but for the auto-bucketizer's labels (they carry its split
+     points, float32 on the card), indicator, one-hot, hash and integer
+     columns bitwise, float columns within 1e-5, the split points and
+     rows in another bucket reported, metric matrices within 2e-3 (named
+     exceptions: GBT at min_child_weight < 10, the linear families on
+     this wide noisy matrix), the same winner;
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -213,6 +239,15 @@ SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
 RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
                   "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
+#: boosting rounds of the GBT and XGBoost points in the card-against-CPU
+#: phases 6, 9, 9h and 9j (20 until PR 9): their CPU halves sum plain
+#: histograms in float64 (20 rounds of the family pool's GBT took 99.67 s
+#: of CPU on 5,000 records, my chip run PR 10, call 1), and a divergence
+#: compounds over rounds, so fewer rounds test no less of the card's
+#: arithmetic. Phase 9d keeps 20: racing's rung 0 runs a ninth of the
+#: rounds, and at 5 its one-round GBT points broke AGREE_TOL (1.41e-2,
+#: my chip run PR 10, call 3)
+AGREE_ROUNDS = 5
 #: rows of the card-against-CPU array search (phase 6) and records of the
 #: card-against-CPU workflows (phases 9 and 9d): the sizes the tolerances
 #: were measured at (at 8,000 rows and 3,000 records an H100 came within
@@ -680,7 +715,8 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
     return out
 
 
-def phase_card_vs_cpu(device, rows: int, cols: int, num_rounds: int = 20,
+def phase_card_vs_cpu(device, rows: int, cols: int,
+                      num_rounds: int = AGREE_ROUNDS,
                       num_trees: int = 5, families=FAMILIES) -> dict:
     """The same small search on ``device`` (float32 on a card) and on the
     CPU (float64), the forests' draws from the same CPU generators:
@@ -1801,7 +1837,7 @@ def phase_workflow_copies(device, rows: int = COPIES_RECORDS) -> dict:
 
 
 def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
-                         num_rounds: int = 20,
+                         num_rounds: int = AGREE_ROUNDS,
                          num_trees: int = 5) -> dict:
     """The Titanic workflow on ``rows`` records on ``device`` (float32 on a
     card) and on the CPU (float64), with the card-against-CPU pool (the
@@ -2873,15 +2909,21 @@ def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
     return out
 
 
-def _problem_models(example, device, num_trees: int = AGREE_TREES):
+def _problem_models(example, device, num_trees: int = AGREE_TREES,
+                    num_rounds: int = AGREE_ROUNDS):
     """The example's pool on ``device`` with its forests at ``num_trees``
-    trees (their grids whole)."""
+    trees and its boosters at ``num_rounds`` rounds (their grids
+    whole)."""
     sel = example.default_selector(device)
     out = []
     for est, grid in sel.models:
-        if hasattr(est, "num_trees") and type(est).__name__.startswith(
-                "RandomForest"):
+        name = type(est).__name__
+        if name.startswith("RandomForest"):
             est = est.with_params(num_trees=num_trees)
+        elif name == "XGBoostClassifier":
+            est = est.with_params(num_round=num_rounds)
+        elif name.startswith("GBT"):
+            est = est.with_params(num_rounds=num_rounds)
         out.append((est, grid))
     return out
 
@@ -2928,7 +2970,8 @@ def _agree(card: dict, cpu: dict, tag: str, relative: bool) -> dict:
 
 def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
     """[problems-agree]: both examples on ``rows`` records on the card
-    (float32) and on the CPU (float64), forests at AGREE_TREES trees, the
+    (float32) and on the CPU (float64), forests at AGREE_TREES trees and
+    boosters at AGREE_ROUNDS rounds, the
     draws from the same CPU generators; then a K = 7 multiclass array
     search (WIDE_ROWS x WIDE_COLS, the default multiclass pool with its
     forests at AGREE_TREES trees), whose forests run K1 in split
@@ -3010,6 +3053,409 @@ def phase_problems(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# every transmogrify feature family: [families] (with K1 at the
+# bucketizer's one-feature shape and on the family matrix), then
+# [families-agree]
+# ---------------------------------------------------------------------------
+
+#: records of the family workflow: 75,000 train rows of ~1,100 columns
+FAMILIES_ROWS = 100_000
+#: the stage classes this slice ported, by the name a listener records
+#: (estimator at its fit, model or transformer at its transform)
+FAMILY_STAGES = (
+    "DateToUnitCircleVectorizer", "DateListVectorizer",
+    "GeolocationVectorizer", "GeolocationVectorizerModel",
+    "RealMapVectorizer", "RealMapVectorizerModel", "TextMapPivotVectorizer",
+    "TextMapPivotVectorizerModel", "MultiPickListMapVectorizer",
+    "_MultiPickListMapModel", "DateMapToUnitCircleVectorizer",
+    "DateMapToUnitCircleVectorizerModel", "TextTokenizer",
+    "TextListHashVectorizer", "DecisionTreeNumericBucketizer",
+    "DecisionTreeNumericBucketizerModel", "NumericBucketizer")
+#: the new stages whose device part must run in both plans
+FAMILY_DEVICE_STAGES = (
+    "DateToUnitCircleVectorizer", "GeolocationVectorizerModel",
+    "RealMapVectorizerModel", "TextMapPivotVectorizerModel",
+    "_MultiPickListMapModel", "DateMapToUnitCircleVectorizerModel")
+#: slot counts of the auto-bucketizer's depth-2 tree (levels 0 and 1)
+BUCKET_SLOTS = (1, 2)
+#: card against CPU metric of a LogisticRegression or LinearSVC point on
+#: the family matrix (3,750 x 1,095: 1,024 columns hash random strings,
+#: noise to the label): the weakly regularized fits lean on the noise
+#: columns, and float32 and float64 iterates part within the fixed
+#: iteration budget. Measured on an H100 at 5,000 records: up to 1.28e-2
+#: (LR, reg_param 0.001) and 2.73e-2 (LinearSVC), <= 1e-7 at LR's
+#: reg_param >= 0.1 (my chip run PR 10, call 1); every tree point keeps
+#: AGREE_TOL or GBT_SMALL_LEAF_TOL
+FAMILY_LINEAR_TOL = 3e-2
+
+
+def _new_stage_seconds(listener, coverage) -> dict:
+    """Seconds of the ported stages' fits and transforms, each transform
+    on the device or the host as the prepare plan ran it."""
+    lowered = {label.split("(")[0] for label in coverage.lowered}
+    out: dict = {}
+    for m in listener.metrics.stage_metrics:
+        cls = m.stage_name.rsplit("_", 1)[0]
+        if cls not in FAMILY_STAGES:
+            continue
+        where = ("fit" if m.phase == "fit" else
+                 "device" if cls in lowered else "host")
+        rec = out.setdefault(cls, {})
+        rec[where] = rec.get(where, 0.0) + m.seconds
+    return out
+
+
+def spy_bucketizer(seen: dict) -> tuple:
+    """Wrap ``DecisionTreeNumericBucketizer.fit_columns`` (the class's) to
+    add up its fits' seconds and K1 launches by slot count; returns the
+    original, for the caller to put back."""
+    from transmogrifai_tpu_torch.ops.bucketizers import (
+        DecisionTreeNumericBucketizer)
+    real = DecisionTreeNumericBucketizer.fit_columns
+
+    def spied(self, cols):
+        before = collections.Counter(level_hist.launches_by_c)
+        t0 = time.perf_counter()
+        model = real(self, cols)
+        seen["seconds"] = seen.get("seconds", 0.0) + time.perf_counter() - t0
+        by_c = collections.Counter(level_hist.launches_by_c) - before
+        merged = collections.Counter(seen.get("k1_launches_by_c", {})) + by_c
+        seen["k1_launches_by_c"] = dict(sorted(merged.items()))
+        seen["k1_launches"] = sum(merged.values())
+        seen["split_points"] = list(model.split_points)
+        return model
+    DecisionTreeNumericBucketizer.fit_columns = spied
+    return DecisionTreeNumericBucketizer, real
+
+
+def _train_families(device, records, models=None, tag: str = "families"
+                    ) -> dict:
+    """``examples/families.run`` on ``records`` on ``device`` with the
+    default selector over ``models`` (default: the whole default pool):
+    seconds by stage and of the ported stages, K1 launches by family and
+    slot count (counted from zero just before the train) and the
+    auto-bucketizer's, the winner and holdout metrics."""
+    from transmogrifai_tpu_torch.examples import families
+    dev = resolve_device(device)
+    sel = families.default_selector(dev, models=models)
+    fams: dict = {}
+    for est, _ in sel.models:
+        time_family(est, fams)
+    seen: dict = {}
+    spy_fit_columns(sel, seen, False)
+    bucket: dict = {}
+    cls, real = spy_bucketizer(bucket)
+    clear_design_cache()
+    validator.reset_family_profile()
+    listener = WorkflowListener()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    try:
+        run = families.run(records, device=dev, model_stage=sel,
+                           listener=listener)
+    finally:
+        cls.fit_columns = real
+    launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
+    plan, wf = run.workflow.last_prepare_plan, run.workflow
+    selected = next(s for s in run.model.stages()
+                    if type(s).__name__ == "SelectedModel")
+    s = selected.summary
+    mm = metric_matrix(selected)
+    X = run.model.train_dataset[run.vector.name].data
+    search_label = next(k for k in plan.fit_seconds
+                        if k.startswith("ModelSelector("))
+    fits = {k: v for k, v in plan.fit_seconds.items() if k != search_label}
+    out = {"records": len(records), "matrix_shape": list(X.shape),
+           "matrix_dtype": str(X.dtype), "matrix_device": str(X.device),
+           "raw_extraction_s": wf.last_train_seconds["raw_extraction"],
+           "vectorizer_fits_s": sum(fits.values()),
+           "device_transforms_s": plan.device_transform_seconds,
+           "host_stage_transforms_s": plan.host_transform_seconds,
+           "bytes_to_device": plan.bytes_to_device,
+           "search_s": plan.fit_seconds[search_label],
+           "train_s": sum(wf.last_train_seconds.values()),
+           "train_score_evaluate_s": run.seconds,
+           "new_stage_seconds": _new_stage_seconds(listener, plan.coverage),
+           "selector_timings_s": dict(s.timings), "families": fams,
+           "k1_launches": launches, "k1_launches_by_c": by_c,
+           "bucketizer": bucket,
+           "winner": s.best_model_name, "winner_params": s.best_model_params,
+           "winner_index": int(np.argmax(mm.mean(axis=0))),
+           "best_metric": s.best_validation_metric,
+           "holdout_AuPR": run.metrics.AuPR,
+           "holdout_AuROC": run.metrics.AuROC,
+           "metric_matrix": mm.tolist(), "fit_columns": seen,
+           "host_stages": [list(f) for f in plan.coverage.fallback],
+           "device_stages": [label.split("(")[0]
+                             for label in plan.coverage.lowered],
+           "run": run}
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {len(records)} records on {dev}: prepared matrix "
+        f"{tuple(X.shape)} {X.dtype} on {X.device}; seconds: raw extraction "
+        f"{out['raw_extraction_s']:.3f}, vectorizer fits "
+        f"{out['vectorizer_fits_s']:.3f}, device transforms "
+        f"{out['device_transforms_s']:.3f}, host-stage transforms "
+        f"{out['host_stage_transforms_s']:.3f}, search "
+        f"{out['search_s']:.3f}; train {out['train_s']:.3f}, train + score "
+        f"+ evaluate {run.seconds:.3f}; {plan.bytes_to_device} bytes of host "
+        f"columns copied up")
+    log(f"[{tag}] ported stages' seconds (fit / device / host transform): "
+        + json.dumps({k: {w: round(v, 4) for w, v in rec.items()}
+                      for k, rec in out["new_stage_seconds"].items()}))
+    for label, why in plan.coverage.fallback:
+        log(f"[{tag}] host stage {label.split('(')[0]}: {why}")
+    for name, rec in fams.items():
+        log(f"[{tag}] {name}: {rec['candidates']} models x folds in "
+            f"{rec['seconds']:.2f} s; K1 launches {rec['k1_launches']}: "
+            + " ".join(f"C={c}:{k}"
+                       for c, k in rec["k1_launches_by_c"].items()))
+    log(f"[{tag}] DecisionTreeNumericBucketizer fit "
+        f"{bucket.get('seconds', 0.0):.3f} s, K1 launches "
+        f"{bucket.get('k1_launches', 0)} "
+        f"{json.dumps(bucket.get('k1_launches_by_c', {}))}, split points "
+        f"{bucket.get('split_points')}")
+    log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} mean AuPR "
+        f"{s.best_validation_metric:.6f}; holdout AuPR {run.metrics.AuPR:.6f}"
+        f" AuROC {run.metrics.AuROC:.6f}; K1 launches {launches}"
+        + (f"; max_memory_allocated {out['max_memory_allocated']}"
+           if "max_memory_allocated" in out else ""))
+    missing = [c for c in FAMILY_DEVICE_STAGES
+               if c not in out["device_stages"]]
+    if missing:
+        raise AssertionError(f"[{tag}] ported stages off the device: "
+                             f"{missing}")
+    if not (seen.get("is_tensor") and X.device.type == dev.type):
+        raise AssertionError(f"[{tag}] the selector did not receive the "
+                             f"prepared matrix as a tensor on {dev}")
+    if mm.shape[0] != 3 or not np.all(np.isfinite(mm)):
+        raise AssertionError(f"[{tag}] bad metric matrix {mm}")
+    if dev.type == "cuda":
+        idle = [f for f, rec in fams.items()
+                if f in TREE_FAMILIES and rec["k1_launches"] == 0]
+        if idle or not bucket.get("k1_launches"):
+            raise AssertionError(f"[{tag}] K1 never launched by "
+                                 f"{idle or 'the auto-bucketizer'}")
+    if not 0.5 < run.metrics.AuROC <= 1.0:
+        raise AssertionError(f"[{tag}] holdout evaluation is off: "
+                             f"{run.metrics}")
+    return out
+
+
+def family_k1_inputs(device, records, X, y: np.ndarray):
+    """(label, design, statistics, slot counts, exact) of each K1 shape of
+    the family path, one at a time: the auto-bucketizer's one-feature
+    design (``real``'s present values of the train split and its one-hot
+    labels, the statistics its tree sums; C = 1 and 2, exact), then the
+    family matrix ``X`` (the prepared train matrix, binned as the search
+    bins it) with a forest's statistics (one-hot labels times Poisson
+    weights times a fold mask; C = 1, 32, 256, exact) and the GBT's
+    [g, h] (C = 256, within float32 rounding)."""
+    dev = resolve_device(device)
+    train, _ = titanic.stratified_split(records, label_key="label")
+    x = np.array([np.nan if r["real"] is None else r["real"]
+                  for r in train])
+    lab = np.array([r["label"] for r in train])
+    ok = ~np.isnan(x)
+    for label, Xs, ys, kind, slots, exact in (
+            ("bucketizer d=1", x[ok].reshape(-1, 1), lab[ok], "onehot",
+             BUCKET_SLOTS, True),
+            ("family matrix forest", X, y, "cls", (1, 32, 256), True),
+            ("family matrix GBT [g,h]", X, y, "gbt", (256,), False)):
+        design = _PackedDesign(Xs, 32, dev)
+        st = (_on(np.eye(2)[ys.astype(np.int64)], design.dtype, dev)
+              .contiguous() if kind == "onehot"
+              else _problem_k1_stats(design, kind, ys))
+        yield label, design, st, slots, exact
+        del design, st
+        clear_design_cache()
+
+
+def phase_k1_families(device, records, X, y: np.ndarray) -> dict:
+    """K1 against its plain version at each shape of
+    ``family_k1_inputs``: agreement, kernel, plain and ``index_add_``
+    times beside the bound."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    cases = []
+    for label, design, st, slots, exact in family_k1_inputs(
+            device, records, X, y):
+        plan = design.hist_plan(st.shape[1])
+        log(f"[k1-families] {label}: n={design.n} d={design.d} "
+            f"TB={design.total_bins} S={st.shape[1]} ids {design.ids.dtype}"
+            f" groups={plan.n_groups}")
+        for C in slots:
+            slot = torch.randint(0, C, (design.n,), generator=gen,
+                                 device=device, dtype=torch.int32)
+            cases.append(k1_case(f"{label} C={C}", design.ids,
+                                 design.offsets, slot, st, C,
+                                 design.total_bins, plan, exact=exact))
+    return {"cases": cases}
+
+
+def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
+                   k1: bool = True) -> dict:
+    """[families]: the family workflow (``examples/families.py``) on
+    ``rows`` testkit records with ``models`` (default: the whole default
+    pool); with ``k1``, K1 at its shapes (``phase_k1_families``, the card
+    only); then save, reload, the holdout through the compiled plan
+    (bitwise the columnar path) and 1,001 records served one at a time
+    (``_serve_problem``)."""
+    from transmogrifai_tpu_torch.examples import families
+    t0 = time.perf_counter()
+    records = families.synthetic_families(rows)
+    gen_s = time.perf_counter() - t0
+    log(f"[families] {rows} records generated in {gen_s:.2f} s")
+    out = _train_families(device, records, models=models)
+    out["generate_s"] = gen_s
+    run = out.pop("run")
+    if models is None and len(out["metric_matrix"][0]) != 48:
+        raise AssertionError(f"[families] {len(out['metric_matrix'][0])} "
+                             f"grid points, not the default pool's 48")
+    if k1:
+        X = run.model.train_dataset[run.vector.name].data
+        train, _ = titanic.stratified_split(records, label_key="label")
+        out["k1"] = phase_k1_families(device, records, X, np.array(
+            [r["label"] for r in train]))
+        del X
+    out["serve"] = _serve_problem(run, "families-serve")
+    if out["serve"]["max_abs_diff_compiled"] != 0.0:
+        raise AssertionError("[families] compiled scores are not bitwise "
+                             "the columnar path's")
+    coverage = run.model.scoring_plan().coverage.to_json()
+    out["serve"]["plan_coverage"] = coverage
+    lowered = {label.split("(")[0] for label in coverage["lowered"]}
+    if not set(FAMILY_DEVICE_STAGES) <= lowered:
+        raise AssertionError(f"[families] the compiled plan runs "
+                             f"{sorted(set(FAMILY_DEVICE_STAGES) - lowered)}"
+                             f" on the host")
+    return out
+
+
+def _family_columns(metas) -> tuple:
+    """Masks over the family matrix's columns: the auto-bucketizer's
+    (grouping ``real``: their labels carry its split points) and the float
+    value columns (no indicator, not a hash count)."""
+    bucket = np.array([m[0] == "real" and m[2] == "real" for m in metas])
+    floats = np.array([m[3] is None and not (m[4] or "").startswith("hash_")
+                       for m in metas]) & ~bucket
+    return bucket, floats
+
+
+def phase_families_agree(device, rows: int = AGREE_RECORDS,
+                         num_rounds: int = AGREE_ROUNDS,
+                         num_trees: int = AGREE_TREES) -> dict:
+    """[families-agree]: the family workflow on ``rows`` records on
+    ``device`` (float32 on a card) and on the CPU (float64) with the
+    card-against-CPU pool (its GBT at ``num_rounds`` rounds): equal
+    metadata (but for the auto-bucketizer's labels), bitwise equal
+    indicator, one-hot, hash and integer columns, float columns within
+    PREPARED_REL_TOL of their largest magnitude, metric matrices within
+    AGREE_TOL (GBT points of min_child_weight < 10 within
+    GBT_SMALL_LEAF_TOL, the linear families' within FAMILY_LINEAR_TOL),
+    the same winner unless the CPU's top two lie within AGREE_TOL. The auto-bucketizer's split points (its tree
+    bins and sums in float32 on the card) and the rows whose bucket
+    differs are reported."""
+    from transmogrifai_tpu_torch.examples import families
+    records = families.synthetic_families(rows, seed0=7)
+    card = _train_families(device, records, tag="families-agree-card",
+                           models=small_models(device, num_rounds,
+                                               num_trees))
+    cpu = _train_families("cpu", records, tag="families-agree-cpu",
+                          models=small_models("cpu", num_rounds, num_trees))
+    cols = [r["run"].model.train_dataset[r["run"].vector.name]
+            for r in (card, cpu)]
+    metas = [[(_norm_uid(c.parent_feature_name), c.parent_feature_type,
+               _norm_uid(c.grouping), c.indicator_value, c.descriptor_value)
+              for c in col.metadata.columns] for col in cols]
+    # the auto-bucketizer's columns aside on each side: their count and
+    # labels follow its split points
+    (bucket_a, _), (bucket, floats) = (_family_columns(ms) for ms in metas)
+    strip = [[m for m, b in zip(ms, mask) if not b]
+             for ms, mask in zip(metas, (bucket_a, bucket))]
+    if strip[0] != strip[1]:
+        raise AssertionError("card and CPU family matrices' metadata differ")
+    a = cols[0].data.double().cpu().numpy()
+    b = cols[1].data.numpy()
+    buckets = a[:, bucket_a], b[:, bucket]
+    a, b, floats = a[:, ~bucket_a], b[:, ~bucket], floats[~bucket]
+    exact = bool(np.array_equal(a[:, ~floats], b[:, ~floats]))
+    scale = np.maximum(np.abs(b[:, floats]).max(axis=0), 1e-30)
+    float_rel = float((np.abs(a[:, floats] - b[:, floats]) / scale).max())
+    sp_card = card["bucketizer"].get("split_points", [])
+    sp_cpu = cpu["bucketizer"].get("split_points", [])
+    sp_diff = (sum(x != y for x, y in zip(sp_card, sp_cpu))
+               + abs(len(sp_card) - len(sp_cpu)))
+    sp_gap = (float(np.max(np.abs(np.subtract(sp_card[1:-1],
+                                              sp_cpu[1:-1]))))
+              if len(sp_card) == len(sp_cpu) > 2 else None)
+    rows_moved = (int(np.any(buckets[0] != buckets[1], axis=1).sum())
+                  if buckets[0].shape == buckets[1].shape else len(b))
+    mc, mp = (np.asarray(r["metric_matrix"]) for r in (card, cpu))
+    results = next(s for s in cpu["run"].model.stages()
+                   if type(s).__name__ == "SelectedModel"
+                   ).summary.validation_results
+    tol = np.array([GBT_SMALL_LEAF_TOL if r.model_name == "GBTClassifier"
+                    and r.params.get("min_child_weight", 1.0) < 10
+                    else FAMILY_LINEAR_TOL if r.model_name in
+                    ("LogisticRegression", "LinearSVC")
+                    else AGREE_TOL for r in results])
+    gap = np.abs(mc - mp)
+    within = bool(np.all(gap <= tol))
+    names = [r.model_name for r in results]
+    by_family = {f: gap[:, [i for i, n in enumerate(names) if n == f]]
+                 .max(axis=0).tolist() for f in dict.fromkeys(names)}
+    means = np.sort(mp.mean(axis=0))[::-1]
+    close = len(means) > 1 and means[0] - means[1] < AGREE_TOL
+    same = card["winner_index"] == cpu["winner_index"]
+    log(f"[families-agree] max |card - cpu| by family and grid point: "
+        f"{json.dumps(by_family)}")
+    log(f"[families-agree] prepared {cols[0].data.shape}: metadata equal "
+        f"but for the auto-bucketizer's {int(bucket_a.sum())} / "
+        f"{int(bucket.sum())} columns (card / cpu); {int(floats.sum())} "
+        f"float columns max rel diff {float_rel:.3e} (tol "
+        f"{PREPARED_REL_TOL}); the other {int((~floats).sum())} bitwise "
+        f"equal: {exact}; auto-bucketizer split points card {sp_card} cpu "
+        f"{sp_cpu}: {sp_diff} differ (max |diff| {sp_gap}), {rows_moved} "
+        f"of {len(b)} rows in another bucket; max |card - cpu| metric "
+        f"{float(gap.max()):.3e} (tol {AGREE_TOL}, {GBT_SMALL_LEAF_TOL} for "
+        f"GBT at min_child_weight < 10, {FAMILY_LINEAR_TOL} for the linear "
+        f"families): within {within}; winner card "
+        f"{card['winner_index']} cpu {cpu['winner_index']}"
+        f"{' (top two within tol)' if close else ''}; seconds card "
+        f"{card['train_score_evaluate_s']:.2f} cpu "
+        f"{cpu['train_score_evaluate_s']:.2f}")
+    if not exact or float_rel > PREPARED_REL_TOL:
+        raise AssertionError("card and CPU family matrices disagree")
+    if not within or not (same or close):
+        raise AssertionError("card and CPU family searches disagree")
+    return {"shape": list(cols[0].data.shape),
+            "float_columns": int(floats.sum()),
+            "float_max_rel_diff": float_rel, "others_bitwise": exact,
+            "bucket_columns": [int(bucket_a.sum()), int(bucket.sum())],
+            "split_points_card": sp_card, "split_points_cpu": sp_cpu,
+            "split_points_differing": sp_diff,
+            "split_points_max_abs_diff": sp_gap,
+            "rows_in_another_bucket": rows_moved,
+            "metric_max_abs_diff": float(gap.max()),
+            "metrics_within_tol": within, "same_winner": same,
+            "metric_diff_by_family": by_family,
+            "card_s": card["train_score_evaluate_s"],
+            "cpu_s": cpu["train_score_evaluate_s"]}
+
+
+def phase_families_all(device, rows: int = FAMILIES_ROWS) -> dict:
+    """[families] (K1's family shapes inside) and [families-agree] in
+    turn."""
+    return {"families": phase_families(device, rows),
+            "agree": phase_families_agree(device)}
+
+
 def write_out(path, result: dict) -> None:
     """Every measurement as JSON at ``path``, when one is given."""
     if not path:
@@ -3062,6 +3508,12 @@ def main(argv=None) -> int:
                          "regression phases ([k1-problems], [iris], "
                          "[boston], [problems-agree]) and print their "
                          "JSON last")
+    ap.add_argument("--families-rows", type=int, default=FAMILIES_ROWS,
+                    help="records of the family workflow phase")
+    ap.add_argument("--families-only", action="store_true",
+                    help="run only the build and the feature-family "
+                         "phases ([families] with K1 at its shapes, "
+                         "[families-agree]) and print their JSON last")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3072,6 +3524,15 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     laps("device+build")
+    if args.families_only:
+        fam = phase_families_all(device, args.families_rows)
+        laps("9i-9j families")
+        write_out(args.out, {"device": info, "families": fam})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"families": fam}, default=str))
+        return 0
     if args.problems_only:
         problems = phase_problems(device)
         laps("9e-9h problems")
@@ -3165,6 +3626,10 @@ def main(argv=None) -> int:
     # from zero just before its train
     problems = phase_problems(device)
     laps("9e-9h problems")
+    # every transmogrify feature family: its workflow, counted from zero
+    # just before its train, K1 at its shapes, save, serve, card vs CPU
+    fam = phase_families_all(device, args.families_rows)
+    laps("9i-9j families")
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -3182,8 +3647,10 @@ def main(argv=None) -> int:
     clear_design_cache()
     laps("10 profiles")
     validate, wf_cv = checks["validate"], checks["workflow_cv"]
+    fam_run = fam["families"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
-        validate["rung_k1_case"]] + problems["k1"]["cases"]
+        validate["rung_k1_case"]] + problems["k1"]["cases"] + \
+        fam_run["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -3214,6 +3681,13 @@ def main(argv=None) -> int:
                  name: rec["k1_launches"]
                  for name, rec in wf_cv["families"].items()},
              "cases": cases}
+    entry["launches_families"] = fam_run["k1_launches"]
+    entry["launches_families_by_c"] = fam_run["k1_launches_by_c"]
+    entry["launches_families_by_family"] = dict(
+        {name: rec["k1_launches"]
+         for name, rec in fam_run["families"].items()},
+        DecisionTreeNumericBucketizer=fam_run["bucketizer"]["k1_launches"])
+    entry["launches_families_serve"] = fam_run["serve"]["k1_launches"]
     for tag in ("iris", "boston"):
         run = problems[tag]
         entry[f"launches_{tag}"] = run["k1_launches"]
@@ -3227,7 +3701,8 @@ def main(argv=None) -> int:
                          "serve_saved": serve_saved,
                          "serve_compiled": serve_compiled,
                          "workflow_agree": wf_agree, **checks,
-                         "problems": problems, "profile": prof,
+                         "problems": problems, "families": fam,
+                         "profile": prof,
                          "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})
     laps.log()

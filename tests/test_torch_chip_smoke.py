@@ -588,3 +588,121 @@ def test_problems_are_wired_in(monkeypatch, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["problems"]["iris"] == {"phase": "phase_iris"}
     assert set(last["problems"]) == {"k1", "iris", "boston", "agree"}
+
+
+@pytest.fixture(scope="module")
+def families_out():
+    """[families] on the CPU at a tiny size (600 records, the
+    card-against-CPU pool at one tree and two rounds), without K1's
+    card-only cases."""
+    return chip_smoke.phase_families(
+        "cpu", 600, models=chip_smoke.small_models("cpu", num_rounds=2,
+                                                   num_trees=1), k1=False)
+
+
+def test_families_phase(families_out):
+    """Every family timed, the ported stages' fits and transforms
+    reported where the prepare plan ran them (the six device kernels on
+    the device), the auto-bucketizer's split points, then save, reload,
+    the compiled plan bitwise the columnar path, records served within
+    1e-6, no fallback, no K1 launch."""
+    out = families_out
+    assert list(out["families"]) == list(chip_smoke.FAMILIES)
+    mm = np.asarray(out["metric_matrix"])
+    assert mm.shape == (3, 20) and np.all(np.isfinite(mm))
+    assert out["matrix_shape"][0] == 450 and out["matrix_shape"][1] > 1000
+    seconds = out["new_stage_seconds"]
+    for name in chip_smoke.FAMILY_DEVICE_STAGES:
+        assert "device" in seconds[name], name
+    for name in ("TextTokenizer", "TextListHashVectorizer",
+                 "DateListVectorizer", "NumericBucketizer",
+                 "DecisionTreeNumericBucketizerModel"):
+        assert "host" in seconds[name], name
+    assert "fit" in seconds["DecisionTreeNumericBucketizer"]
+    splits = out["bucketizer"]["split_points"]
+    assert splits[0] == -np.inf and splits[-1] == np.inf and len(splits) > 2
+    assert out["k1_launches"] == 0 and "k1" not in out
+    serve = out["serve"]
+    assert serve["max_abs_diff_compiled"] == 0.0
+    assert serve["max_abs_diff_served"] <= 1e-6
+    assert serve["host_fallback_batches"] == 0 == serve["k1_launches"]
+    assert serve["served"] == 150 == serve["holdout"]
+    lowered = {label.split("(")[0]
+               for label in serve["plan_coverage"]["lowered"]}
+    assert set(chip_smoke.FAMILY_DEVICE_STAGES) <= lowered
+
+
+def test_families_agree_phase():
+    """[families-agree] with the CPU on both sides: the matrices, the
+    bucketizer's split points and the metric matrices agree exactly."""
+    out = chip_smoke.phase_families_agree("cpu", 600, num_rounds=2,
+                                          num_trees=1)
+    assert out["others_bitwise"] and out["float_max_rel_diff"] == 0.0
+    assert out["split_points_differing"] == 0
+    assert out["rows_in_another_bucket"] == 0
+    assert out["bucket_columns"][0] == out["bucket_columns"][1] > 2
+    assert out["metric_max_abs_diff"] == 0.0 and out["same_winner"]
+
+
+def test_family_k1_inputs():
+    """[families]' K1 shapes: the bucketizer's one-feature design with
+    its one-hot labels (S = 2, one bin per present value's bucket, each
+    row counted once a slot), the family matrix's forest statistics
+    (integer) and the GBT's [g, h]."""
+    from transmogrifai_tpu_torch.examples import families
+    records = families.synthetic_families(400)
+    train, _ = chip_smoke.titanic.stratified_split(records,
+                                                   label_key="label")
+    y = np.array([r["label"] for r in train])
+    rng = np.random.default_rng(0)
+    X = np.concatenate([rng.normal(size=(300, 3)),
+                        (rng.uniform(size=(300, 5)) < 0.2)], axis=1)
+    seen = []
+    for label, design, st, slots, exact in chip_smoke.family_k1_inputs(
+            "cpu", records, X, y):
+        seen.append((label, design.d, st.shape[1], slots, exact))
+        C = slots[-1]
+        slot = torch.randint(0, C, (design.n,), dtype=torch.int32)
+        hist = chip_smoke.level_hist_plain(design.ids, design.offsets, slot,
+                                           st, C, design.total_bins)
+        if exact:
+            assert torch.equal(st, st.round())
+        if label.startswith("bucketizer"):
+            n_present = sum(r["real"] is not None for r in train)
+            assert design.n == n_present and design.total_bins <= 32
+            assert float(hist.sum()) == n_present
+    assert seen == [
+        ("bucketizer d=1", 1, 2, chip_smoke.BUCKET_SLOTS, True),
+        ("family matrix forest", 8, 2, (1, 32, 256), True),
+        ("family matrix GBT [g,h]", 8, 2, (256,), False)]
+
+
+def test_families_are_wired_in(monkeypatch, capsys):
+    """``--families-only`` runs phases 1, 2 and the family phases and
+    prints their JSON last; the whole smoke runs them too, adds their K1
+    cases to K1's line and lists the family path's launches there."""
+    import inspect
+    import json
+    src = inspect.getsource(chip_smoke.main)
+    assert src.count("phase_families_all(device, args.families_rows)") == 2
+    assert 'fam_run["k1"]["cases"]' in src
+    assert "launches_families_by_family" in src
+    calls = []
+    monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "phase_device", lambda: {
+        "kind": "fake", "count": 1, "smi": "fake, 1 W"})
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(chip_smoke, "phase_families",
+                        lambda dev, rows: calls.append(("families", rows))
+                        or {"phase": "families"})
+    monkeypatch.setattr(chip_smoke, "phase_families_agree",
+                        lambda dev: calls.append(("agree",))
+                        or {"phase": "agree"})
+    assert chip_smoke.main(["--families-only", "--families-rows",
+                            "1234"]) == 0
+    assert calls == [("families", 1234), ("agree",)]
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["families"] == {"families": {"phase": "families"},
+                                "agree": {"phase": "agree"}}

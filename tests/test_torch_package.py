@@ -2,7 +2,8 @@
 asks for the CPU, it imports neither JAX nor the JAX package, every part
 of the JAX package's workflow and serving surface it has not ported
 raises NotImplementedError naming the JAX module it waits for, and the
-feature-validation and selection options it has ported run."""
+feature families, feature-validation and selection options it has ported
+run."""
 import ast
 import os
 import re
@@ -33,8 +34,9 @@ from transmogrifai_tpu_torch.selector import (
 from transmogrifai_tpu_torch.serving import (PlanCache, ScoringPlan,
                                              ServeConfig, ServingServer,
                                              serve_in_process)
-from transmogrifai_tpu_torch.types import (DateList, Geolocation, PickList,
-                                           Real, RealMap, Date, TextList)
+from transmogrifai_tpu_torch.types import (DateList, Geolocation, OPVector,
+                                           PickList, Real, RealMap, Date,
+                                           TextList)
 from transmogrifai_tpu_torch.utils.device import resolve_device, working_dtype
 from transmogrifai_tpu_torch.workflow import Workflow, WorkflowModel
 from transmogrifai_tpu_torch.workflow.persistence import load_model
@@ -147,15 +149,6 @@ def _load_filtered_model():
 
 #: (entry point, the JAX module its error must name)
 UNPORTED = [
-    (lambda: transmogrify([_feature(Date, "d")]), "ops/date.py"),
-    (lambda: transmogrify([_feature(DateList, "d")]), "ops/date.py"),
-    (lambda: transmogrify([_feature(Geolocation, "g")]), "ops/geo.py"),
-    (lambda: transmogrify([_feature(TextList, "t")]), "ops/text.py"),
-    (lambda: transmogrify([_feature(RealMap, "m")]), "ops/maps.py"),
-    (lambda: _feature(Real, "x").bucketize([0.0]), "ops/bucketizers.py"),
-    (lambda: _feature(Real, "x").auto_bucketize(_feature(Real, "y")),
-     "ops/bucketizers.py"),
-    (lambda: _feature(PickList, "x").tokenize(), "ops/text.py"),
     (lambda: _feature(PickList, "x").lda(), "ops/text_advanced.py"),
     (lambda: ScoringPlan(_cpu_model(), lattice=[8, 24]),
      "tuning/lattice.py"),
@@ -192,7 +185,7 @@ UNPORTED = [
 
 #: the numbers the PORTED entries take in the test ids, which UNPORTED and
 #: PORTED number in one sequence
-_PORTED_AT = (5, 10, 11, 17, 19)
+_PORTED_AT = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 17, 19)
 _UNPORTED_IDS = [m + f"-{i}" for i, (_, m) in zip(
     (i for i in range(len(UNPORTED) + len(_PORTED_AT))
      if i not in _PORTED_AT), UNPORTED)]
@@ -212,8 +205,19 @@ def _checked_label():
 
 #: (entry point, the JAX module it ports): each runs and returns
 PORTED = [
+    (lambda: transmogrify([_feature(Date, "d")]), "ops/date.py"),
+    (lambda: transmogrify([_feature(DateList, "d")]), "ops/date.py"),
+    (lambda: transmogrify([_feature(Geolocation, "g")]), "ops/geo.py"),
+    (lambda: transmogrify([_feature(TextList, "t")]), "ops/text.py"),
+    (lambda: transmogrify([_feature(RealMap, "m")]), "ops/maps.py"),
     (lambda: transmogrify([_feature(Real, "x")]).sanity_check(
         _checked_label()), "checkers/sanity_checker.py"),
+    (lambda: _feature(Real, "x").bucketize([0.0, 1.0]),
+     "ops/bucketizers.py"),
+    (lambda: _feature(Real, "x").auto_bucketize(_checked_label(),
+                                                device="cpu"),
+     "ops/bucketizers.py"),
+    (lambda: _feature(PickList, "x").tokenize(), "ops/text.py"),
     (lambda: Workflow(device="cpu").with_workflow_cv(),
      "workflow/workflow.py"),
     (lambda: Workflow(device="cpu").with_raw_feature_filter(
@@ -232,15 +236,25 @@ PORTED = [
                                                   + len(_PORTED_AT),),
                                      PORTED)])
 def test_ported_options_run(entry, module):
-    """The feature-validation and selection options run where they
-    raised by name: the checker's output is a predictor, the racing and
-    split validators are the ported classes, a save with raw feature
-    filter results loads them."""
+    """The feature families, the feature-validation and the selection
+    options run where they raised by name: ``transmogrify`` of a date,
+    date list, geolocation, text list or map feature and both bucketizers
+    give a predictor vector from the ported stage, ``tokenize`` a text
+    list; the checker's output is a predictor, the racing and split
+    validators are the ported classes, a save with raw feature filter
+    results loads them."""
     from transmogrifai_tpu_torch.checkers import RawFeatureFilterResults
     from transmogrifai_tpu_torch.selector import (RacingCrossValidation,
                                                   TrainValidationSplit)
     out = entry()
+    vector = lambda o: (issubclass(o.ftype, OPVector)  # noqa: E731
+                        and not o.is_response)
     expect = {"checkers/sanity_checker.py": lambda o: not o.is_response,
+              "ops/date.py": vector, "ops/geo.py": vector,
+              "ops/maps.py": vector, "ops/bucketizers.py": vector,
+              "ops/text.py": lambda o: not o.is_response and (
+                  issubclass(o.ftype, OPVector)
+                  or issubclass(o.ftype, TextList)),
               "workflow/workflow.py": lambda o: isinstance(o, Workflow),
               "selector/racing.py":
                   lambda o: isinstance(o, RacingCrossValidation),
@@ -270,7 +284,10 @@ def test_sources_import_no_jax():
             "tuning/registry.py", "utils/compile_time.py",
             "utils/histogram.py", "utils/stats.py", "checkers/__init__.py",
             "checkers/sanity_checker.py", "checkers/raw_feature_filter.py",
-            "selector/racing.py", "selector/validator.py"} <= names
+            "selector/racing.py", "selector/validator.py", "ops/date.py",
+            "ops/geo.py", "ops/maps.py", "ops/bucketizers.py",
+            "testkit/random_data.py", "testkit/spec.py",
+            "examples/families.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

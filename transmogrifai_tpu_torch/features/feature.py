@@ -227,20 +227,25 @@ class Feature:
                   track_nulls: bool = True) -> "Feature":
         """One-hot bucket membership for a numeric feature
         (reference RichNumericFeature.bucketize)."""
-        raise not_ported("Feature.bucketize (NumericBucketizer)",
-                         "ops/bucketizers.py")
+        from ..ops.bucketizers import NumericBucketizer
+        return NumericBucketizer(split_points=split_points,
+                                 bucket_labels=bucket_labels,
+                                 track_nulls=track_nulls
+                                 ).set_input(self).get_output()
 
     def auto_bucketize(self, label: "Feature", **params) -> "Feature":
         """Label-aware decision-tree buckets
-        (reference RichNumericFeature.autoBucketize)."""
-        raise not_ported(
-            "Feature.auto_bucketize (DecisionTreeNumericBucketizer)",
-            "ops/bucketizers.py")
+        (reference RichNumericFeature.autoBucketize); ``params`` go to
+        ``DecisionTreeNumericBucketizer``, whose ``device`` (default the
+        card) must be the workflow's."""
+        from ..ops.bucketizers import DecisionTreeNumericBucketizer
+        return DecisionTreeNumericBucketizer(**params).set_input(
+            label, self).get_output()
 
     def tokenize(self, **params) -> "Feature":
         """Text -> TextList tokens (reference RichTextFeature.tokenize)."""
-        raise not_ported("Feature.tokenize (TextTokenizer and the TextList "
-                         "vectorizers)", "ops/text.py")
+        from ..ops.text import TextTokenizer
+        return TextTokenizer(**params).set_input(self).get_output()
 
     def vectorize(self, track_nulls: bool = True) -> "Feature":
         """Default numeric vectorization with null tracking

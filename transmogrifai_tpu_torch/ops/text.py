@@ -7,9 +7,11 @@ pipeline
 TextTokenizer.scala}). The reference tokenizes with Lucene analyzers and
 hashes with Spark's MurmurHash3 HashingTF; here tokenization is a unicode
 regex analyzer and hashing a stable md5-derived bucket hash, both on the
-host — same semantics, no JVM. Neither model has a device lowering (as
-in the JAX package), so the prepare plan runs them on the host.
-``TextTokenizer`` and the TextList vectorizers are not ported.
+host — same semantics, no JVM. No stage here has a device lowering (as
+in the JAX package), so the prepare and scoring plans run them on the
+host. ``TextTokenizer`` turns text into a TextList of these tokens, which
+``TextListHashVectorizer`` hashes into the same buckets as the JAX
+package's.
 
 SmartTextVectorizer's per-feature decision rule is preserved: if the
 training cardinality of a text feature is at most ``max_cardinality`` it
@@ -25,13 +27,14 @@ import numpy as np
 
 from ..features.columns import FeatureColumn
 from ..stages.base import SequenceEstimator, SequenceModel
-from ..types import OPVector, Text
+from ..types import OPVector, Text, TextList
 from .categorical import _pivot_block, _pivot_metas, _top_categories
 from .vector_utils import (NULL_INDICATOR, VectorColumnMetadata, stable_hash,
                            vector_output)
 
-__all__ = ["tokenize", "SmartTextVectorizer", "SmartTextVectorizerModel",
-           "TextHashVectorizer"]
+__all__ = ["tokenize", "TextTokenizer", "SmartTextVectorizer",
+           "SmartTextVectorizerModel", "TextHashVectorizer",
+           "TextListHashVectorizer", "TextListNullTransformer"]
 
 _TOKEN_RE = re.compile(r"[^\W_]+", re.UNICODE)
 
@@ -73,6 +76,26 @@ def tokenize(text: Optional[str], min_token_length: int = 1,
             out.extend(t for t in _TOKEN_RE.findall(part)
                        if len(t) >= min_token_length)
     return out
+
+
+class TextTokenizer(SequenceModel):
+    """Text -> TextList of tokens (reference TextTokenizer.scala). A
+    stateless transformer, modeled as a 1-sequence for uniformity."""
+
+    input_types = (Text,)
+    output_type = TextList
+
+    def __init__(self, min_token_length: int = 1, to_lowercase: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="tokenize", uid=uid)
+        self.min_token_length = min_token_length
+        self.to_lowercase = to_lowercase
+
+    def transform_columns(self, cols: List[FeatureColumn]) -> FeatureColumn:
+        col = cols[0]
+        out = [tuple(tokenize(v, self.min_token_length, self.to_lowercase))
+               for v in col.data]
+        return FeatureColumn.from_values(TextList, out)
 
 
 def _hash_block(texts, n_buckets: int, track_nulls: bool,
@@ -211,4 +234,63 @@ class TextHashVectorizer(SequenceModel):
             blocks.append(_hash_block(col.data, self.num_hashes,
                                       self.track_nulls, self.binary_freq))
             metas.extend(_hash_metas(f, self.num_hashes, self.track_nulls))
+        return vector_output(self.get_output().name, blocks, metas)
+
+
+class TextListHashVectorizer(SequenceModel):
+    """Hashing-trick vectorizer over pre-tokenized text lists
+    (reference OPCollectionHashingVectorizer.scala list path); an empty
+    list is a null."""
+
+    input_types = (TextList,)
+    output_type = OPVector
+
+    def __init__(self, num_hashes: int = 512, binary_freq: bool = False,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__(operation_name="hashTextList", uid=uid)
+        self.num_hashes = num_hashes
+        self.binary_freq = binary_freq
+        self.track_nulls = track_nulls
+
+    def transform_columns(self, cols: List[FeatureColumn]) -> FeatureColumn:
+        blocks, metas = [], []
+        for f, col in zip(self.input_features, cols):
+            n = col.n_rows
+            width = self.num_hashes + (1 if self.track_nulls else 0)
+            block = np.zeros((n, width), dtype=np.float64)
+            for i, toks in enumerate(col.data):
+                if not toks:
+                    if self.track_nulls:
+                        block[i, self.num_hashes] = 1.0
+                    continue
+                for t in toks:
+                    j = stable_hash(str(t), self.num_hashes)
+                    if self.binary_freq:
+                        block[i, j] = 1.0
+                    else:
+                        block[i, j] += 1.0
+            blocks.append(block)
+            metas.extend(_hash_metas(f, self.num_hashes, self.track_nulls))
+        return vector_output(self.get_output().name, blocks, metas)
+
+
+class TextListNullTransformer(SequenceModel):
+    """Text lists -> per-feature null/empty indicator column
+    (reference TextListNullTransformer.scala)."""
+
+    input_types = (TextList,)
+    output_type = OPVector
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__(operation_name="textListNull", uid=uid)
+
+    def transform_columns(self, cols: List[FeatureColumn]) -> FeatureColumn:
+        blocks, metas = [], []
+        for f, col in zip(self.input_features, cols):
+            blocks.append(np.array(
+                [0.0 if toks else 1.0 for toks in col.data]))
+            metas.append(VectorColumnMetadata(
+                parent_feature_name=f.name,
+                parent_feature_type=f.ftype.__name__, grouping=f.name,
+                indicator_value=NULL_INDICATOR))
         return vector_output(self.get_output().name, blocks, metas)

@@ -8,9 +8,9 @@ combine everything into one OPVector via VectorsCombiner. Defaults mirror
 ``TransmogrifierDefaults`` (Transmogrifier.scala:52): TopK=20,
 MinSupport=10, 512 hash features, TrackNulls=true, MaxCardinality=30.
 
-Ported families: Binary, Integral, Real, text (one-hot pivot or
-pivot-or-hash) and sets. Dates, geolocations, lists and maps raise until
-their vectorizers are ported.
+Every family of the JAX package's dispatch: dates, numerics, text (one-hot
+pivot or pivot-or-hash), sets, geolocations, date and text lists, and
+every map type.
 """
 from __future__ import annotations
 
@@ -18,13 +18,20 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence, Type
 
 from ..features.feature import Feature
-from ..types import (Binary, Date, DateList, FeatureType, Geolocation,
-                     Integral, OPMap, OPSet, OPVector, Real, Text, TextList)
-from ..utils.ported import not_ported
+from ..types import (Binary, BinaryMap, Date, DateList, DateMap,
+                     FeatureType, Geolocation, GeolocationMap, Integral,
+                     MultiPickListMap, OPMap, OPSet, OPVector, Real, Text,
+                     TextList, TextMap)
 from .categorical import MultiPickListVectorizer, OneHotVectorizer
 from .combiner import VectorsCombiner
+from .date import DateListVectorizer, DateToUnitCircleVectorizer
+from .geo import GeolocationVectorizer
+from .maps import (BinaryMapVectorizer, DateMapToUnitCircleVectorizer,
+                   GeolocationMapVectorizer, MultiPickListMapVectorizer,
+                   RealMapVectorizer, SmartTextMapVectorizer,
+                   TextMapPivotVectorizer)
 from .numeric import BinaryVectorizer, IntegralVectorizer, RealVectorizer
-from .text import SmartTextVectorizer
+from .text import SmartTextVectorizer, TextListHashVectorizer
 
 __all__ = ["TransmogrifierDefaults", "transmogrify"]
 
@@ -49,10 +56,9 @@ _PIVOT_TEXT_NAMES = {"PickList", "ComboBox", "ID", "Country", "State",
 def _dispatch_group(ftype: Type[FeatureType],
                     defaults: TransmogrifierDefaults):
     """Default vectorizer stage for a concrete feature type."""
-    what = f"transmogrify of a {ftype.__name__} feature"
     if issubclass(ftype, Date):  # Date/DateTime before Integral (subclass)
-        raise not_ported(f"{what} (DateToUnitCircleVectorizer)",
-                         "ops/date.py")
+        return DateToUnitCircleVectorizer(
+            time_period=defaults.date_time_period)
     if issubclass(ftype, Binary):
         return BinaryVectorizer(track_nulls=defaults.track_nulls)
     if issubclass(ftype, Integral):
@@ -74,13 +80,37 @@ def _dispatch_group(ftype: Type[FeatureType],
                                        min_support=defaults.min_support,
                                        track_nulls=defaults.track_nulls)
     if issubclass(ftype, Geolocation):
-        raise not_ported(f"{what} (GeolocationVectorizer)", "ops/geo.py")
+        return GeolocationVectorizer(track_nulls=defaults.track_nulls)
     if issubclass(ftype, DateList):
-        raise not_ported(f"{what} (DateListVectorizer)", "ops/date.py")
+        return DateListVectorizer(track_nulls=defaults.track_nulls)
     if issubclass(ftype, TextList):
-        raise not_ported(f"{what} (TextListHashVectorizer)", "ops/text.py")
-    if issubclass(ftype, OPMap):
-        raise not_ported(f"{what} (the map vectorizers)", "ops/maps.py")
+        return TextListHashVectorizer(num_hashes=defaults.num_hashes,
+                                      track_nulls=defaults.track_nulls)
+    if issubclass(ftype, GeolocationMap):
+        return GeolocationMapVectorizer(track_nulls=defaults.track_nulls)
+    if issubclass(ftype, MultiPickListMap):
+        return MultiPickListMapVectorizer(
+            top_k=defaults.top_k, min_support=defaults.min_support,
+            track_nulls=defaults.track_nulls)
+    if issubclass(ftype, BinaryMap):
+        return BinaryMapVectorizer(track_nulls=defaults.track_nulls)
+    if issubclass(ftype, TextMap):
+        # categorical map subtypes pivot directly; free-text maps get the
+        # per-key pivot-or-hash decision (SmartTextMapVectorizer.scala)
+        if ftype.__name__.replace("Map", "") in _PIVOT_TEXT_NAMES:
+            return TextMapPivotVectorizer(
+                top_k=defaults.top_k, min_support=defaults.min_support,
+                track_nulls=defaults.track_nulls)
+        return SmartTextMapVectorizer(
+            max_cardinality=defaults.max_cardinality,
+            top_k=defaults.top_k, min_support=defaults.min_support,
+            num_hashes=defaults.num_hashes,
+            track_nulls=defaults.track_nulls)
+    if issubclass(ftype, DateMap):  # before the numeric-map catch-all
+        return DateMapToUnitCircleVectorizer(
+            time_period=defaults.date_time_period)
+    if issubclass(ftype, OPMap):  # numeric/integral maps
+        return RealMapVectorizer(track_nulls=defaults.track_nulls)
     raise TypeError(
         f"transmogrify: no default vectorizer for {ftype.__name__}")
 
