@@ -240,13 +240,13 @@ RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
                   "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
 #: boosting rounds of the GBT and XGBoost points in the card-against-CPU
-#: phases 6, 9, 9h and 9j (20 until PR 9): their CPU halves sum plain
+#: phases 6, 9, 9h and 9j: their CPU halves sum plain
 #: histograms in float64 (20 rounds of the family pool's GBT took 99.67 s
-#: of CPU on 5,000 records, my chip run PR 10, call 1), and a divergence
+#: of CPU on 5,000 records, on the host of one H100), and a divergence
 #: compounds over rounds, so fewer rounds test no less of the card's
 #: arithmetic. Phase 9d keeps 20: racing's rung 0 runs a ninth of the
 #: rounds, and at 5 its one-round GBT points broke AGREE_TOL (1.41e-2,
-#: my chip run PR 10, call 3)
+#: measured on one H100)
 AGREE_ROUNDS = 5
 #: rows of the card-against-CPU array search (phase 6) and records of the
 #: card-against-CPU workflows (phases 9 and 9d): the sizes the tolerances
@@ -3085,7 +3085,7 @@ BUCKET_SLOTS = (1, 2)
 #: columns, and float32 and float64 iterates part within the fixed
 #: iteration budget. Measured on an H100 at 5,000 records: up to 1.28e-2
 #: (LR, reg_param 0.001) and 2.73e-2 (LinearSVC), <= 1e-7 at LR's
-#: reg_param >= 0.1 (my chip run PR 10, call 1); every tree point keeps
+#: reg_param >= 0.1; every tree point keeps
 #: AGREE_TOL or GBT_SMALL_LEAF_TOL
 FAMILY_LINEAR_TOL = 3e-2
 
