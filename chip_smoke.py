@@ -40,8 +40,8 @@ phases 1, 2, 9i and 9j):
      (the search's own ~900K training rows), timed against their bounds;
      a LinearSVC fit (L-BFGS) on the 1M rows;
   6. the same four families with the linear ones' full grids and 4-point
-     tree grids (RF at 5 trees, GBT at 5 rounds: the card-against-CPU
-     pool of phases 6, 9 and 9j) at 20,000 x 100 rows on the card
+     tree grids (RF at 5 trees: the card-against-CPU pool of phases 6, 9,
+     9d and 9j) at 20,000 x 100 rows on the card
      (float32) and on the CPU (float64), draws from the same CPU
      generators: metric matrices within 2e-3, and the L-BFGS LinearSVC
      fit on both (the same iteration count, coefficients within 1e-5);
@@ -138,8 +138,7 @@ phases 1, 2, 9i and 9j):
      matrix on the card (float32 [w, wy, wyy] statistics) against the
      CPU's float64 fit: split nodes that differ;
  9h. [problems-agree] both examples on 3,000 records on the card and on
-     the CPU (forests at 5 trees, boosters at 5 rounds, the same CPU
-     draws) and a K = 7 multiclass array search (3,000 x 20, the default
+     the CPU (forests at 5 trees, the same CPU draws) and a K = 7 multiclass array search (3,000 x 20, the default
      multiclass pool): metric matrices within 2e-3 (relative for RMSE),
      the same winner unless the CPU's top two lie within that; the K = 7
      forests launch K1 in statistic blocks;
@@ -164,14 +163,18 @@ phases 1, 2, 9i and 9j):
      points, float32 on the card), indicator, one-hot, hash and integer
      columns bitwise, float columns within 1e-5, the split points and
      rows in another bucket reported, metric matrices within 2e-3 (named
-     exceptions: GBT at min_child_weight < 10, the linear families on
-     this wide noisy matrix), the same winner;
+     exceptions: GBT at min_child_weight < 10; LR at reg_param 0.001
+     and LinearSVC on this wide noisy matrix, whose gap must be
+     float32's: the same linear search in float64 on the card within
+     2e-3 of the CPU's, the CPU's own float32 gap reported), the same
+     winner;
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
      depth-12 group cut to 5 trees, the searches on their own training
-     rows: device busy and idle share, top device ops, host syncs of
-     the fits' tree loops.
+     rows: device busy and idle share, top device ops (read from the
+     windows' raw events; the first also through ``prof.events()``,
+     which must agree), host syncs of the fits' tree loops.
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
 """
@@ -239,14 +242,10 @@ SMALL_GRID = [{"max_depth": d, "min_child_weight": m, "gamma": 0.01}
 RF_SMALL_GRID = [{"max_depth": d, "min_instances_per_node": m,
                   "min_info_gain": 0.01} for d in (3, 6) for m in (10, 100)]
 AGREE_TOL = 2e-3
-#: boosting rounds of the GBT and XGBoost points in the card-against-CPU
-#: phases 6, 9, 9h and 9j: their CPU halves sum plain
-#: histograms in float64 (20 rounds of the family pool's GBT took 99.67 s
-#: of CPU on 5,000 records, on the host of one H100), and a divergence
-#: compounds over rounds, so fewer rounds test no less of the card's
-#: arithmetic. Phase 9d keeps 20: racing's rung 0 runs a ninth of the
-#: rounds, and at 5 its one-round GBT points broke AGREE_TOL (1.41e-2,
-#: measured on one H100)
+#: boosting rounds of the GBT points in [families-agree] (phase 9j), whose
+#: CPU half sums plain float64 histograms over ~1,095 columns: at the
+#: pool's 20 rounds it took 99.67 s of CPU on 5,000 records, at 5 rounds
+#: 35.36 s (the host of one H100). Phases 6, 9, 9d and 9h keep 20
 AGREE_ROUNDS = 5
 #: rows of the card-against-CPU array search (phase 6) and records of the
 #: card-against-CPU workflows (phases 9 and 9d): the sizes the tolerances
@@ -715,8 +714,7 @@ def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
     return out
 
 
-def phase_card_vs_cpu(device, rows: int, cols: int,
-                      num_rounds: int = AGREE_ROUNDS,
+def phase_card_vs_cpu(device, rows: int, cols: int, num_rounds: int = 20,
                       num_trees: int = 5, families=FAMILIES) -> dict:
     """The same small search on ``device`` (float32 on a card) and on the
     CPU (float64), the forests' draws from the same CPU generators:
@@ -991,7 +989,8 @@ def phase_fista_profile(device, X: np.ndarray, y: np.ndarray,
     search's fixed work (upload, statistics, power iteration, metrics)."""
     full, _ = phase_profile(
         f"LogisticRegression search (8 points x 3 folds, {5 * max_iter} "
-        f"FISTA iterations)", linear_search(device, X, y, max_iter=max_iter))
+        f"FISTA iterations)", linear_search(device, X, y, max_iter=max_iter),
+        cross_check=True)
     short, _ = phase_profile(
         f"LogisticRegression search at {5 * fewer} FISTA iterations",
         linear_search(device, X, y, max_iter=fewer))
@@ -1011,11 +1010,26 @@ def phase_fista_profile(device, X: np.ndarray, y: np.ndarray,
     return full
 
 
-def phase_profile(label: str, run, loop=None) -> tuple:
+def device_events(prof) -> list:
+    """(name, microseconds) of every device event (kernels, copies, sets)
+    of a finished torch.profiler window, read from its raw results:
+    ``prof.events()`` builds a FunctionEvent tree of every host and device
+    event first, about 60 us an event on a host CPU, and a search's window
+    holds hundreds of thousands."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def phase_profile(label: str, run, loop=None, cross_check: bool = False
+                  ) -> tuple:
     """``run()`` under torch.profiler after one warm-up run: kernel time
-    over wall and the top device ops; with ``loop`` (a function of no
-    arguments, made after the warm-up), the host syncs it asks for.
-    Returns the measurements and the profiled run's result."""
+    over wall and the top device ops (``device_events``; with
+    ``cross_check``, also through ``prof.events()``, which must give the
+    same count and time); with ``loop`` (a function of no arguments, made
+    after the warm-up), the host syncs it asks for. Returns the
+    measurements and the profiled run's result."""
     from torch.profiler import ProfilerActivity, profile
     run()                                      # bins and warms
     torch.cuda.synchronize()
@@ -1028,25 +1042,45 @@ def phase_profile(label: str, run, loop=None) -> tuple:
         wall_us = (time.perf_counter() - t0) * 1e6
     # device time = the kernels (and copies) the CUDA activity recorded;
     # the CPU op rows of key_averages() repeat their kernels' time
-    from torch.autograd import DeviceType
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    t_read = time.perf_counter()
+    stop_s = t_read - t0 - wall_us / 1e6
+    kernels = device_events(prof)
+    busy_us = sum(us for _, us in kernels)
+    read_s = time.perf_counter() - t_read
+    parse_s = None
+    if cross_check:
+        from torch.autograd import DeviceType
+        t_parse = time.perf_counter()
+        parsed = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        parse_s = time.perf_counter() - t_parse
+        busy_parsed = sum(e.time_range.elapsed_us() for e in parsed)
+        if len(parsed) != len(kernels) or \
+                abs(busy_parsed - busy_us) > 1e-6 * max(busy_us, 1.0):
+            raise AssertionError(
+                f"[profile] raw device events ({len(kernels)}, {busy_us} "
+                f"us) differ from prof.events() ({len(parsed)}, "
+                f"{busy_parsed} us)")
     by_name: dict = {}
-    for e in kernels:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, us in kernels:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {"run": label, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
            "kernel_launches": len(kernels), "host_syncs_in_loop": syncs,
+           "profiler_stop_s": stop_s, "events_read_s": read_s,
+           "events_parse_s": parse_s,
            "top": [(name[:60], t / 1e3, c) for name, (t, c) in top]}
     log(f"[profile] {label}: wall {out['wall_ms']:.1f} "
         f"ms, device busy {out['device_busy_ms']:.1f} ms, idle share "
         f"{out['idle_share'] if busy_us else 'not measured'}; "
         f"{len(kernels)} device ops"
         + ("" if syncs is None else f"; host syncs inside the tree loop: "
-           f"{syncs}"))
+           f"{syncs}") + f"; profiler stop {stop_s:.2f} s, events read "
+        f"{read_s:.2f} s" + ("" if parse_s is None else
+                             f" (prof.events() {parse_s:.2f} s)"))
     for key, ms, count in out["top"]:
         log(f"[profile]   {ms:9.2f} ms  x{count:<6d} {key}")
     return out, result
@@ -1837,7 +1871,7 @@ def phase_workflow_copies(device, rows: int = COPIES_RECORDS) -> dict:
 
 
 def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
-                         num_rounds: int = AGREE_ROUNDS,
+                         num_rounds: int = 20,
                          num_trees: int = 5) -> dict:
     """The Titanic workflow on ``rows`` records on ``device`` (float32 on a
     card) and on the CPU (float64), with the card-against-CPU pool (the
@@ -2909,21 +2943,15 @@ def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
     return out
 
 
-def _problem_models(example, device, num_trees: int = AGREE_TREES,
-                    num_rounds: int = AGREE_ROUNDS):
+def _problem_models(example, device, num_trees: int = AGREE_TREES):
     """The example's pool on ``device`` with its forests at ``num_trees``
-    trees and its boosters at ``num_rounds`` rounds (their grids
-    whole)."""
+    trees (their grids whole)."""
     sel = example.default_selector(device)
     out = []
     for est, grid in sel.models:
-        name = type(est).__name__
-        if name.startswith("RandomForest"):
+        if hasattr(est, "num_trees") and type(est).__name__.startswith(
+                "RandomForest"):
             est = est.with_params(num_trees=num_trees)
-        elif name == "XGBoostClassifier":
-            est = est.with_params(num_round=num_rounds)
-        elif name.startswith("GBT"):
-            est = est.with_params(num_rounds=num_rounds)
         out.append((est, grid))
     return out
 
@@ -2970,8 +2998,7 @@ def _agree(card: dict, cpu: dict, tag: str, relative: bool) -> dict:
 
 def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
     """[problems-agree]: both examples on ``rows`` records on the card
-    (float32) and on the CPU (float64), forests at AGREE_TREES trees and
-    boosters at AGREE_ROUNDS rounds, the
+    (float32) and on the CPU (float64), forests at AGREE_TREES trees, the
     draws from the same CPU generators; then a K = 7 multiclass array
     search (WIDE_ROWS x WIDE_COLS, the default multiclass pool with its
     forests at AGREE_TREES trees), whose forests run K1 in split
@@ -3061,44 +3088,35 @@ def phase_problems(device) -> dict:
 
 #: records of the family workflow: 75,000 train rows of ~1,100 columns
 FAMILIES_ROWS = 100_000
-#: the stage classes this slice ported, by the name a listener records
-#: (estimator at its fit, model or transformer at its transform)
-FAMILY_STAGES = (
-    "DateToUnitCircleVectorizer", "DateListVectorizer",
-    "GeolocationVectorizer", "GeolocationVectorizerModel",
-    "RealMapVectorizer", "RealMapVectorizerModel", "TextMapPivotVectorizer",
-    "TextMapPivotVectorizerModel", "MultiPickListMapVectorizer",
-    "_MultiPickListMapModel", "DateMapToUnitCircleVectorizer",
-    "DateMapToUnitCircleVectorizerModel", "TextTokenizer",
-    "TextListHashVectorizer", "DecisionTreeNumericBucketizer",
-    "DecisionTreeNumericBucketizerModel", "NumericBucketizer")
-#: the new stages whose device part must run in both plans
+#: the family stages whose device part must run in both plans
 FAMILY_DEVICE_STAGES = (
     "DateToUnitCircleVectorizer", "GeolocationVectorizerModel",
     "RealMapVectorizerModel", "TextMapPivotVectorizerModel",
     "_MultiPickListMapModel", "DateMapToUnitCircleVectorizerModel")
 #: slot counts of the auto-bucketizer's depth-2 tree (levels 0 and 1)
 BUCKET_SLOTS = (1, 2)
-#: card against CPU metric of a LogisticRegression or LinearSVC point on
-#: the family matrix (3,750 x 1,095: 1,024 columns hash random strings,
-#: noise to the label): the weakly regularized fits lean on the noise
-#: columns, and float32 and float64 iterates part within the fixed
-#: iteration budget. Measured on an H100 at 5,000 records: up to 1.28e-2
-#: (LR, reg_param 0.001) and 2.73e-2 (LinearSVC), <= 1e-7 at LR's
-#: reg_param >= 0.1; every tree point keeps
-#: AGREE_TOL or GBT_SMALL_LEAF_TOL
+#: card against CPU metric of a LogisticRegression point of reg_param
+#: below FAMILY_LINEAR_REG or of a LinearSVC point on the family matrix
+#: (3,750 x 1,095: 1,024 columns hash random strings, noise to the
+#: label): float32 and float64 iterates part within the fixed iteration
+#: budget. Measured on an H100 at 5,000 records: 4.9e-3 and 1.28e-2 (LR
+#: at reg_param 0.001), 8.5e-3 to 2.73e-2 (LinearSVC), <= 3.3e-5 at every
+#: other LR point, which keeps AGREE_TOL as every tree point does (or
+#: GBT_SMALL_LEAF_TOL). The wide limit holds only while
+#: ``linear_precision_witness`` shows the gap is float32's
 FAMILY_LINEAR_TOL = 3e-2
+FAMILY_LINEAR_REG = 0.01
+#: the linear families of the default binary pool
+LINEAR_FAMILIES = ("LogisticRegression", "LinearSVC")
 
 
-def _new_stage_seconds(listener, coverage) -> dict:
-    """Seconds of the ported stages' fits and transforms, each transform
+def _stage_seconds(listener, coverage) -> dict:
+    """Seconds of every stage class's fits and transforms, each transform
     on the device or the host as the prepare plan ran it."""
     lowered = {label.split("(")[0] for label in coverage.lowered}
     out: dict = {}
     for m in listener.metrics.stage_metrics:
         cls = m.stage_name.rsplit("_", 1)[0]
-        if cls not in FAMILY_STAGES:
-            continue
         where = ("fit" if m.phase == "fit" else
                  "device" if cls in lowered else "host")
         rec = out.setdefault(cls, {})
@@ -3106,27 +3124,40 @@ def _new_stage_seconds(listener, coverage) -> dict:
     return out
 
 
-def spy_bucketizer(seen: dict) -> tuple:
-    """Wrap ``DecisionTreeNumericBucketizer.fit_columns`` (the class's) to
-    add up its fits' seconds and K1 launches by slot count; returns the
-    original, for the caller to put back."""
-    from transmogrifai_tpu_torch.ops.bucketizers import (
-        DecisionTreeNumericBucketizer)
-    real = DecisionTreeNumericBucketizer.fit_columns
+class K1ByFit(WorkflowListener):
+    """A WorkflowListener that also files K1's launches by slot count
+    under the stage whose fit row follows them (no transform launches
+    K1): ``k1_by_fit[class name]``. Made after the counts are zeroed."""
 
-    def spied(self, cols):
-        before = collections.Counter(level_hist.launches_by_c)
-        t0 = time.perf_counter()
-        model = real(self, cols)
-        seen["seconds"] = seen.get("seconds", 0.0) + time.perf_counter() - t0
-        by_c = collections.Counter(level_hist.launches_by_c) - before
-        merged = collections.Counter(seen.get("k1_launches_by_c", {})) + by_c
-        seen["k1_launches_by_c"] = dict(sorted(merged.items()))
-        seen["k1_launches"] = sum(merged.values())
-        seen["split_points"] = list(model.split_points)
-        return model
-    DecisionTreeNumericBucketizer.fit_columns = spied
-    return DecisionTreeNumericBucketizer, real
+    def __init__(self):
+        super().__init__()
+        self.k1_by_fit: dict = {}
+        self._seen = collections.Counter(level_hist.launches_by_c)
+
+    def on_stage_completed(self, stage, phase, seconds, n_rows,
+                           compile_seconds=0.0):
+        super().on_stage_completed(stage, phase, seconds, n_rows,
+                                   compile_seconds=compile_seconds)
+        now = collections.Counter(level_hist.launches_by_c)
+        if phase == "fit" and now != self._seen:
+            rec = self.k1_by_fit.setdefault(type(stage).__name__,
+                                            collections.Counter())
+            rec.update(now - self._seen)
+        self._seen = now
+
+
+def _bucketizer_fit(plan, listener, model) -> dict:
+    """The auto-bucketizer's fit seconds (the prepare plan's), K1 launches
+    by slot count (the listener's) and the fitted split points."""
+    name = "DecisionTreeNumericBucketizer"
+    by_c = listener.k1_by_fit.get(name, {})
+    fitted = next(s for s in model.stages()
+                  if type(s).__name__ == name + "Model")
+    return {"seconds": sum(v for k, v in plan.fit_seconds.items()
+                           if k.startswith(name + "(")),
+            "k1_launches_by_c": dict(sorted(by_c.items())),
+            "k1_launches": sum(by_c.values()),
+            "split_points": list(fitted.split_points)}
 
 
 def _train_families(device, records, models=None, tag: str = "families"
@@ -3144,21 +3175,16 @@ def _train_families(device, records, models=None, tag: str = "families"
         time_family(est, fams)
     seen: dict = {}
     spy_fit_columns(sel, seen, False)
-    bucket: dict = {}
-    cls, real = spy_bucketizer(bucket)
     clear_design_cache()
     validator.reset_family_profile()
-    listener = WorkflowListener()
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     level_hist.launches = 0
     level_hist.launches_by_c.clear()
-    try:
-        run = families.run(records, device=dev, model_stage=sel,
-                           listener=listener)
-    finally:
-        cls.fit_columns = real
+    listener = K1ByFit()
+    run = families.run(records, device=dev, model_stage=sel,
+                       listener=listener)
     launches = level_hist.launches
     by_c = dict(sorted(level_hist.launches_by_c.items()))
     plan, wf = run.workflow.last_prepare_plan, run.workflow
@@ -3170,6 +3196,7 @@ def _train_families(device, records, models=None, tag: str = "families"
     search_label = next(k for k in plan.fit_seconds
                         if k.startswith("ModelSelector("))
     fits = {k: v for k, v in plan.fit_seconds.items() if k != search_label}
+    bucket = _bucketizer_fit(plan, listener, run.model)
     out = {"records": len(records), "matrix_shape": list(X.shape),
            "matrix_dtype": str(X.dtype), "matrix_device": str(X.device),
            "raw_extraction_s": wf.last_train_seconds["raw_extraction"],
@@ -3180,7 +3207,7 @@ def _train_families(device, records, models=None, tag: str = "families"
            "search_s": plan.fit_seconds[search_label],
            "train_s": sum(wf.last_train_seconds.values()),
            "train_score_evaluate_s": run.seconds,
-           "new_stage_seconds": _new_stage_seconds(listener, plan.coverage),
+           "stage_seconds": _stage_seconds(listener, plan.coverage),
            "selector_timings_s": dict(s.timings), "families": fams,
            "k1_launches": launches, "k1_launches_by_c": by_c,
            "bucketizer": bucket,
@@ -3205,9 +3232,9 @@ def _train_families(device, records, models=None, tag: str = "families"
         f"{out['search_s']:.3f}; train {out['train_s']:.3f}, train + score "
         f"+ evaluate {run.seconds:.3f}; {plan.bytes_to_device} bytes of host "
         f"columns copied up")
-    log(f"[{tag}] ported stages' seconds (fit / device / host transform): "
+    log(f"[{tag}] stage seconds (fit / device / host transform): "
         + json.dumps({k: {w: round(v, 4) for w, v in rec.items()}
-                      for k, rec in out["new_stage_seconds"].items()}))
+                      for k, rec in out["stage_seconds"].items()}))
     for label, why in plan.coverage.fallback:
         log(f"[{tag}] host stage {label.split('(')[0]}: {why}")
     for name, rec in fams.items():
@@ -3216,10 +3243,9 @@ def _train_families(device, records, models=None, tag: str = "families"
             + " ".join(f"C={c}:{k}"
                        for c, k in rec["k1_launches_by_c"].items()))
     log(f"[{tag}] DecisionTreeNumericBucketizer fit "
-        f"{bucket.get('seconds', 0.0):.3f} s, K1 launches "
-        f"{bucket.get('k1_launches', 0)} "
-        f"{json.dumps(bucket.get('k1_launches_by_c', {}))}, split points "
-        f"{bucket.get('split_points')}")
+        f"{bucket['seconds']:.3f} s, K1 launches {bucket['k1_launches']} "
+        f"{json.dumps(bucket['k1_launches_by_c'])}, split points "
+        f"{bucket['split_points']}")
     log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} mean AuPR "
         f"{s.best_validation_metric:.6f}; holdout AuPR {run.metrics.AuPR:.6f}"
         f" AuROC {run.metrics.AuROC:.6f}; K1 launches {launches}"
@@ -3238,7 +3264,7 @@ def _train_families(device, records, models=None, tag: str = "families"
     if dev.type == "cuda":
         idle = [f for f, rec in fams.items()
                 if f in TREE_FAMILIES and rec["k1_launches"] == 0]
-        if idle or not bucket.get("k1_launches"):
+        if idle or not bucket["k1_launches"]:
             raise AssertionError(f"[{tag}] K1 never launched by "
                                  f"{idle or 'the auto-bucketizer'}")
     if not 0.5 < run.metrics.AuROC <= 1.0:
@@ -3337,6 +3363,67 @@ def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
     return out
 
 
+@contextlib.contextmanager
+def linear_dtype(dtype):
+    """Inside the block the linear families compute in ``dtype`` on any
+    device: the port's ``working_dtype`` (float32 on a card, float64 on
+    the CPU) replaced in the modules of their search and scoring."""
+    from transmogrifai_tpu_torch.models import base
+    from transmogrifai_tpu_torch.parallel import cv
+    mods = (base, linear, cv)
+    real = [m.working_dtype for m in mods]
+    for m in mods:
+        m.working_dtype = lambda device: dtype
+    try:
+        yield
+    finally:
+        for m, r in zip(mods, real):
+            m.working_dtype = r
+
+
+def linear_precision_witness(device, X: torch.Tensor, y: np.ndarray,
+                             cpu_metrics: np.ndarray) -> dict:
+    """The linear families' search ([families-agree]'s pool, the family
+    example's selector) on the CPU run's prepared train matrix ``X``
+    twice more: on ``device`` in float64 and on the CPU in float32. Each
+    one's largest gap by grid point to ``cpu_metrics``, the CPU run's
+    float64 metrics of those points (the same search). The device in
+    float64 must agree within AGREE_TOL: then the card's float32 gap is
+    precision's, not a fault of the card's path."""
+    from transmogrifai_tpu_torch.examples import families
+    out = {}
+    for tag, where, dtype in (("device_float64", device, torch.float64),
+                              ("cpu_float32", "cpu", torch.float32)):
+        dev = resolve_device(where)
+        with linear_dtype(dtype):
+            sel = families.default_selector(dev, models=small_models(
+                dev, families=LINEAR_FAMILIES))
+            mm = metric_matrix(sel.fit_arrays(X.to(dev, dtype), y))
+        out[tag] = np.abs(mm - cpu_metrics).max(axis=0).tolist()
+    log(f"[families-agree] linear families against the CPU in float64, "
+        f"largest gap by grid point: {resolve_device(device)} in float64 "
+        f"{json.dumps(out['device_float64'])}; the CPU in float32 "
+        f"{json.dumps(out['cpu_float32'])}")
+    if max(out["device_float64"]) > AGREE_TOL:
+        raise AssertionError("[families-agree] the linear families differ "
+                             "card to CPU in float64 too")
+    return out
+
+
+def _family_tol(result) -> float:
+    """[families-agree]'s metric limit of a grid point: GBT_SMALL_LEAF_TOL
+    at the GBT points of min_child_weight < 10, FAMILY_LINEAR_TOL at the
+    LogisticRegression points of reg_param < FAMILY_LINEAR_REG and every
+    LinearSVC point, AGREE_TOL elsewhere."""
+    name, params = result.model_name, result.params
+    if name == "GBTClassifier" and params.get("min_child_weight", 1.0) < 10:
+        return GBT_SMALL_LEAF_TOL
+    if name == "LinearSVC" or (name == "LogisticRegression" and
+                               params["reg_param"] < FAMILY_LINEAR_REG):
+        return FAMILY_LINEAR_TOL
+    return AGREE_TOL
+
+
 def _family_columns(metas) -> tuple:
     """Masks over the family matrix's columns: the auto-bucketizer's
     (grouping ``real``: their labels carry its split points) and the float
@@ -3356,11 +3443,11 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
     metadata (but for the auto-bucketizer's labels), bitwise equal
     indicator, one-hot, hash and integer columns, float columns within
     PREPARED_REL_TOL of their largest magnitude, metric matrices within
-    AGREE_TOL (GBT points of min_child_weight < 10 within
-    GBT_SMALL_LEAF_TOL, the linear families' within FAMILY_LINEAR_TOL),
-    the same winner unless the CPU's top two lie within AGREE_TOL. The auto-bucketizer's split points (its tree
-    bins and sums in float32 on the card) and the rows whose bucket
-    differs are reported."""
+    ``_family_tol``, the linear families' float64 search on ``device``
+    within AGREE_TOL of the CPU's (``linear_precision_witness``), the
+    same winner unless the CPU's top two lie within AGREE_TOL. The
+    auto-bucketizer's split points (its tree bins and sums in float32 on
+    the card) and the rows whose bucket differs are reported."""
     from transmogrifai_tpu_torch.examples import families
     records = families.synthetic_families(rows, seed0=7)
     card = _train_families(device, records, tag="families-agree-card",
@@ -3387,8 +3474,8 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
     exact = bool(np.array_equal(a[:, ~floats], b[:, ~floats]))
     scale = np.maximum(np.abs(b[:, floats]).max(axis=0), 1e-30)
     float_rel = float((np.abs(a[:, floats] - b[:, floats]) / scale).max())
-    sp_card = card["bucketizer"].get("split_points", [])
-    sp_cpu = cpu["bucketizer"].get("split_points", [])
+    sp_card = card["bucketizer"]["split_points"]
+    sp_cpu = cpu["bucketizer"]["split_points"]
     sp_diff = (sum(x != y for x, y in zip(sp_card, sp_cpu))
                + abs(len(sp_card) - len(sp_cpu)))
     sp_gap = (float(np.max(np.abs(np.subtract(sp_card[1:-1],
@@ -3400,11 +3487,7 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
     results = next(s for s in cpu["run"].model.stages()
                    if type(s).__name__ == "SelectedModel"
                    ).summary.validation_results
-    tol = np.array([GBT_SMALL_LEAF_TOL if r.model_name == "GBTClassifier"
-                    and r.params.get("min_child_weight", 1.0) < 10
-                    else FAMILY_LINEAR_TOL if r.model_name in
-                    ("LogisticRegression", "LinearSVC")
-                    else AGREE_TOL for r in results])
+    tol = np.array([_family_tol(r) for r in results])
     gap = np.abs(mc - mp)
     within = bool(np.all(gap <= tol))
     names = [r.model_name for r in results]
@@ -3415,6 +3498,10 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
     same = card["winner_index"] == cpu["winner_index"]
     log(f"[families-agree] max |card - cpu| by family and grid point: "
         f"{json.dumps(by_family)}")
+    train, _ = titanic.stratified_split(records, label_key="label")
+    witness = linear_precision_witness(
+        device, cols[1].data, np.array([r["label"] for r in train]),
+        mp[:, [i for i, n in enumerate(names) if n in LINEAR_FAMILIES]])
     log(f"[families-agree] prepared {cols[0].data.shape}: metadata equal "
         f"but for the auto-bucketizer's {int(bucket_a.sum())} / "
         f"{int(bucket.sum())} columns (card / cpu); {int(floats.sum())} "
@@ -3424,8 +3511,9 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
         f"{sp_cpu}: {sp_diff} differ (max |diff| {sp_gap}), {rows_moved} "
         f"of {len(b)} rows in another bucket; max |card - cpu| metric "
         f"{float(gap.max()):.3e} (tol {AGREE_TOL}, {GBT_SMALL_LEAF_TOL} for "
-        f"GBT at min_child_weight < 10, {FAMILY_LINEAR_TOL} for the linear "
-        f"families): within {within}; winner card "
+        f"GBT at min_child_weight < 10, {FAMILY_LINEAR_TOL} for LR at "
+        f"reg_param < {FAMILY_LINEAR_REG} and LinearSVC): within {within}; "
+        f"winner card "
         f"{card['winner_index']} cpu {cpu['winner_index']}"
         f"{' (top two within tol)' if close else ''}; seconds card "
         f"{card['train_score_evaluate_s']:.2f} cpu "
@@ -3445,6 +3533,7 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
             "metric_max_abs_diff": float(gap.max()),
             "metrics_within_tol": within, "same_winner": same,
             "metric_diff_by_family": by_family,
+            "linear_precision_witness": witness,
             "card_s": card["train_score_evaluate_s"],
             "cpu_s": cpu["train_score_evaluate_s"]}
 

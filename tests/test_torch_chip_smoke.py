@@ -601,9 +601,10 @@ def families_out():
 
 
 def test_families_phase(families_out):
-    """Every family timed, the ported stages' fits and transforms
-    reported where the prepare plan ran them (the six device kernels on
-    the device), the auto-bucketizer's split points, then save, reload,
+    """Every family timed, every stage's fits and transforms reported
+    where the prepare plan ran them (the six device kernels on the
+    device), the auto-bucketizer's fit seconds, K1 launches (none on the
+    CPU) and split points, then save, reload,
     the compiled plan bitwise the columnar path, records served within
     1e-6, no fallback, no K1 launch."""
     out = families_out
@@ -611,7 +612,7 @@ def test_families_phase(families_out):
     mm = np.asarray(out["metric_matrix"])
     assert mm.shape == (3, 20) and np.all(np.isfinite(mm))
     assert out["matrix_shape"][0] == 450 and out["matrix_shape"][1] > 1000
-    seconds = out["new_stage_seconds"]
+    seconds = out["stage_seconds"]
     for name in chip_smoke.FAMILY_DEVICE_STAGES:
         assert "device" in seconds[name], name
     for name in ("TextTokenizer", "TextListHashVectorizer",
@@ -619,7 +620,12 @@ def test_families_phase(families_out):
                  "DecisionTreeNumericBucketizerModel"):
         assert "host" in seconds[name], name
     assert "fit" in seconds["DecisionTreeNumericBucketizer"]
-    splits = out["bucketizer"]["split_points"]
+    assert "fit" in seconds["ModelSelector"]
+    bucket = out["bucketizer"]
+    assert bucket["seconds"] == seconds["DecisionTreeNumericBucketizer"][
+        "fit"] > 0.0
+    assert bucket["k1_launches"] == 0 and bucket["k1_launches_by_c"] == {}
+    splits = bucket["split_points"]
     assert splits[0] == -np.inf and splits[-1] == np.inf and len(splits) > 2
     assert out["k1_launches"] == 0 and "k1" not in out
     serve = out["serve"]
@@ -634,9 +640,15 @@ def test_families_phase(families_out):
 
 def test_families_agree_phase():
     """[families-agree] with the CPU on both sides: the matrices, the
-    bucketizer's split points and the metric matrices agree exactly."""
+    bucketizer's split points and the metric matrices agree exactly; the
+    linear families' float64 witness on the device (the CPU) agrees
+    exactly too, and the CPU's float32 run is reported for each of their
+    12 grid points."""
     out = chip_smoke.phase_families_agree("cpu", 600, num_rounds=2,
                                           num_trees=1)
+    witness = out["linear_precision_witness"]
+    assert witness["device_float64"] == [0.0] * 12
+    assert len(witness["cpu_float32"]) == 12
     assert out["others_bitwise"] and out["float_max_rel_diff"] == 0.0
     assert out["split_points_differing"] == 0
     assert out["rows_in_another_bucket"] == 0
@@ -706,3 +718,88 @@ def test_families_are_wired_in(monkeypatch, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["families"] == {"families": {"phase": "families"},
                                 "agree": {"phase": "agree"}}
+
+
+def test_family_tolerances():
+    """[families-agree]'s limits: FAMILY_LINEAR_TOL only at the
+    LogisticRegression points of reg_param below FAMILY_LINEAR_REG and
+    the LinearSVC points, GBT_SMALL_LEAF_TOL at the GBT points of
+    min_child_weight < 10, AGREE_TOL everywhere else."""
+    from types import SimpleNamespace as R
+    tol = chip_smoke._family_tol
+    assert tol(R(model_name="LogisticRegression",
+                 params={"reg_param": 0.001})) == chip_smoke.FAMILY_LINEAR_TOL
+    for reg in (0.01, 0.1, 0.2):
+        assert tol(R(model_name="LogisticRegression",
+                     params={"reg_param": reg})) == chip_smoke.AGREE_TOL
+    assert tol(R(model_name="LinearSVC", params={"reg_param": 0.2})) == \
+        chip_smoke.FAMILY_LINEAR_TOL
+    assert tol(R(model_name="GBTClassifier",
+                 params={"min_child_weight": 1.0})) == \
+        chip_smoke.GBT_SMALL_LEAF_TOL
+    for name, params in (("GBTClassifier", {"min_child_weight": 10.0}),
+                         ("RandomForestClassifier", {"max_depth": 3})):
+        assert tol(R(model_name=name, params=params)) == chip_smoke.AGREE_TOL
+
+
+def test_linear_dtype():
+    """Inside ``linear_dtype`` the linear families compute in the dtype
+    asked for on the CPU too (float32 here), and the port's policy is
+    back after the block."""
+    X, y = chip_smoke.make_data(600, 8, seed=3)
+    models = chip_smoke.small_models("cpu",
+                                     families=chip_smoke.LINEAR_FAMILIES)
+    real = chip_smoke.linear.working_dtype
+    with chip_smoke.linear_dtype(torch.float32):
+        model = models[0][0].fit_arrays(
+            torch.as_tensor(X, dtype=torch.float32), y)
+        assert chip_smoke.linear.working_dtype(torch.device("cpu")) == \
+            torch.float32
+    assert model.coefficients.dtype == torch.float32
+    assert chip_smoke.linear.working_dtype is real
+    assert real(torch.device("cpu")) == torch.float64
+
+
+def test_device_events():
+    """``device_events`` reads a profiler window's raw results: the name
+    and microseconds of every CUDA event, no host event."""
+    from types import SimpleNamespace as NS
+    from torch.autograd import DeviceType
+
+    def event(name, ns, dev):
+        return NS(name=lambda: name, duration_ns=lambda: ns,
+                  device_type=lambda: dev)
+    events = [event("aten::add_", 5000, DeviceType.CPU),
+              event("kernel_a", 1500, DeviceType.CUDA),
+              event("Memcpy HtoD", 250, DeviceType.CUDA)]
+    prof = NS(profiler=NS(kineto_results=NS(events=lambda: events)))
+    assert chip_smoke.device_events(prof) == [("kernel_a", 1.5),
+                                              ("Memcpy HtoD", 0.25)]
+
+
+def test_k1_by_fit(monkeypatch):
+    """``K1ByFit`` files the launches between two stage rows under the
+    stage whose fit row follows them, by class; transform rows and fits
+    that launch nothing are not filed."""
+    from collections import Counter
+    from types import SimpleNamespace as NS
+    counts = Counter()
+    monkeypatch.setattr(chip_smoke.level_hist, "launches_by_c", counts,
+                        raising=False)
+
+    class Stage(NS):
+        def stage_name(self):
+            return "Stage_000000000001"
+    listener = chip_smoke.K1ByFit()
+    counts.update({1: 1, 2: 1})
+    bucketizer = type("DecisionTreeNumericBucketizer", (Stage,), {})(uid="b")
+    listener.on_stage_completed(bucketizer, "fit", 0.1, 10)
+    listener.on_stage_completed(Stage(uid="t"), "transform", 0.1, 10)
+    listener.on_stage_completed(Stage(uid="f"), "fit", 0.1, 10)
+    counts.update({1: 3, 256: 4})
+    selector = type("ModelSelector", (Stage,), {})(uid="s")
+    listener.on_stage_completed(selector, "fit", 0.1, 10)
+    assert listener.k1_by_fit == {
+        "DecisionTreeNumericBucketizer": {1: 1, 2: 1},
+        "ModelSelector": {1: 3, 256: 4}}
+    assert len(listener.metrics.stage_metrics) == 4

@@ -394,3 +394,30 @@ def test_no_family_left_unported():
     """The port's transmogrify module names no unported part."""
     import inspect
     assert "not_ported" not in inspect.getsource(ttm)
+
+
+@pytest.mark.parametrize("case_id,names", [
+    ("auto-bucketize", ["label", "real"]),
+    ("auto-bucketize-map", ["key_label", "nums"])])
+def test_tree_bucketizer_fits_on_the_workflow_device(case_id, names):
+    """A tree bucketizer given no device fits on the device of the
+    workflow that trains it (the CPU here): the JAX package's split
+    points, and the stage left without a device after the fit. Outside
+    a workflow it needs a card, which is absent here."""
+    from transmogrifai_tpu_torch.workflow import Workflow
+    jm, _, _ = _jax_fitted(case_id)
+    make = next(c[1] for c in CASES if c[0] == case_id)
+    feats, ds = _side(ttypes, tc, tb, names)
+    stage = make(tops, {})
+    out = stage.set_input(*feats).get_output()
+    assert stage.device is None
+    records = [{n: RAW[n][1][i] for n in names} for i in range(N)]
+    model = (Workflow(device="cpu").set_result_features(feats[0], out)
+             .set_input_records(records).train())
+    fitted = next(s for s in model.stages()
+                  if type(s).__name__ == type(jm).__name__)
+    assert fitted.split_points == jm.split_points
+    assert stage.device is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stage.fit(ds)

@@ -133,10 +133,10 @@ def synthetic_families(n: int, seed0: int = SEED) -> List[dict]:
     return records
 
 
-def build_features(device="cuda", seed0: int = SEED):
+def build_features(seed0: int = SEED):
     """(label, the combined feature vector): every family's raw feature,
     ``blurb``'s tokens and ``geo`` through ``transmogrify``, with
-    ``real``'s label-aware buckets (fitted on ``device``) and
+    ``real``'s label-aware buckets (fitted on the workflow's device) and
     ``integral``'s fixed ones."""
     raw = {name: FeatureBuilder.of(name, ftype).extract(
         lambda r, k=name: r.get(k)).as_predictor()
@@ -146,7 +146,7 @@ def build_features(device="cuda", seed0: int = SEED):
     label = FeatureBuilder.of("label", RealNN).extract(
         lambda r: r.get("label")).as_response()
     tokens = raw["blurb"].tokenize()
-    auto = raw["real"].auto_bucketize(label, device=device)
+    auto = raw["real"].auto_bucketize(label)
     fixed = raw["integral"].bucketize(list(BUCKET_SPLITS))
     vector = transmogrify(list(raw.values()) + [tokens, auto, fixed])
     return label, vector
@@ -180,7 +180,7 @@ def run(records, device="cuda", model_stage=None, listener=None,
     default selector (it must compute on ``device``); ``listener``
     collects the per-stage profile."""
     train, test = stratified_split(records, label_key="label")
-    label, vector = build_features(device)
+    label, vector = build_features()
     stage = model_stage if model_stage is not None \
         else default_selector(device)
     prediction = stage.set_input(label, vector).get_output()

@@ -236,8 +236,8 @@ class Feature:
     def auto_bucketize(self, label: "Feature", **params) -> "Feature":
         """Label-aware decision-tree buckets
         (reference RichNumericFeature.autoBucketize); ``params`` go to
-        ``DecisionTreeNumericBucketizer``, whose ``device`` (default the
-        card) must be the workflow's."""
+        ``DecisionTreeNumericBucketizer``, whose tree fits on the device
+        of the workflow that fits it."""
         from ..ops.bucketizers import DecisionTreeNumericBucketizer
         return DecisionTreeNumericBucketizer(**params).set_input(
             label, self).get_output()

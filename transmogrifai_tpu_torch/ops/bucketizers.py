@@ -11,9 +11,9 @@ PercentileCalibrator.scala, ScalerTransformer.scala}):
 - :class:`DecisionTreeNumericBucketizer` — label-aware buckets from the
   split thresholds of a single-feature decision tree (the reference
   fits a Spark DecisionTree; here it is the port's histogram tree
-  builder, ``models/trees.DecisionTreeClassifier`` on ``device``, whose
-  levels launch the level-histogram kernel K1 on a one-feature design on
-  the card).
+  builder, ``models/trees.DecisionTreeClassifier`` on the device of the
+  workflow that fits it, whose levels launch the level-histogram kernel
+  K1 on a one-feature design on the card).
 - :class:`PercentileCalibrator` — maps values onto [0, buckets-1] by
   training-set quantiles (reference PercentileCalibrator with
   ``expectedDistribution`` uniform).
@@ -148,21 +148,24 @@ class DecisionTreeNumericBucketizer(AllowLabelAsInput, BinaryEstimator):
 
     input_types = (RealNN, OPNumeric)
     output_type = OPVector
+    #: a prepare plan sets ``device`` to its own for the fit when it is None
+    takes_plan_device = True
 
     def __init__(self, max_depth: int = 2, max_bins: int = 32,
                  min_info_gain: float = 0.01,
                  min_instances_per_node: int = 1,
-                 track_nulls: bool = True, device="cuda",
+                 track_nulls: bool = True, device=None,
                  uid: Optional[str] = None):
-        """``device``: where the tree is fitted (the workflow's device;
-        default the card, raises without one)."""
+        """``device``: where the tree is fitted; by default the device of
+        the workflow that fits the stage (a fit outside one: the card,
+        raising without one)."""
         super().__init__(operation_name="dtNumBucket", uid=uid)
         self.max_depth = max_depth
         self.max_bins = max_bins
         self.min_info_gain = min_info_gain
         self.min_instances_per_node = min_instances_per_node
         self.track_nulls = track_nulls
-        self.device = resolve_device(device)
+        self.device = None if device is None else resolve_device(device)
 
     def fit_columns(self, cols: List[FeatureColumn]
                     ) -> DecisionTreeNumericBucketizerModel:
@@ -176,7 +179,7 @@ class DecisionTreeNumericBucketizer(AllowLabelAsInput, BinaryEstimator):
                 max_depth=self.max_depth, max_bins=self.max_bins,
                 min_info_gain=self.min_info_gain,
                 min_instances_per_node=self.min_instances_per_node,
-                device=self.device,
+                device=resolve_device(self.device or "cuda"),
             ).fit_arrays(x[ok].reshape(-1, 1), y[ok])
             thrs = tree.thrs.double().cpu().numpy()
             thresholds = thrs[np.isfinite(thrs)]
@@ -320,13 +323,15 @@ class DecisionTreeNumericMapBucketizer(AllowLabelAsInput, BinaryEstimator):
 
     input_types = (RealNN, NumericMap)
     output_type = OPVector
+    takes_plan_device = True
 
     def __init__(self, max_depth: int = 2, max_bins: int = 32,
                  min_info_gain: float = 0.01,
                  min_instances_per_node: int = 1,
                  track_nulls: bool = True,
-                 allow_keys: Optional[Sequence[str]] = None, device="cuda",
+                 allow_keys: Optional[Sequence[str]] = None, device=None,
                  uid: Optional[str] = None):
+        """``device`` as DecisionTreeNumericBucketizer's."""
         super().__init__(operation_name="dtNumMapBucket", uid=uid)
         self.max_depth = max_depth
         self.max_bins = max_bins
@@ -334,7 +339,7 @@ class DecisionTreeNumericMapBucketizer(AllowLabelAsInput, BinaryEstimator):
         self.min_instances_per_node = min_instances_per_node
         self.track_nulls = track_nulls
         self.allow_keys = list(allow_keys) if allow_keys else None
-        self.device = resolve_device(device)
+        self.device = None if device is None else resolve_device(device)
 
     def fit_columns(self, cols: List[FeatureColumn]
                     ) -> DecisionTreeNumericMapBucketizerModel:

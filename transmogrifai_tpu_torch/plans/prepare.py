@@ -147,8 +147,17 @@ class PreparePlan:
                 ds = ds.with_column(n, host_column(ds[n]))
         label = f"{type(stage).__name__}({stage.uid})"
         self.fit_placements.append((label, where, reason))
+        # a stage that fits on its workflow's device and was given none
+        handed = getattr(stage, "takes_plan_device", False) and \
+            stage.device is None
+        if handed:
+            stage.device = self.device
         t0, b0 = time.perf_counter(), _build.build_seconds()
-        model = stage.fit(ds)
+        try:
+            model = stage.fit(ds)
+        finally:
+            if handed:
+                stage.device = None
         self.fit_seconds[label] = time.perf_counter() - t0
         self._report(stage, "fit", self.fit_seconds[label], ds.n_rows, b0)
         return model
