@@ -2,15 +2,20 @@
 """Smoke run of the PyTorch port (``transmogrifai_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
-[--workflow-rows N] [--cv-rows N] [--families-rows N] [--out FILE]
-[--k1-only | --workflow-only | --validate-only | --problems-only |
---families-only]
+[--workflow-rows N] [--cv-rows N] [--families-rows N] [--text-rows N]
+[--out FILE] [--k1-only | --workflow-only [--agree-witness-rows N] |
+--validate-only | --problems-only | --families-only | --text-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
-``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d,
-``--validate-only`` phases 1, 2 and 9b-9d, 9b with its own exact
-search, ``--problems-only`` phases 1, 2 and 9e-9h, ``--families-only``
-phases 1, 2, 9i and 9j):
+``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d, or with
+``--agree-witness-rows N`` phases 1, 2 and 9 alone at N records with the
+linear families' float64 witness on the card (the float32 gap reported,
+the float64 one checked), ``--validate-only`` phases 1, 2 and 9b-9d, 9b
+with its own exact search, ``--problems-only`` phases 1, 2 and 9e-9h,
+``--families-only`` phases 1, 2, 9i and 9j, ``--text-only`` phases 1, 2,
+9k and 9l; in the whole smoke the card-against-CPU phases 6, 9, 9d, 9h,
+9j and 9l run after phase 10, the last timed phase, in a worker process
+each (9h as three), so that no path is timed beside them):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -81,13 +86,19 @@ phases 1, 2, 9i and 9j):
      ``model.score(engine="compiled")``, records/s, ``bucket_profile``)
      within 1e-6 of the columnar path, bitwise equal over two runs, a
      replay equal to an eager run of the same program, a CPU plan over a
-     CPU reload within 1e-5, no program added by a repeat; then the
-     in-process micro-batching server (guardrails on, ``sentinel=False``)
-     answering 10,000 holdout records, one request each from 64
+     CPU reload within 1e-5, no program added by a repeat; the offline
+     guarded plan's drift sentinel (the saved fingerprints) reads the
+     holdout ``ok`` and the holdout shifted (age + 40, sex constant)
+     ``warn`` or ``degrade``; then the in-process micro-batching server
+     under a default ``ServeConfig()`` (guardrails and the drift sentinel
+     on) answering 10,000 holdout records, one request each from 64
      submitter threads (requests/s, p50 / p99 / mean ms, dispatches full
      or at the deadline): no capture in steady state, no host fallback,
      breaker short-circuit or quarantined row, every answer bitwise the
-     offline ``score_guarded`` row; last, 20,000-record workflows with a
+     offline ``score_guarded`` row, the tenant's sentinel ``ok``; the
+     same requests without, with, with and without the sentinel
+     (requests/s, p50);
+     last, 20,000-record workflows with a
      fixed GBT (depth 6, 20 rounds) and a fixed 50-tree forest, each
      scored through a compiled plan within 1e-6 of its columnar score.
      K1 launches none while serving;
@@ -154,9 +165,11 @@ phases 1, 2, 9i and 9j):
      version at the bucketizer's d = 1 design (C = 1, 2) and on the
      family matrix (forest statistics at C = 1, 32, 256, exact; the GBT's
      [g, h] at C = 256), with ``index_add_`` times and the bound; then
-     save, reload, the holdout scored through the compiled plan (bitwise
-     the columnar path) and 1,001 records served one at a time (within
-     1e-6), no host fallback, no K1 launch;
+     save (with the drift fingerprints), reload, the holdout scored
+     through the compiled plan (bitwise the columnar path) and through its
+     default guardrails (the drift sentinel reads it ``ok``) and 1,001
+     records served one at a time (within 1e-6), no host fallback, no K1
+     launch (the Iris and Boston paths serve the same way);
  9j. [families-agree] the same DAG on 5,000 records on the card and on
      the CPU with the card-against-CPU pool (GBT at 5 rounds): metadata
      equal but for the auto-bucketizer's labels (they carry its split
@@ -168,6 +181,31 @@ phases 1, 2, 9i and 9j):
      float32's: the same linear search in float64 on the card within
      2e-3 of the CPU's, the CPU's own float32 gap reported), the same
      winner;
+ 9k. [text] the text workflow (``examples/text.py``: TF-IDF, Word2Vec and
+     LDA over the body's tokens, language, length, name entities, n-gram
+     similarity, e-mail and URL domains, phone validity and a string
+     index, ~2,300 columns) on 10,000 records (``--text-rows``) with the
+     whole default pool: seconds by stage, Word2Vec's and LDA's fit
+     seconds (on the card), the search by family, K1 launches by family
+     and C, winner, holdout AuPR / AuROC / log loss / Brier score, peak
+     memory; [k1-text]: K1 against its plain version on the text matrix
+     (forest statistics at C = 1, 32, 256, exact; the GBT's [g, h] at
+     C = 256) with ``index_add_`` times and the bound; then save, reload,
+     the holdout through the compiled plan (bitwise the columnar path)
+     and its default guardrails (drift ``ok``), 1,001 records served one
+     at a time (within 1e-6) and 2,000 holdout requests through a
+     default ``ServeConfig()`` server (within 1e-6 of the guarded plan,
+     its sentinel ``ok``);
+ 9l. [text-agree] the text DAG on 2,000 records on the card and on the
+     CPU with the linear families only: every host stage's output
+     bitwise equal, Word2Vec's vectors and document means (float32 SGD
+     on the card) within 1e-6, LDA's topic-word matrix and mixtures
+     (float64 on both) within 1e-10; then the linear families on a
+     10,000-record text design (7,500 rows, ~2,300 columns) on the card:
+     their float32 metric matrix within 2e-3 of the CPU's float64 search
+     on the same matrix (3e-2 at LogisticRegression's reg_param 0.001),
+     the float64 search on the card within 2e-3 (the CPU's own float32
+     gap reported beside it);
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -184,6 +222,7 @@ import argparse
 import collections
 import contextlib
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -215,6 +254,8 @@ from transmogrifai_tpu_torch.selector import (  # noqa: E402
 from transmogrifai_tpu_torch.examples import titanic  # noqa: E402
 from transmogrifai_tpu_torch.local import load_score_function  # noqa: E402
 from transmogrifai_tpu_torch.selector import validator  # noqa: E402
+from transmogrifai_tpu_torch.serving.sentinel import (  # noqa: E402
+    DRIFT_FINGERPRINTS_FILE, DriftSentinel)
 from transmogrifai_tpu_torch.selector.selector import (  # noqa: E402
     models_x_folds)
 from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
@@ -253,6 +294,15 @@ AGREE_ROUNDS = 5
 #: 1.81e-3 of AGREE_TOL and past it, 1.27e-2, on LinearSVC and LR points)
 CARD_VS_CPU_ROWS = 20_000
 AGREE_RECORDS = 5_000
+#: holdout records a served problem path scores through its plan's
+#: default guardrails (the drift sentinel's sample)
+GUARDED_RECORDS = 5_000
+#: smallest sample on which an unshifted holdout must read drift "ok":
+#: below it the JS of a hashed high-cardinality text feature is noise
+#: (a Titanic holdout of 64 to 300 records reads "warn" in the CPU
+#: rehearsals; 1,000 read "ok" in tests/test_torch_sentinel.py, 25,000 a
+#: largest JS of 0.105 against warn at 0.25 on an H100 host)
+DRIFT_MIN_RECORDS = 1_000
 #: records of the profiled workflow (8a): its matrix (9,000 x ~550) is
 #: above _DEVICE_BIN_MIN_ELEMS, so it is binned on the card as phase 8's;
 #: phase 8's own search under the profiler (26,460 K1 launches) made a
@@ -1482,16 +1532,19 @@ def _f32_ulps(a: np.ndarray, b: np.ndarray) -> int:
 def _margin_order_ulps(X, model, sizes=(8, 64, 256, 2048, 8192)) -> dict:
     """Worst float32 ulps between the margins of 8 rows of ``X`` scored
     alone and the same rows placed at other offsets of batches of other
-    sizes: for ``X @ w`` (the card's BLAS picks its kernel by shape) and
-    for the linear ``model``'s ``raw_arrays`` (its products added in
-    feature order)."""
+    sizes, and each row scored as a batch of one (a served record): for
+    ``X @ w`` (the card's BLAS picks its kernel by shape) and for the
+    linear ``model``'s ``raw_arrays`` (its products added in feature
+    order)."""
     forms = {"matmul": lambda A: A @ model.coefficients + model.intercept,
              "raw_arrays": lambda A: model.raw_arrays(A)[:, 1]}
     rows = X[:8]
     out = {}
     for name, f in forms.items():
         base = f(rows).double().cpu().numpy()
-        worst = 0
+        alone = np.concatenate([f(rows[i:i + 1]).double().cpu().numpy()
+                                for i in range(8)])
+        worst = _f32_ulps(alone, base)
         for n in sizes:
             n = min(n, X.shape[0])
             for off in sorted(o for o in {0, 1, 3, n - 8} if o + 8 <= n):
@@ -1589,13 +1642,19 @@ def phase_serve_compiled(run, holdout_records, server_records: int = 10_000,
     two runs, one bucket's graph replay equal to an eager run of the same
     program (GRAPH_EAGER_MAX_ULP), a CPU plan over a CPU reload within
     COMPILED_CPU_TOL, and a repeat adding no program. Then the
-    in-process server (guardrails on, ``sentinel=False``, the default
-    config otherwise) answers ``server_records`` holdout records, one
-    request each from ``threads`` concurrent submitters: requests/s,
-    per-request p50/p99/mean ms, dispatches by kind; no program captured
-    in steady state, no host-fallback batch, breaker short-circuit or
-    quarantined row, and every answer bitwise the offline
-    ``score_guarded`` row. Last, a Titanic workflow on ``tree_rows``
+    in-process server under a default ``ServeConfig()`` (guardrails and
+    each tenant's drift sentinel on) answers ``server_records`` holdout
+    records, one request each from ``threads`` concurrent submitters:
+    requests/s, per-request p50/p99/mean ms, dispatches by kind; no
+    program captured in steady state, no host-fallback batch, breaker
+    short-circuit or quarantined row, every answer bitwise the offline
+    ``score_guarded`` row, and the tenant's sentinel reading ``ok``; the
+    same drive without, with, with and without the sentinel for their
+    requests/s and p50 (``sentinel_ab``); the
+    offline plan's ``drift_report()`` reads ``ok`` on the whole holdout
+    (both ``ok`` checks over at least DRIFT_MIN_RECORDS records) and
+    ``warn`` or ``degrade`` on it shifted (every ``age`` + 40, ``sex``
+    constant). Last, a Titanic workflow on ``tree_rows``
     records with a fixed GBT (depth 6, 20 rounds) and one with a fixed
     50-tree forest, each scored through a compiled plan within
     COMPILED_SCORE_TOL of its columnar score. K1 never launches while
@@ -1615,6 +1674,8 @@ def phase_serve_compiled(run, holdout_records, server_records: int = 10_000,
     records = list(holdout_records)
     level_hist.launches = 0
     out: dict = {"records": len(records)}
+    # the saved directory stays until the phase ends: the reloaded
+    # model's drift sentinels read their fingerprints there
     tmp = tempfile.mkdtemp(prefix="serve_compiled_")
     try:
         path = os.path.join(tmp, "model")
@@ -1622,229 +1683,298 @@ def phase_serve_compiled(run, holdout_records, server_records: int = 10_000,
         fn = load_score_function(path, device=dev)
         model = fn.model
         cpu_model = load_model(path, device="cpu")
+
+        # -- compile: coverage ------------------------------------------------
+        t0 = time.perf_counter()
+        plan = model.scoring_plan()
+        out["compile_s"] = time.perf_counter() - t0
+        desc = plan.describe()
+        out["coverage"] = desc["coverage"]
+        log(f"[serve-compiled] plan on {plan.device} compiled in "
+            f"{out['compile_s']:.3f} s: {desc['device_stages']} device "
+            f"stages, "
+            f"{desc['fallback_stages']} host stages; host inputs "
+            f"{len(desc['host_inputs'])}, buckets {desc['buckets']}")
+        for label in desc["coverage"]["lowered"]:
+            log(f"[serve-compiled] device stage {label.split('(')[0]}")
+        for label, why in desc["coverage"]["fallback"]:
+            log(f"[serve-compiled] host stage {label.split('(')[0]}: {why}")
+
+        # -- batch ------------------------------------------------------------
+        c0 = plan_compiles()
+        t0 = time.perf_counter()
+        rows_batch = fn.score_batch(records, engine="compiled")
+        out["score_batch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = model.score(records, engine="compiled")
+        out["score_compiled_s"] = time.perf_counter() - t0
+        c1 = plan_compiles()
+        t0 = time.perf_counter()
+        again = model.score(records, engine="compiled")
+        out["score_compiled_again_s"] = time.perf_counter() - t0
+        out["repeat_compiles"] = plan_compiles() - c1
+        out["batch_compiles"] = c1 - c0
+        t0 = time.perf_counter()
+        columnar = model.score(records)
+        out["score_columnar_s"] = time.perf_counter() - t0
+        p_first, p_again = _prob(first, name), _prob(again, name)
+        out["bitwise_repeat"] = bool(
+            np.array_equal(p_first, p_again)
+            and np.array_equal(first[name].raw_prediction,
+                               again[name].raw_prediction))
+        out["max_abs_diff_vs_columnar"] = float(
+            np.abs(p_first - _prob(columnar, name)).max())
+        out["score_batch_gap"] = float(max(
+            abs(r[name]["probability_1"] - p) for r, p in
+            zip(rows_batch, p_first[:, 1])))
+        out["records_per_s"] = len(records) / out["score_compiled_again_s"]
+        out["records_per_s_first"] = len(records) / out["score_compiled_s"]
+        out["records_per_s_score_batch"] = len(records) / out["score_batch_s"]
+        out["records_per_s_columnar"] = len(records) / out["score_columnar_s"]
+        out["bucket_profile"] = plan.bucket_profile()
+        out["capture_s_batch"] = dict(plan.capture_seconds)
+        # one bucket's graph replay against an eager run of the same program
+        raw = _generate_raw_data(model.raw_features(), records[:1000],
+                                 require_responses=False)
+        bucket, inputs, mask, _rows = plan.encode_raw_dataset(raw).chunks[0]
+        replayed = plan._run_bucket(bucket, inputs, mask)
+        eager = plan.run_eager(inputs, mask)
+        out["graph_vs_eager_ulps"] = max(_f32_ulps(a, b)
+                                         for a, b in zip(replayed, eager))
+        out["graph_vs_eager_bucket"] = bucket
+        # a linear winner's margins must not depend on the batch they sit in
+        inner = getattr(next((st for st in run.model.stages()
+                              if type(st).__name__ == "SelectedModel"), None),
+                        "inner", None)
+        if hasattr(inner, "coefficients"):
+            out["margin_ulps"] = _margin_order_ulps(
+                run.model.train_dataset[run.vector.name].data, inner)
+            log(f"[serve-compiled] a row's margin across batch sizes and "
+                f"offsets, worst float32 ulps: X @ w "
+                f"{out['margin_ulps']['matmul']}, raw_arrays (feature order) "
+                f"{out['margin_ulps']['raw_arrays']}")
+            if out["margin_ulps"]["raw_arrays"]:
+                raise AssertionError("[serve-compiled] a linear margin "
+                                     "depends on its batch")
+        # a CPU plan over a CPU reload
+        t0 = time.perf_counter()
+        cpu_scored = cpu_model.score(records, engine="compiled")
+        out["cpu_compiled_s"] = time.perf_counter() - t0
+        out["max_abs_diff_cpu"] = float(
+            np.abs(_prob(cpu_scored, name) - p_first).max())
+        log(f"[serve-compiled] batch of {len(records)} records: score_batch "
+            f"{out['score_batch_s']:.3f} s, model.score(engine='compiled') "
+            f"{out['score_compiled_s']:.3f} s then "
+            f"{out['score_compiled_again_s']:.3f}"
+            f" s ({out['records_per_s']:.0f} records/s warm, "
+            f"{out['records_per_s_first']:.0f} first), columnar "
+            f"{out['score_columnar_s']:.3f} s "
+            f"({out['records_per_s_columnar']:.0f}"
+            f" records/s); CPU plan {out['cpu_compiled_s']:.3f} s")
+        log(f"[serve-compiled] bucket_profile "
+            + json.dumps({b: {k: (round(v, 5) if isinstance(v, float) else v)
+                              for k, v in r.items()}
+                          for b, r in sorted(out["bucket_profile"].items())}))
+        log(f"[serve-compiled] max |compiled - columnar| P "
+            f"{out['max_abs_diff_vs_columnar']:.3e} (tol "
+            f"{COMPILED_SCORE_TOL}); score_batch vs score "
+            f"{out['score_batch_gap']:.3e}; repeat bitwise "
+            f"{out['bitwise_repeat']}; bucket {bucket} graph vs eager "
+            f"{out['graph_vs_eager_ulps']} ulps (max {GRAPH_EAGER_MAX_ULP}); "
+            f"CPU plan vs card {out['max_abs_diff_cpu']:.3e} (tol "
+            f"{COMPILED_CPU_TOL}); programs: batch {out['batch_compiles']}, "
+            f"repeat {out['repeat_compiles']}")
+        if out["max_abs_diff_vs_columnar"] > COMPILED_SCORE_TOL \
+                or out["score_batch_gap"] > 0.0:
+            raise AssertionError("[serve-compiled] the compiled batch differs "
+                                 "from the columnar path")
+        if not out["bitwise_repeat"] or out["repeat_compiles"]:
+            raise AssertionError("[serve-compiled] a repeated batch "
+                                 "changed or added a program")
+        if out["graph_vs_eager_ulps"] > GRAPH_EAGER_MAX_ULP:
+            raise AssertionError("[serve-compiled] graph replay differs from "
+                                 "the eager program")
+        if out["max_abs_diff_cpu"] > COMPILED_CPU_TOL:
+            raise AssertionError("[serve-compiled] the CPU plan differs from "
+                                 "the card's")
+        if dev.type == "cuda" and not plan.capture_seconds:
+            raise AssertionError("[serve-compiled] no graph was captured")
+
+        # -- server -----------------------------------------------------------
+        served = records[:server_records]
+        offline_plan = ScoringPlan(model).compile().with_guardrails()
+        offline = offline_plan.score_guarded(served).scored[name]
+        # the offline plan's default sentinel: the holdout, then a fresh
+        # sentinel over the holdout shifted
+        offline_plan.score_guarded(records[server_records:])
+        out["drift_holdout"] = _drift_summary(offline_plan.drift_report())
+        offline_plan.with_guardrails(sentinel=DriftSentinel.for_model(model))
+        offline_plan.score_guarded([dict(r, age=(r["age"] or 30.0) + 40.0,
+                                         sex="male") for r in served])
+        out["drift_shifted"] = _drift_summary(offline_plan.drift_report())
+        log(f"[serve-compiled] drift_report() on {len(records)} holdout "
+            f"records: {json.dumps(out['drift_holdout'])}; shifted (age + 40, "
+            f"sex "
+            f"constant): {json.dumps(out['drift_shifted'])}")
+        if _drift_misread(out["drift_holdout"]) \
+                or out["drift_shifted"]["status"] not in ("warn", "degrade"):
+            raise AssertionError("[serve-compiled] the drift sentinel misread "
+                                 "the holdout or the shift")
+        config = ServeConfig()
+        server, client = serve_in_process({"titanic": model}, config,
+                                          device=dev)
+        try:
+            buckets = [b for b in plan.buckets() if b <= config.max_batch]
+            t0 = time.perf_counter()
+            warmed = server.prewarm(buckets=buckets)["titanic"]
+            out["prewarm_s"] = time.perf_counter() - t0
+            out["capture_s"] = warmed
+            log(f"[serve-compiled] prewarm captured buckets "
+                + ", ".join(f"{b}: {s:.3f} s"
+                            for b, s in sorted(warmed.items()))
+                + f" ({out['prewarm_s']:.2f} s); plan_compiles() "
+                f"{plan_compiles()}")
+            client.score_many(served[:256])            # warm the loop path
+            before = telemetry.counters()
+            stats0 = dict(server.stats)
+            c0 = plan_compiles()
+            answers, ms, wall = _drive_server(client, served, threads)
+            after = telemetry.counters()
+            desc = server.describe()
+            metrics = server.metrics_snapshot()
+            lane_drift = metrics["sentinels"]["titanic/default"]
+            # where a request's time goes: a shorter traced drive, its spans
+            # averaged by name (the server's request segments and the plan's
+            # encode and dispatch)
+            trace.configure(True)
+            trace.reset()
+            try:
+                _drive_server(client, served[:TRACED_REQUESTS], threads)
+                spans = trace.spans()
+            finally:
+                trace.configure(False)
+                trace.reset()
+        finally:
+            server.stop()
+        by_name = collections.defaultdict(list)
+        for sp in spans:
+            by_name[sp["name"]].append(sp["dur"] * 1e3)
+        traced = {k: {"count": len(v), "mean_ms": float(np.mean(v))}
+                  for k, v in sorted(by_name.items())}
+        delta = {k: after.get(k, 0) - before.get(k, 0) for k in (
+            "serving_host_fallback_batches", "serving_breaker_short_circuits",
+            "serving_rows_quarantined", "serving_device_failures")}
+        batches = desc["batches"] - int(stats0["batches"])
+        rows = desc["rows"] - int(stats0["rows"])
+        out["server"] = {
+            "requests": len(served), "threads": threads, "wall_s": wall,
+            "requests_per_s": len(served) / wall,
+            "ms_p50": float(np.percentile(ms, 50)),
+            "ms_p99": float(np.percentile(ms, 99)),
+            "ms_mean": float(ms.mean()), "ms_max": float(ms.max()),
+            "batches": batches,
+            "mean_rows_per_dispatch": rows / max(batches, 1),
+            "full_dispatches": desc["full_dispatches"]
+            - int(stats0["full_dispatches"]),
+            "deadline_dispatches": desc["deadline_dispatches"]
+            - int(stats0["deadline_dispatches"]),
+            "orphaned_dispatches": desc["orphaned_dispatches"],
+            "dispatch_saturation": desc["dispatch_saturation"],
+            "steady_compiles": plan_compiles() - c0, "counters": delta,
+            "latency_ms_server": metrics["latency_ms"], "traced": traced}
+        mismatched = [i for i, a in enumerate(answers)
+                      if "_guard" in a
+                      or a[name] != dict(offline.boxed(i).value)]
+        out["server"]["mismatched_answers"] = len(mismatched)
+        out["server"]["drift"] = {k: lane_drift[k] for k in (
+            "status", "rowsSeen", "warnThreshold", "degradeThreshold")}
+        # what the sentinel costs: the same drive without and with it, in
+        # the order without, with, with, without
+        drives = [(on, _server_drive(model, served, threads,
+                                     ServeConfig(sentinel=on), dev, buckets))
+                  for on in (False, True, True, False)]
+        out["sentinel_ab"] = {
+            key: [d for on, d in drives if on == want]
+            for key, want in (("with", True), ("without", False))}
+        out["server_no_sentinel"] = out["sentinel_ab"]["without"][0]
+        s = out["server"]
+        log(f"[serve-compiled] server: {s['requests']} requests from "
+            f"{threads} threads in {wall:.3f} s "
+            f"({s['requests_per_s']:.0f} requests/s); "
+            f"ms a request p50 {s['ms_p50']:.3f}, p99 {s['ms_p99']:.3f}, mean "
+            f"{s['ms_mean']:.3f}, max {s['ms_max']:.3f}; {batches} "
+            f"dispatches, "
+            f"{s['mean_rows_per_dispatch']:.2f} rows each, full "
+            f"{s['full_dispatches']} / deadline {s['deadline_dispatches']}, "
+            f"orphaned {s['orphaned_dispatches']}, saturation "
+            f"{s['dispatch_saturation']:.3f}; steady-state programs "
+            f"{s['steady_compiles']}; counters {json.dumps(delta)}; answers "
+            f"not bitwise the offline score_guarded rows: {len(mismatched)}; "
+            f"the tenant's sentinel {json.dumps(s['drift'])}")
+        ab = out["sentinel_ab"]
+        log(f"[serve-compiled] the same {len(served)} requests without, "
+            f"with, with and without the sentinel: requests/s with "
+            f"{[round(d['requests_per_s']) for d in ab['with']]} without "
+            f"{[round(d['requests_per_s']) for d in ab['without']]}; p50 ms "
+            f"with {[round(d['ms_p50'], 3) for d in ab['with']]} without "
+            f"{[round(d['ms_p50'], 3) for d in ab['without']]}")
+        log(f"[serve-compiled] traced {TRACED_REQUESTS} requests, mean ms by "
+            f"span: " + ", ".join(f"{k} {v['mean_ms']:.3f} (x{v['count']})"
+                                  for k, v in traced.items()))
+        if s["steady_compiles"]:
+            raise AssertionError("[serve-compiled] the server captured in "
+                                 "steady state")
+        if any(delta.values()):
+            raise AssertionError(f"[serve-compiled] fallback, short-circuit "
+                                 f"or quarantine while serving: {delta}")
+        if mismatched:
+            i = mismatched[0]
+            raise AssertionError(
+                f"[serve-compiled] {len(mismatched)} answers differ from the "
+                f"offline score_guarded rows, e.g. row {i}: {answers[i]} vs "
+                f"{dict(offline.boxed(i).value)}")
+        if _drift_misread(s["drift"]) \
+                or s["drift"]["rowsSeen"] < len(served):
+            raise AssertionError(f"[serve-compiled] the server's sentinel "
+                                 f"misread the holdout: {s['drift']}")
+        out["k1_launches"] = level_hist.launches
+
+        # -- tree stages ------------------------------------------------------
+        tree_records = titanic.synthetic_titanic(tree_rows, seed=7)
+        gbt, rf = tree_models or (
+            GBTClassifier(max_depth=6, num_rounds=20, device=dev),
+            RandomForestClassifier(num_trees=50, device=dev))
+        out["trees"] = [_tree_stage(dev, gbt, tree_records, "gbt"),
+                        _tree_stage(dev, rf, tree_records, "rf")]
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[serve-compiled] K1 launches while serving "
+            f"{out['k1_launches']}; phase {out['seconds']:.1f} s")
+        if out["k1_launches"]:
+            raise AssertionError("[serve-compiled] the serve path launched K1")
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- compile: coverage --------------------------------------------------
-    t0 = time.perf_counter()
-    plan = model.scoring_plan()
-    out["compile_s"] = time.perf_counter() - t0
-    desc = plan.describe()
-    out["coverage"] = desc["coverage"]
-    log(f"[serve-compiled] plan on {plan.device} compiled in "
-        f"{out['compile_s']:.3f} s: {desc['device_stages']} device stages, "
-        f"{desc['fallback_stages']} host stages; host inputs "
-        f"{len(desc['host_inputs'])}, buckets {desc['buckets']}")
-    for label in desc["coverage"]["lowered"]:
-        log(f"[serve-compiled] device stage {label.split('(')[0]}")
-    for label, why in desc["coverage"]["fallback"]:
-        log(f"[serve-compiled] host stage {label.split('(')[0]}: {why}")
 
-    # -- batch --------------------------------------------------------------
-    c0 = plan_compiles()
-    t0 = time.perf_counter()
-    rows_batch = fn.score_batch(records, engine="compiled")
-    out["score_batch_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    first = model.score(records, engine="compiled")
-    out["score_compiled_s"] = time.perf_counter() - t0
-    c1 = plan_compiles()
-    t0 = time.perf_counter()
-    again = model.score(records, engine="compiled")
-    out["score_compiled_again_s"] = time.perf_counter() - t0
-    out["repeat_compiles"] = plan_compiles() - c1
-    out["batch_compiles"] = c1 - c0
-    t0 = time.perf_counter()
-    columnar = model.score(records)
-    out["score_columnar_s"] = time.perf_counter() - t0
-    p_first, p_again = _prob(first, name), _prob(again, name)
-    out["bitwise_repeat"] = bool(
-        np.array_equal(p_first, p_again)
-        and np.array_equal(first[name].raw_prediction,
-                           again[name].raw_prediction))
-    out["max_abs_diff_vs_columnar"] = float(
-        np.abs(p_first - _prob(columnar, name)).max())
-    out["score_batch_gap"] = float(max(
-        abs(r[name]["probability_1"] - p) for r, p in
-        zip(rows_batch, p_first[:, 1])))
-    out["records_per_s"] = len(records) / out["score_compiled_again_s"]
-    out["records_per_s_first"] = len(records) / out["score_compiled_s"]
-    out["records_per_s_score_batch"] = len(records) / out["score_batch_s"]
-    out["records_per_s_columnar"] = len(records) / out["score_columnar_s"]
-    out["bucket_profile"] = plan.bucket_profile()
-    out["capture_s_batch"] = dict(plan.capture_seconds)
-    # one bucket's graph replay against an eager run of the same program
-    raw = _generate_raw_data(model.raw_features(), records[:1000],
-                             require_responses=False)
-    bucket, inputs, mask, _rows = plan.encode_raw_dataset(raw).chunks[0]
-    replayed = plan._run_bucket(bucket, inputs, mask)
-    eager = plan.run_eager(inputs, mask)
-    out["graph_vs_eager_ulps"] = max(_f32_ulps(a, b)
-                                     for a, b in zip(replayed, eager))
-    out["graph_vs_eager_bucket"] = bucket
-    # a linear winner's margins must not depend on the batch they sit in
-    inner = getattr(next((st for st in run.model.stages()
-                          if type(st).__name__ == "SelectedModel"), None),
-                    "inner", None)
-    if hasattr(inner, "coefficients"):
-        out["margin_ulps"] = _margin_order_ulps(
-            run.model.train_dataset[run.vector.name].data, inner)
-        log(f"[serve-compiled] a row's margin across batch sizes and "
-            f"offsets, worst float32 ulps: X @ w "
-            f"{out['margin_ulps']['matmul']}, raw_arrays (feature order) "
-            f"{out['margin_ulps']['raw_arrays']}")
-        if out["margin_ulps"]["raw_arrays"]:
-            raise AssertionError("[serve-compiled] a linear margin depends "
-                                 "on its batch")
-    # a CPU plan over a CPU reload
-    t0 = time.perf_counter()
-    cpu_scored = cpu_model.score(records, engine="compiled")
-    out["cpu_compiled_s"] = time.perf_counter() - t0
-    out["max_abs_diff_cpu"] = float(
-        np.abs(_prob(cpu_scored, name) - p_first).max())
-    log(f"[serve-compiled] batch of {len(records)} records: score_batch "
-        f"{out['score_batch_s']:.3f} s, model.score(engine='compiled') "
-        f"{out['score_compiled_s']:.3f} s then {out['score_compiled_again_s']:.3f}"
-        f" s ({out['records_per_s']:.0f} records/s warm, "
-        f"{out['records_per_s_first']:.0f} first), columnar "
-        f"{out['score_columnar_s']:.3f} s ({out['records_per_s_columnar']:.0f}"
-        f" records/s); CPU plan {out['cpu_compiled_s']:.3f} s")
-    log(f"[serve-compiled] bucket_profile "
-        + json.dumps({b: {k: (round(v, 5) if isinstance(v, float) else v)
-                          for k, v in r.items()}
-                      for b, r in sorted(out["bucket_profile"].items())}))
-    log(f"[serve-compiled] max |compiled - columnar| P "
-        f"{out['max_abs_diff_vs_columnar']:.3e} (tol {COMPILED_SCORE_TOL}); "
-        f"score_batch vs score {out['score_batch_gap']:.3e}; repeat bitwise "
-        f"{out['bitwise_repeat']}; bucket {bucket} graph vs eager "
-        f"{out['graph_vs_eager_ulps']} ulps (max {GRAPH_EAGER_MAX_ULP}); "
-        f"CPU plan vs card {out['max_abs_diff_cpu']:.3e} (tol "
-        f"{COMPILED_CPU_TOL}); programs: batch {out['batch_compiles']}, "
-        f"repeat {out['repeat_compiles']}")
-    if out["max_abs_diff_vs_columnar"] > COMPILED_SCORE_TOL \
-            or out["score_batch_gap"] > 0.0:
-        raise AssertionError("[serve-compiled] the compiled batch differs "
-                             "from the columnar path")
-    if not out["bitwise_repeat"] or out["repeat_compiles"]:
-        raise AssertionError("[serve-compiled] a repeated batch changed or "
-                             "added a program")
-    if out["graph_vs_eager_ulps"] > GRAPH_EAGER_MAX_ULP:
-        raise AssertionError("[serve-compiled] graph replay differs from "
-                             "the eager program")
-    if out["max_abs_diff_cpu"] > COMPILED_CPU_TOL:
-        raise AssertionError("[serve-compiled] the CPU plan differs from "
-                             "the card's")
-    if dev.type == "cuda" and not plan.capture_seconds:
-        raise AssertionError("[serve-compiled] no graph was captured")
 
-    # -- server -------------------------------------------------------------
-    served = records[:server_records]
-    offline_plan = ScoringPlan(model).compile().with_guardrails(
-        sentinel=False)
-    offline = offline_plan.score_guarded(served).scored[name]
-    config = ServeConfig(sentinel=False)
+def _server_drive(model, records, threads: int, config, dev,
+                  buckets) -> dict:
+    """``records`` through an in-process server under ``config``, after
+    the same prewarm and warm-up as [serve-compiled]'s: requests/s and
+    ms a request."""
+    from transmogrifai_tpu_torch.serving import serve_in_process
     server, client = serve_in_process({"titanic": model}, config,
                                       device=dev)
     try:
-        buckets = [b for b in plan.buckets() if b <= config.max_batch]
-        t0 = time.perf_counter()
-        warmed = server.prewarm(buckets=buckets)["titanic"]
-        out["prewarm_s"] = time.perf_counter() - t0
-        out["capture_s"] = warmed
-        log(f"[serve-compiled] prewarm captured buckets "
-            + ", ".join(f"{b}: {s:.3f} s" for b, s in sorted(warmed.items()))
-            + f" ({out['prewarm_s']:.2f} s); plan_compiles() {plan_compiles()}")
-        client.score_many(served[:256])            # warm the loop path
-        before = telemetry.counters()
-        stats0 = dict(server.stats)
-        c0 = plan_compiles()
-        answers, ms, wall = _drive_server(client, served, threads)
-        after = telemetry.counters()
-        desc = server.describe()
-        metrics = server.metrics_snapshot()
-        # where a request's time goes: a shorter traced drive, its spans
-        # averaged by name (the server's request segments and the plan's
-        # encode and dispatch)
-        trace.configure(True)
-        trace.reset()
-        try:
-            _drive_server(client, served[:TRACED_REQUESTS], threads)
-            spans = trace.spans()
-        finally:
-            trace.configure(False)
-            trace.reset()
+        server.prewarm(buckets=buckets)
+        client.score_many(records[:256])
+        _, ms, wall = _drive_server(client, records, threads)
     finally:
         server.stop()
-    by_name = collections.defaultdict(list)
-    for sp in spans:
-        by_name[sp["name"]].append(sp["dur"] * 1e3)
-    traced = {k: {"count": len(v), "mean_ms": float(np.mean(v))}
-              for k, v in sorted(by_name.items())}
-    delta = {k: after.get(k, 0) - before.get(k, 0) for k in (
-        "serving_host_fallback_batches", "serving_breaker_short_circuits",
-        "serving_rows_quarantined", "serving_device_failures")}
-    batches = desc["batches"] - int(stats0["batches"])
-    rows = desc["rows"] - int(stats0["rows"])
-    out["server"] = {
-        "requests": len(served), "threads": threads, "wall_s": wall,
-        "requests_per_s": len(served) / wall,
-        "ms_p50": float(np.percentile(ms, 50)),
-        "ms_p99": float(np.percentile(ms, 99)),
-        "ms_mean": float(ms.mean()), "ms_max": float(ms.max()),
-        "batches": batches, "mean_rows_per_dispatch": rows / max(batches, 1),
-        "full_dispatches": desc["full_dispatches"]
-        - int(stats0["full_dispatches"]),
-        "deadline_dispatches": desc["deadline_dispatches"]
-        - int(stats0["deadline_dispatches"]),
-        "orphaned_dispatches": desc["orphaned_dispatches"],
-        "dispatch_saturation": desc["dispatch_saturation"],
-        "steady_compiles": plan_compiles() - c0, "counters": delta,
-        "latency_ms_server": metrics["latency_ms"], "traced": traced}
-    mismatched = [i for i, a in enumerate(answers)
-                  if "_guard" in a or a[name] != dict(offline.boxed(i).value)]
-    out["server"]["mismatched_answers"] = len(mismatched)
-    s = out["server"]
-    log(f"[serve-compiled] server: {s['requests']} requests from {threads} "
-        f"threads in {wall:.3f} s ({s['requests_per_s']:.0f} requests/s); "
-        f"ms a request p50 {s['ms_p50']:.3f}, p99 {s['ms_p99']:.3f}, mean "
-        f"{s['ms_mean']:.3f}, max {s['ms_max']:.3f}; {batches} dispatches, "
-        f"{s['mean_rows_per_dispatch']:.2f} rows each, full "
-        f"{s['full_dispatches']} / deadline {s['deadline_dispatches']}, "
-        f"orphaned {s['orphaned_dispatches']}, saturation "
-        f"{s['dispatch_saturation']:.3f}; steady-state programs "
-        f"{s['steady_compiles']}; counters {json.dumps(delta)}; answers "
-        f"not bitwise the offline score_guarded rows: {len(mismatched)}")
-    log(f"[serve-compiled] traced {TRACED_REQUESTS} requests, mean ms by "
-        f"span: " + ", ".join(f"{k} {v['mean_ms']:.3f} (x{v['count']})"
-                              for k, v in traced.items()))
-    if s["steady_compiles"]:
-        raise AssertionError("[serve-compiled] the server captured in "
-                             "steady state")
-    if any(delta.values()):
-        raise AssertionError(f"[serve-compiled] fallback, short-circuit or "
-                             f"quarantine while serving: {delta}")
-    if mismatched:
-        i = mismatched[0]
-        raise AssertionError(
-            f"[serve-compiled] {len(mismatched)} answers differ from the "
-            f"offline score_guarded rows, e.g. row {i}: {answers[i]} vs "
-            f"{dict(offline.boxed(i).value)}")
-    out["k1_launches"] = level_hist.launches
-
-    # -- tree stages --------------------------------------------------------
-    tree_records = titanic.synthetic_titanic(tree_rows, seed=7)
-    gbt, rf = tree_models or (
-        GBTClassifier(max_depth=6, num_rounds=20, device=dev),
-        RandomForestClassifier(num_trees=50, device=dev))
-    out["trees"] = [_tree_stage(dev, gbt, tree_records, "gbt"),
-                    _tree_stage(dev, rf, tree_records, "rf")]
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"[serve-compiled] K1 launches while serving {out['k1_launches']}; "
-        f"phase {out['seconds']:.1f} s")
-    if out["k1_launches"]:
-        raise AssertionError("[serve-compiled] the serve path launched K1")
-    return out
-
+    return {"requests": len(records), "requests_per_s": len(records) / wall,
+            "ms_p50": float(np.percentile(ms, 50)),
+            "ms_p99": float(np.percentile(ms, 99)),
+            "ms_mean": float(ms.mean()), "wall_s": wall}
 
 
 def phase_serving(wf_run: dict) -> tuple:
@@ -1872,7 +2002,7 @@ def phase_workflow_copies(device, rows: int = COPIES_RECORDS) -> dict:
 
 def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
                          num_rounds: int = 20,
-                         num_trees: int = 5) -> dict:
+                         num_trees: int = 5, witness: bool = False) -> dict:
     """The Titanic workflow on ``rows`` records on ``device`` (float32 on a
     card) and on the CPU (float64), with the card-against-CPU pool (the
     linear families' full grids, 4-point tree grids): equal metadata,
@@ -1880,7 +2010,10 @@ def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
     columns within PREPARED_REL_TOL of their largest magnitude, metric
     matrices within AGREE_TOL (GBT points of min_child_weight < 10 within
     GBT_SMALL_LEAF_TOL) and the same winner unless the CPU's top two
-    means lie within AGREE_TOL."""
+    means lie within AGREE_TOL. With ``witness`` the float32 metric gap
+    is reported, not checked, and the linear families' search runs again
+    on the CPU run's matrix in float64 on ``device``, which must agree
+    with the CPU within AGREE_TOL (``linear_precision_witness``)."""
     card = phase_workflow(device, rows, tag="wf-agree-card", profile=False,
                           models=small_models(device, num_rounds, num_trees))
     cpu = phase_workflow("cpu", rows, tag="wf-agree-cpu", profile=False,
@@ -1929,9 +2062,18 @@ def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
         f"{cpu['train_score_evaluate_s']:.2f}")
     if not exact or float_rel > PREPARED_REL_TOL:
         raise AssertionError("card and CPU prepared matrices disagree")
-    if not within or not (same or close):
+    out = {}
+    if witness:
+        run = cpu["run"]
+        out["linear_precision_witness"] = linear_precision_witness(
+            device, cols[1].data, np.asarray(
+                run.model.train_dataset["survived"].data, dtype=np.float64),
+            mp[:, [i for i, n in enumerate(names) if n in LINEAR_FAMILIES]],
+            tag="wf-agree")
+    elif not within or not (same or close):
         raise AssertionError("card and CPU workflow searches disagree")
-    return {"shape": list(a.shape), "float_columns": int(floats.sum()),
+    return {**out, "records": rows,
+            "shape": list(a.shape), "float_columns": int(floats.sum()),
             "float_max_rel_diff": float_rel, "others_bitwise": exact,
             "metric_max_abs_diff": diff, "metrics_within_tol": within,
             "same_winner": same, "metric_diff_by_family": by_family,
@@ -2563,11 +2705,15 @@ def exact_of(wf_run: dict) -> dict:
                       "without the checker and the filter"}
 
 
-def phase_validation(device, rows: int, cv_rows: int, exact=None) -> dict:
-    """[validate], [workflow-cv] and [validate-agree] in turn."""
-    return {"validate": phase_validate(device, rows, exact=exact),
-            "workflow_cv": phase_workflow_cv(device, cv_rows),
-            "validate_agree": phase_validate_agree(device)}
+def phase_validation(device, rows: int, cv_rows: int, exact=None,
+                     agree: bool = True) -> dict:
+    """[validate], [workflow-cv] and, with ``agree``, [validate-agree] in
+    turn."""
+    out = {"validate": phase_validate(device, rows, exact=exact),
+           "workflow_cv": phase_workflow_cv(device, cv_rows)}
+    if agree:
+        out["validate_agree"] = phase_validate_agree(device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2699,12 +2845,20 @@ def phase_k1_problems(device: torch.device) -> dict:
     return {"cases": cases}
 
 
-def _serve_problem(run, tag: str, served: int = 1000) -> dict:
-    """Save the run's model, reload it on its device, serve ``served``
-    holdout records one at a time (within SERVE_SCORE_TOL of the batch
-    ``score``), and score the holdout through the compiled plan (within
-    COMPILED_SCORE_TOL of the columnar path), with no host fallback and
-    no K1 launch."""
+def _serve_problem(run, tag: str, served: int = 1000,
+                   server_records: int = 0) -> dict:
+    """Save the run's model (with its drift fingerprints), reload it on its
+    device, serve ``served`` holdout records one at a time (within
+    SERVE_SCORE_TOL of the batch ``score``), and score the holdout through
+    the compiled plan (within COMPILED_SCORE_TOL of the columnar path),
+    then the holdout's first GUARDED_RECORDS records through the same plan
+    with its default guardrails, whose drift sentinel must read them
+    ``ok`` (over at least DRIFT_MIN_RECORDS records); with
+    ``server_records``, that
+    many holdout records as requests through a default ``ServeConfig()``
+    server (the drift sentinel on) answering within SERVE_SCORE_TOL of
+    the guarded plan, its tenant's sentinel reading ``ok``; no host
+    fallback and no K1 launch."""
     import shutil
     import tempfile
     from transmogrifai_tpu_torch.runtime import telemetry
@@ -2724,6 +2878,8 @@ def _serve_problem(run, tag: str, served: int = 1000) -> dict:
         out["save_s"] = time.perf_counter() - t0
         out["arrays_npz_bytes"] = os.path.getsize(
             os.path.join(path, "arrays.npz"))
+        out["fingerprints"] = os.path.exists(
+            os.path.join(path, DRIFT_FINGERPRINTS_FILE))
         t0 = time.perf_counter()
         loaded = load_model(path, device=dev)
         out["load_s"] = time.perf_counter() - t0
@@ -2737,6 +2893,19 @@ def _serve_problem(run, tag: str, served: int = 1000) -> dict:
         out["plan_fallback_stages"] = plan.fallbacks()
         fn = load_score_function(path, device=dev)
         rows, ms = _serve_all(fn, records, pred, dev)
+        # the same plan with the default guardrails: its drift sentinel
+        # (fingerprints from the saved directory) over the holdout's first
+        # GUARDED_RECORDS records
+        t0 = time.perf_counter()
+        guarded = plan.with_guardrails().score_guarded(
+            holdout[:GUARDED_RECORDS])
+        out["score_guarded_s"] = time.perf_counter() - t0
+        out["guarded_quarantined"] = len(guarded.quarantined)
+        out["drift"] = _drift_summary(plan.drift_report())
+        if server_records:
+            out["server"] = _default_server(
+                loaded, holdout[:server_records], pred, guarded.scored, dev,
+                tag)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     after = telemetry.counters()
@@ -2769,6 +2938,13 @@ def _serve_problem(run, tag: str, served: int = 1000) -> dict:
         f"{SERVE_SCORE_TOL}); plan host stages "
         f"{out['plan_fallback_stages']}, host fallback batches "
         f"{out['host_fallback_batches']}; K1 launches {out['k1_launches']}")
+    log(f"[{tag}] drift-fingerprints.json saved: {out['fingerprints']}; "
+        f"holdout through the default guardrails in "
+        f"{out['score_guarded_s']:.3f} s ({out['guarded_quarantined']} "
+        f"quarantined): drift {json.dumps(out['drift'])}")
+    if not out["fingerprints"] or _drift_misread(out["drift"]):
+        raise AssertionError(f"[{tag}] the saved model has no drift "
+                             f"fingerprints or its holdout reads drift")
     if out["max_abs_diff_compiled"] > COMPILED_SCORE_TOL:
         raise AssertionError(f"[{tag}] compiled scores differ from "
                              f"columnar")
@@ -2779,6 +2955,62 @@ def _serve_problem(run, tag: str, served: int = 1000) -> dict:
         raise AssertionError(f"[{tag}] serving fell back to the host or "
                              f"launched K1")
     return out
+
+
+def _default_server(model, records, name: str, expect, dev,
+                    tag: str, threads: int = 32) -> dict:
+    """``records`` as requests from ``threads`` submitters through an
+    in-process server under a default ``ServeConfig()``: requests/s, ms a
+    request, answers within SERVE_SCORE_TOL of ``expect`` (the guarded
+    plan's scored column over the whole holdout: a coalesced batch's host
+    stages, e.g. LDA's batched E-step products, may round a row
+    otherwise than the whole batch's), the tenant's drift state."""
+    from transmogrifai_tpu_torch.serving import ServeConfig, serve_in_process
+    server, client = serve_in_process({"m": model}, ServeConfig(),
+                                      device=dev)
+    try:
+        answers, ms, wall = _drive_server(client, records, threads)
+        drift = server.metrics_snapshot()["sentinels"]["m/default"]
+    finally:
+        server.stop()
+    want = [dict(expect[name].boxed(i).value) for i in range(len(records))]
+    if any("_guard" in a for a in answers):
+        raise AssertionError(f"[{tag}] the default server quarantined or "
+                             f"invalidated a holdout request")
+    got = [a[name] for a in answers]
+    mismatched = sum(1 for a, b in zip(got, want) if a != b)
+    out = {"requests": len(records), "requests_per_s": len(records) / wall,
+           "ms_p50": float(np.percentile(ms, 50)),
+           "ms_p99": float(np.percentile(ms, 99)),
+           "max_abs_diff": _max_gap(got, want),
+           "not_bitwise": mismatched,
+           "drift": {"status": drift["status"],
+                     "rowsSeen": drift["rowsSeen"]}}
+    log(f"[{tag}] default ServeConfig() server: {len(records)} requests from "
+        f"{threads} threads, {out['requests_per_s']:.0f} requests/s, p50 "
+        f"{out['ms_p50']:.3f} ms, p99 {out['ms_p99']:.3f} ms; max |answer - "
+        f"guarded plan| {out['max_abs_diff']:.3e} (tol {SERVE_SCORE_TOL}), "
+        f"{mismatched} not bitwise; the tenant's sentinel "
+        f"{json.dumps(out['drift'])}")
+    if out["max_abs_diff"] > SERVE_SCORE_TOL or _drift_misread(drift) \
+            or drift["rowsSeen"] != len(records):
+        raise AssertionError(f"[{tag}] the default server's answers or its "
+                             f"drift sentinel are off")
+    return out
+
+
+def _drift_summary(report: dict, top: int = 3) -> dict:
+    """A drift report's status, rows and its ``top`` features by JS."""
+    return {"status": report["status"], "rowsSeen": report["rowsSeen"],
+            "top": [(f["feature"], f["jsDivergence"], f["status"])
+                    for f in report["features"][:top]]}
+
+
+def _drift_misread(drift: dict) -> bool:
+    """Whether an unshifted holdout's drift state reads other than ``ok``
+    over a sample of at least DRIFT_MIN_RECORDS records."""
+    return drift["rowsSeen"] >= DRIFT_MIN_RECORDS \
+        and drift["status"] != "ok"
 
 
 def phase_problem(device, example, records, tag: str, models=None,
@@ -2996,17 +3228,20 @@ def _agree(card: dict, cpu: dict, tag: str, relative: bool) -> dict:
             "card_winner": card["winner"], "cpu_winner": cpu["winner"]}
 
 
-def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
-    """[problems-agree]: both examples on ``rows`` records on the card
-    (float32) and on the CPU (float64), forests at AGREE_TREES trees, the
-    draws from the same CPU generators; then a K = 7 multiclass array
-    search (WIDE_ROWS x WIDE_COLS, the default multiclass pool with its
-    forests at AGREE_TREES trees), whose forests run K1 in split
-    statistic blocks on the card."""
+def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS,
+                         parts=("iris", "boston", f"k{WIDE_K}")) -> dict:
+    """[problems-agree], the searches named in ``parts``: both examples on
+    ``rows`` records on the card (float32) and on the CPU (float64),
+    forests at AGREE_TREES trees, the draws from the same CPU generators;
+    then a K = 7 multiclass array search (WIDE_ROWS x WIDE_COLS, the
+    default multiclass pool with its forests at AGREE_TREES trees), whose
+    forests run K1 in split statistic blocks on the card."""
     from transmogrifai_tpu_torch.examples import boston, iris
     out = {}
     for example, tag, relative in ((iris, "iris", False),
                                    (boston, "boston", True)):
+        if tag not in parts:
+            continue
         records = (example.synthetic_iris(rows, seed=7) if tag == "iris"
                    else example.synthetic_boston(rows, seed=7))
         t0 = time.perf_counter()
@@ -3021,6 +3256,8 @@ def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
         cpu_s = time.perf_counter() - t0
         out[tag] = _agree(card, cpu, tag, relative)
         out[tag].update(card_s=card_s, cpu_s=cpu_s)
+    if f"k{WIDE_K}" not in parts:
+        return out
     from transmogrifai_tpu_torch.models.registry import (
         default_multiclass_models)
     from transmogrifai_tpu_torch.selector import (
@@ -3071,12 +3308,14 @@ def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS) -> dict:
     return out
 
 
-def phase_problems(device) -> dict:
-    """The four phases of the multiclass and regression slice."""
+def phase_problems(device, agree: bool = True) -> dict:
+    """The four phases of the multiclass and regression slice (without
+    [problems-agree] unless ``agree``)."""
     out = {"k1": phase_k1_problems(device)}
     out["iris"] = phase_iris(device)
     out["boston"] = phase_boston(device)
-    out["agree"] = phase_problems_agree(device)
+    if agree:
+        out["agree"] = phase_problems_agree(device)
     return out
 
 
@@ -3160,16 +3399,18 @@ def _bucketizer_fit(plan, listener, model) -> dict:
             "split_points": list(fitted.split_points)}
 
 
-def _train_families(device, records, models=None, tag: str = "families"
-                    ) -> dict:
-    """``examples/families.run`` on ``records`` on ``device`` with the
-    default selector over ``models`` (default: the whole default pool):
-    seconds by stage and of the ported stages, K1 launches by family and
-    slot count (counted from zero just before the train) and the
-    auto-bucketizer's, the winner and holdout metrics."""
-    from transmogrifai_tpu_torch.examples import families
+def _train_example(example, device, records, models=None,
+                   tag: str = "families") -> dict:
+    """``example.run`` (``examples/families.py`` or ``examples/text.py``)
+    on ``records`` on ``device`` with the default selector over ``models``
+    (default: the whole default pool): seconds by stage, K1 launches by
+    family and slot count (counted from zero just before the train) and by
+    the stage whose fit launched them (``out["listener"]``), the winner
+    and holdout metrics. Fails unless the selector received the prepared
+    matrix as a tensor on ``device``, every tree family launched K1 on a
+    card and the holdout's AuROC lies above 0.5."""
     dev = resolve_device(device)
-    sel = families.default_selector(dev, models=models)
+    sel = example.default_selector(dev, models=models)
     fams: dict = {}
     for est, _ in sel.models:
         time_family(est, fams)
@@ -3183,8 +3424,8 @@ def _train_families(device, records, models=None, tag: str = "families"
     level_hist.launches = 0
     level_hist.launches_by_c.clear()
     listener = K1ByFit()
-    run = families.run(records, device=dev, model_stage=sel,
-                       listener=listener)
+    run = example.run(records, device=dev, model_stage=sel,
+                      listener=listener)
     launches = level_hist.launches
     by_c = dict(sorted(level_hist.launches_by_c.items()))
     plan, wf = run.workflow.last_prepare_plan, run.workflow
@@ -3196,7 +3437,6 @@ def _train_families(device, records, models=None, tag: str = "families"
     search_label = next(k for k in plan.fit_seconds
                         if k.startswith("ModelSelector("))
     fits = {k: v for k, v in plan.fit_seconds.items() if k != search_label}
-    bucket = _bucketizer_fit(plan, listener, run.model)
     out = {"records": len(records), "matrix_shape": list(X.shape),
            "matrix_dtype": str(X.dtype), "matrix_device": str(X.device),
            "raw_extraction_s": wf.last_train_seconds["raw_extraction"],
@@ -3210,7 +3450,6 @@ def _train_families(device, records, models=None, tag: str = "families"
            "stage_seconds": _stage_seconds(listener, plan.coverage),
            "selector_timings_s": dict(s.timings), "families": fams,
            "k1_launches": launches, "k1_launches_by_c": by_c,
-           "bucketizer": bucket,
            "winner": s.best_model_name, "winner_params": s.best_model_params,
            "winner_index": int(np.argmax(mm.mean(axis=0))),
            "best_metric": s.best_validation_metric,
@@ -3220,7 +3459,7 @@ def _train_families(device, records, models=None, tag: str = "families"
            "host_stages": [list(f) for f in plan.coverage.fallback],
            "device_stages": [label.split("(")[0]
                              for label in plan.coverage.lowered],
-           "run": run}
+           "run": run, "listener": listener}
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"[{tag}] {len(records)} records on {dev}: prepared matrix "
@@ -3242,20 +3481,11 @@ def _train_families(device, records, models=None, tag: str = "families"
             f"{rec['seconds']:.2f} s; K1 launches {rec['k1_launches']}: "
             + " ".join(f"C={c}:{k}"
                        for c, k in rec["k1_launches_by_c"].items()))
-    log(f"[{tag}] DecisionTreeNumericBucketizer fit "
-        f"{bucket['seconds']:.3f} s, K1 launches {bucket['k1_launches']} "
-        f"{json.dumps(bucket['k1_launches_by_c'])}, split points "
-        f"{bucket['split_points']}")
     log(f"[{tag}] winner {s.best_model_name} {s.best_model_params} mean AuPR "
         f"{s.best_validation_metric:.6f}; holdout AuPR {run.metrics.AuPR:.6f}"
         f" AuROC {run.metrics.AuROC:.6f}; K1 launches {launches}"
         + (f"; max_memory_allocated {out['max_memory_allocated']}"
            if "max_memory_allocated" in out else ""))
-    missing = [c for c in FAMILY_DEVICE_STAGES
-               if c not in out["device_stages"]]
-    if missing:
-        raise AssertionError(f"[{tag}] ported stages off the device: "
-                             f"{missing}")
     if not (seen.get("is_tensor") and X.device.type == dev.type):
         raise AssertionError(f"[{tag}] the selector did not receive the "
                              f"prepared matrix as a tensor on {dev}")
@@ -3264,55 +3494,90 @@ def _train_families(device, records, models=None, tag: str = "families"
     if dev.type == "cuda":
         idle = [f for f, rec in fams.items()
                 if f in TREE_FAMILIES and rec["k1_launches"] == 0]
-        if idle or not bucket["k1_launches"]:
-            raise AssertionError(f"[{tag}] K1 never launched by "
-                                 f"{idle or 'the auto-bucketizer'}")
+        if idle:
+            raise AssertionError(f"[{tag}] K1 never launched by {idle}")
     if not 0.5 < run.metrics.AuROC <= 1.0:
         raise AssertionError(f"[{tag}] holdout evaluation is off: "
                              f"{run.metrics}")
     return out
 
 
-def family_k1_inputs(device, records, X, y: np.ndarray):
-    """(label, design, statistics, slot counts, exact) of each K1 shape of
-    the family path, one at a time: the auto-bucketizer's one-feature
-    design (``real``'s present values of the train split and its one-hot
-    labels, the statistics its tree sums; C = 1 and 2, exact), then the
-    family matrix ``X`` (the prepared train matrix, binned as the search
-    bins it) with a forest's statistics (one-hot labels times Poisson
+def _train_families(device, records, models=None, tag: str = "families"
+                    ) -> dict:
+    """``examples/families.run`` through ``_train_example``, with the
+    auto-bucketizer's fit (seconds, K1 launches, split points; on a card
+    it must launch K1) and the family stages that must run on the
+    device."""
+    from transmogrifai_tpu_torch.examples import families
+    out = _train_example(families, device, records, models=models, tag=tag)
+    run, listener = out["run"], out.pop("listener")
+    bucket = _bucketizer_fit(run.workflow.last_prepare_plan, listener,
+                             run.model)
+    out["bucketizer"] = bucket
+    log(f"[{tag}] DecisionTreeNumericBucketizer fit "
+        f"{bucket['seconds']:.3f} s, K1 launches {bucket['k1_launches']} "
+        f"{json.dumps(bucket['k1_launches_by_c'])}, split points "
+        f"{bucket['split_points']}")
+    missing = [c for c in FAMILY_DEVICE_STAGES
+               if c not in out["device_stages"]]
+    if missing:
+        raise AssertionError(f"[{tag}] ported stages off the device: "
+                             f"{missing}")
+    if resolve_device(device).type == "cuda" and not bucket["k1_launches"]:
+        raise AssertionError(f"[{tag}] K1 never launched by the "
+                             f"auto-bucketizer")
+    return out
+
+
+def matrix_k1_inputs(device, X, y: np.ndarray, name: str):
+    """(label, design, statistics, slot counts, exact) of a workflow's
+    prepared train matrix ``X`` (binned as the search bins it), one at a
+    time: a forest's statistics (one-hot labels ``y`` times Poisson
     weights times a fold mask; C = 1, 32, 256, exact) and the GBT's
-    [g, h] (C = 256, within float32 rounding)."""
+    [g, h] (C = 256, within float32 rounding); ``name`` heads the
+    labels."""
+    dev = resolve_device(device)
+    for kind, slots, exact in (("cls", (1, 32, 256), True),
+                               ("gbt", (256,), False)):
+        design = _PackedDesign(X, 32, dev)
+        st = _problem_k1_stats(design, kind, y)
+        label = f"{name} forest" if kind == "cls" else f"{name} GBT [g,h]"
+        yield label, design, st, slots, exact
+        del design, st
+        clear_design_cache()
+
+
+def family_k1_inputs(device, records, X, y: np.ndarray):
+    """Each K1 shape of the family path, as ``matrix_k1_inputs`` gives
+    them: the auto-bucketizer's one-feature design (``real``'s present
+    values of the train split and its one-hot labels, the statistics its
+    tree sums; C = 1 and 2, exact), then the family matrix ``X``."""
     dev = resolve_device(device)
     train, _ = titanic.stratified_split(records, label_key="label")
     x = np.array([np.nan if r["real"] is None else r["real"]
                   for r in train])
     lab = np.array([r["label"] for r in train])
     ok = ~np.isnan(x)
-    for label, Xs, ys, kind, slots, exact in (
-            ("bucketizer d=1", x[ok].reshape(-1, 1), lab[ok], "onehot",
-             BUCKET_SLOTS, True),
-            ("family matrix forest", X, y, "cls", (1, 32, 256), True),
-            ("family matrix GBT [g,h]", X, y, "gbt", (256,), False)):
-        design = _PackedDesign(Xs, 32, dev)
-        st = (_on(np.eye(2)[ys.astype(np.int64)], design.dtype, dev)
-              .contiguous() if kind == "onehot"
-              else _problem_k1_stats(design, kind, ys))
-        yield label, design, st, slots, exact
-        del design, st
-        clear_design_cache()
+    design = _PackedDesign(x[ok].reshape(-1, 1), 32, dev)
+    st = _on(np.eye(2)[lab[ok].astype(np.int64)], design.dtype,
+             dev).contiguous()
+    yield "bucketizer d=1", design, st, BUCKET_SLOTS, True
+    del design, st
+    clear_design_cache()
+    yield from matrix_k1_inputs(dev, X, y, "family matrix")
 
 
-def phase_k1_families(device, records, X, y: np.ndarray) -> dict:
-    """K1 against its plain version at each shape of
-    ``family_k1_inputs``: agreement, kernel, plain and ``index_add_``
-    times beside the bound."""
+def phase_k1_inputs(device, inputs, tag: str, seed: int) -> dict:
+    """K1 against its plain version at each shape of ``inputs`` (as
+    ``matrix_k1_inputs`` yields them) on random slots from ``seed``:
+    agreement, kernel, plain and ``index_add_`` times beside the
+    bound."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(4)
+    gen.manual_seed(seed)
     cases = []
-    for label, design, st, slots, exact in family_k1_inputs(
-            device, records, X, y):
+    for label, design, st, slots, exact in inputs:
         plan = design.hist_plan(st.shape[1])
-        log(f"[k1-families] {label}: n={design.n} d={design.d} "
+        log(f"[{tag}] {label}: n={design.n} d={design.d} "
             f"TB={design.total_bins} S={st.shape[1]} ids {design.ids.dtype}"
             f" groups={plan.n_groups}")
         for C in slots:
@@ -3328,7 +3593,7 @@ def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
                    k1: bool = True) -> dict:
     """[families]: the family workflow (``examples/families.py``) on
     ``rows`` testkit records with ``models`` (default: the whole default
-    pool); with ``k1``, K1 at its shapes (``phase_k1_families``, the card
+    pool); with ``k1``, K1 at its shapes (``family_k1_inputs``, the card
     only); then save, reload, the holdout through the compiled plan
     (bitwise the columnar path) and 1,001 records served one at a time
     (``_serve_problem``)."""
@@ -3346,8 +3611,9 @@ def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
     if k1:
         X = run.model.train_dataset[run.vector.name].data
         train, _ = titanic.stratified_split(records, label_key="label")
-        out["k1"] = phase_k1_families(device, records, X, np.array(
-            [r["label"] for r in train]))
+        out["k1"] = phase_k1_inputs(device, family_k1_inputs(
+            device, records, X, np.array([r["label"] for r in train])),
+            "k1-families", 4)
         del X
     out["serve"] = _serve_problem(run, "families-serve")
     if out["serve"]["max_abs_diff_compiled"] != 0.0:
@@ -3382,31 +3648,33 @@ def linear_dtype(dtype):
 
 
 def linear_precision_witness(device, X: torch.Tensor, y: np.ndarray,
-                             cpu_metrics: np.ndarray) -> dict:
-    """The linear families' search ([families-agree]'s pool, the family
-    example's selector) on the CPU run's prepared train matrix ``X``
-    twice more: on ``device`` in float64 and on the CPU in float32. Each
-    one's largest gap by grid point to ``cpu_metrics``, the CPU run's
-    float64 metrics of those points (the same search). The device in
-    float64 must agree within AGREE_TOL: then the card's float32 gap is
-    precision's, not a fault of the card's path."""
+                             cpu_metrics: np.ndarray,
+                             tag: str = "families-agree") -> dict:
+    """The linear families' search (the card-against-CPU pool's linear
+    families under the examples' 3-fold selector) on the CPU run's
+    prepared train matrix ``X`` twice more: on ``device`` in float64 and
+    on the CPU in float32. Each one's largest gap by grid point to
+    ``cpu_metrics``, the CPU run's float64 metrics of those points (the
+    same search). The device in float64 must agree within AGREE_TOL: then
+    the card's float32 gap is precision's, not a fault of the card's
+    path. ``tag`` names the phase in the log."""
     from transmogrifai_tpu_torch.examples import families
     out = {}
-    for tag, where, dtype in (("device_float64", device, torch.float64),
+    for key, where, dtype in (("device_float64", device, torch.float64),
                               ("cpu_float32", "cpu", torch.float32)):
         dev = resolve_device(where)
         with linear_dtype(dtype):
             sel = families.default_selector(dev, models=small_models(
                 dev, families=LINEAR_FAMILIES))
             mm = metric_matrix(sel.fit_arrays(X.to(dev, dtype), y))
-        out[tag] = np.abs(mm - cpu_metrics).max(axis=0).tolist()
-    log(f"[families-agree] linear families against the CPU in float64, "
+        out[key] = np.abs(mm - cpu_metrics).max(axis=0).tolist()
+    log(f"[{tag}] linear families against the CPU in float64, "
         f"largest gap by grid point: {resolve_device(device)} in float64 "
         f"{json.dumps(out['device_float64'])}; the CPU in float32 "
         f"{json.dumps(out['cpu_float32'])}")
     if max(out["device_float64"]) > AGREE_TOL:
-        raise AssertionError("[families-agree] the linear families differ "
-                             "card to CPU in float64 too")
+        raise AssertionError(f"[{tag}] the linear families differ card to "
+                             f"CPU in float64 too")
     return out
 
 
@@ -3538,11 +3806,318 @@ def phase_families_agree(device, rows: int = AGREE_RECORDS,
             "cpu_s": cpu["train_score_evaluate_s"]}
 
 
-def phase_families_all(device, rows: int = FAMILIES_ROWS) -> dict:
-    """[families] (K1's family shapes inside) and [families-agree] in
-    turn."""
-    return {"families": phase_families(device, rows),
-            "agree": phase_families_agree(device)}
+def phase_families_all(device, rows: int = FAMILIES_ROWS,
+                       agree: bool = True) -> dict:
+    """[families] (K1's family shapes inside) and, with ``agree``,
+    [families-agree] in turn."""
+    out = {"families": phase_families(device, rows)}
+    if agree:
+        out["agree"] = phase_families_agree(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the text slice: [text], [k1-text], [text-serve], [text-agree]
+# ---------------------------------------------------------------------------
+
+#: records of the text workflow (``--text-rows``): 10,000, the lowest the
+#: first cut may go, since the whole smoke took 1,211.9 s of its 1,200 s
+#: limit with 20,000 (on an H100 host; [text] 135.0 s of it)
+TEXT_ROWS = 10_000
+#: records of the text workflow's card-against-CPU phase
+TEXT_AGREE_ROWS = 2_000
+#: records of [text-agree]'s linear check: 7,500 train rows, over three
+#: times the text design's ~2,300 columns (at 1,500 rows the float32 fits
+#: part from float64 by up to 0.28 of AuPR on the CPU too; at 7,500 by
+#: 1.5e-2 at LR's reg_param 0.001, 5.4e-4 at 0.01, 3.5e-3 for LinearSVC)
+TEXT_LINEAR_ROWS = 10_000
+#: [text-agree]'s linear limit at LogisticRegression's reg_param below
+#: FAMILY_LINEAR_REG, the card's float32 against the CPU's float64 on the
+#: TEXT_LINEAR_ROWS design; every other linear point is held to
+#: AGREE_TOL. Measured on an H100: 1.16e-2 (reg_param 0.001), 8.8e-4 at
+#: 0.01, at most 4.1e-6 at 0.1 and 0.2 and for LinearSVC
+TEXT_LINEAR_TOL = FAMILY_LINEAR_TOL
+#: holdout records the text model's default ServeConfig() server answers
+TEXT_SERVER_RECORDS = 2_000
+#: card (float32 SGD) against CPU (float64) Word2Vec vectors and document
+#: means, on the same draws: the float32 steps part by rounding alone.
+#: Measured on an H100 at 2,000 records: 5.3e-8 (vectors), 1.8e-8 (means)
+W2V_AGREE_TOL = 1e-6
+#: card against CPU LDA topic-word matrix and document mixtures, both in
+#: float64: cuBLAS and the CPU sum the products in other orders. Measured
+#: on an H100 at 2,000 records: 6.0e-15 (topic-word), 1.1e-12 (mixtures)
+LDA_AGREE_TOL = 1e-10
+#: the text DAG's host stages whose outputs must be bitwise equal card to
+#: CPU (the TF-IDF matrix, the index and the derived values)
+TEXT_HOST_STAGES = (
+    "TextTokenizer", "TfIdfVectorizerModel", "StringIndexerModel",
+    "LangDetector", "TextLenTransformer", "NameEntityRecognizer",
+    "NGramSimilarity", "EmailToPickList", "UrlToPickList",
+    "PhoneNumberParser")
+
+
+def _stage_of(model, name: str):
+    return next(s for s in model.stages() if type(s).__name__ == name)
+
+
+def _train_text(device, records, models=None, tag: str = "text") -> dict:
+    """``examples/text.run`` through ``_train_example``: Word2Vec's and
+    LDA's fit seconds, which must have run on ``device`` (LDA's model
+    keeps it), and the holdout's log loss and Brier score."""
+    from transmogrifai_tpu_torch.examples import text
+    out = _train_example(text, device, records, models=models, tag=tag)
+    out.pop("listener")
+    run = out["run"]
+    fits = run.workflow.last_prepare_plan.fit_seconds
+    out["word2vec_fit_s"] = sum(v for k, v in fits.items()
+                                if k.startswith("Word2Vec("))
+    out["lda_fit_s"] = sum(v for k, v in fits.items()
+                           if k.startswith("LDA("))
+    out["holdout_LogLoss"] = run.log_loss.LogLoss
+    out["holdout_BrierScore"] = run.bin_score.BrierScore
+    lda = _stage_of(run.model, "LDAModel")
+    out["lda_device"] = str(lda.device)
+    log(f"[{tag}] Word2Vec fit {out['word2vec_fit_s']:.3f} s, LDA fit "
+        f"{out['lda_fit_s']:.3f} s (LDA on {lda.device}); holdout LogLoss "
+        f"{out['holdout_LogLoss']:.6f}, Brier {out['holdout_BrierScore']:.6f}")
+    if lda.device.type != resolve_device(device).type:
+        raise AssertionError(f"[{tag}] LDA did not fit on {device}")
+    return out
+
+
+def phase_text(device, rows: int = TEXT_ROWS, models=None,
+               k1: bool = True,
+               server_records: int = TEXT_SERVER_RECORDS) -> dict:
+    """[text]: the text workflow (``examples/text.py``) on ``rows``
+    records with ``models`` (default: the whole default pool); with
+    ``k1``, K1 on the text matrix (``matrix_k1_inputs``, the card only);
+    then save (with the drift fingerprints), reload, the holdout through
+    the compiled plan (bitwise the columnar path) and its default
+    guardrails (the drift sentinel must read ``ok``), 1,001 records served
+    one at a time (within 1e-6) and ``server_records`` holdout requests
+    through a default ``ServeConfig()`` server (``_serve_problem``)."""
+    from transmogrifai_tpu_torch.examples import text
+    t0 = time.perf_counter()
+    records = text.synthetic_text(rows)
+    gen_s = time.perf_counter() - t0
+    log(f"[text] {rows} records generated in {gen_s:.2f} s")
+    out = _train_text(device, records, models=models)
+    out["generate_s"] = gen_s
+    run = out.pop("run")
+    if models is None and len(out["metric_matrix"][0]) != 48:
+        raise AssertionError(f"[text] {len(out['metric_matrix'][0])} grid "
+                             f"points, not the default pool's 48")
+    if k1:
+        X = run.model.train_dataset[run.vector.name].data
+        y = np.asarray(run.model.train_dataset["label"].data,
+                       dtype=np.float64)
+        out["k1"] = phase_k1_inputs(
+            device, matrix_k1_inputs(device, X, y, "text matrix"),
+            "k1-text", 5)
+        del X
+    out["serve"] = _serve_problem(run, "text-serve",
+                                  server_records=server_records)
+    if out["serve"]["max_abs_diff_compiled"] != 0.0:
+        raise AssertionError("[text] compiled scores are not bitwise the "
+                             "columnar path's")
+    out["serve"]["plan_coverage"] = run.model.scoring_plan(
+        ).coverage.to_json()
+    return out
+
+
+def _column_values(col) -> list:
+    """A column's values as a list, NaN (an empty numeric value) as
+    None so that equal columns compare equal."""
+    data = col.data
+    if isinstance(data, torch.Tensor):
+        data = data.cpu().numpy()
+    values = data.tolist() if isinstance(data, np.ndarray) else list(data)
+    return [None if isinstance(v, float) and v != v else v for v in values]
+
+
+def _text_linear_tol(result) -> float:
+    """TEXT_LINEAR_TOL at the LogisticRegression points of reg_param <
+    FAMILY_LINEAR_REG, AGREE_TOL elsewhere."""
+    if (result.model_name == "LogisticRegression"
+            and result.params["reg_param"] < FAMILY_LINEAR_REG):
+        return TEXT_LINEAR_TOL
+    return AGREE_TOL
+
+
+def text_linear_agree(device, rows: int = TEXT_LINEAR_ROWS) -> dict:
+    """[text-agree]'s linear check: the text workflow on ``rows`` records
+    on ``device`` with the linear families; the same search on its train
+    matrix in float64 on the CPU is the reference. The card's float32
+    metric matrix must lie within ``_text_linear_tol`` of it, and the
+    float64 search on ``device`` within AGREE_TOL
+    (``linear_precision_witness``, which also gives the CPU's float32
+    gap)."""
+    from transmogrifai_tpu_torch.examples import families, text
+    records = text.synthetic_text(rows, seed=text.SEED + 2)
+    card = _train_text(device, records, tag="text-agree-linear",
+                       models=small_models(device,
+                                           families=LINEAR_FAMILIES))
+    run = card["run"]
+    X = run.model.train_dataset[run.vector.name].data.to(torch.float64)
+    y = np.asarray(run.model.train_dataset["label"].data,
+                   dtype=np.float64)
+    sel = families.default_selector("cpu", models=small_models(
+        "cpu", families=LINEAR_FAMILIES))
+    fitted = sel.fit_arrays(X.cpu(), y)
+    mp, mc = metric_matrix(fitted), np.asarray(card["metric_matrix"])
+    results = fitted.summary.validation_results
+    tol = np.array([_text_linear_tol(r) for r in results])
+    gap = np.abs(mc - mp).max(axis=0)
+    out = {"records": rows, "shape": list(X.shape),
+           "card_float32": gap.tolist(), "tol": tol.tolist(),
+           "within": bool(np.all(gap <= tol))}
+    out["linear_precision_witness"] = linear_precision_witness(
+        device, X, y, mp, tag="text-agree")
+    log(f"[text-agree] linear families on the {tuple(X.shape)} text "
+        f"design, the card's float32 metrics against the CPU's float64 "
+        f"by grid point: {json.dumps(out['card_float32'])} (tol "
+        f"{AGREE_TOL}, {TEXT_LINEAR_TOL} for LR at reg_param < "
+        f"{FAMILY_LINEAR_REG}): within {out['within']}")
+    if not out["within"]:
+        raise AssertionError("[text-agree] the card's float32 linear "
+                             "metrics differ from the CPU's")
+    return out
+
+
+def phase_text_agree(device, rows: int = TEXT_AGREE_ROWS,
+                     linear_rows: int = TEXT_LINEAR_ROWS) -> dict:
+    """[text-agree]: the text workflow on ``rows`` records on ``device``
+    and on the CPU, with the linear families only (the tree search's CPU
+    half is [families-agree]'s ground): every host stage's output
+    (``TEXT_HOST_STAGES``) bitwise equal; Word2Vec's vectors and document
+    means (float32 SGD on a card) within W2V_AGREE_TOL, LDA's topic-word
+    matrix and document mixtures (float64 on both) within LDA_AGREE_TOL;
+    then the linear families' metric matrix on a text design of
+    ``linear_rows`` records (``text_linear_agree``)."""
+    from transmogrifai_tpu_torch.examples import text
+    records = text.synthetic_text(rows, seed=text.SEED + 1)
+    card, cpu = (_train_text(dev, records, tag=f"text-agree-{tag}",
+                             models=small_models(dev,
+                                                 families=LINEAR_FAMILIES))
+                 for dev, tag in ((device, "card"), ("cpu", "cpu")))
+    runs = [r["run"] for r in (card, cpu)]
+    out: dict = {"records": rows}
+    differ = []
+    for name in TEXT_HOST_STAGES:
+        a, b = (_column_values(r.model.train_dataset[
+            _stage_of(r.model, name).get_output().name]) for r in runs)
+        if a != b:
+            differ.append(name)
+    out["host_stages_bitwise"] = not differ
+    w2v = [_stage_of(r.model, "Word2VecModel") for r in runs]
+    lda = [_stage_of(r.model, "LDAModel") for r in runs]
+
+    def gap(stages, attr):
+        return float(np.abs(getattr(stages[0], attr)
+                            - getattr(stages[1], attr)).max())
+
+    def col_gap(stages):
+        a, b = (np.asarray(r.model.train_dataset[s.get_output().name].data,
+                           dtype=np.float64) for r, s in zip(runs, stages))
+        return float(np.abs(a - b).max())
+
+    out.update(w2v_vectors_max_abs_diff=gap(w2v, "vectors"),
+               w2v_means_max_abs_diff=col_gap(w2v),
+               lda_topic_word_max_abs_diff=gap(lda, "topic_word"),
+               lda_mixtures_max_abs_diff=col_gap(lda),
+               w2v_vocabulary_equal=w2v[0].vocabulary == w2v[1].vocabulary,
+               lda_vocabulary_equal=lda[0].vocabulary == lda[1].vocabulary)
+    out["card_s"] = card["train_score_evaluate_s"]
+    out["cpu_s"] = cpu["train_score_evaluate_s"]
+    out["card_fit_s"] = {"Word2Vec": card["word2vec_fit_s"],
+                         "LDA": card["lda_fit_s"]}
+    out["cpu_fit_s"] = {"Word2Vec": cpu["word2vec_fit_s"],
+                        "LDA": cpu["lda_fit_s"]}
+    log(f"[text-agree] {rows} records: host stages bitwise "
+        f"{out['host_stages_bitwise']} (differ: {differ}); Word2Vec vectors "
+        f"max |card - cpu| {out['w2v_vectors_max_abs_diff']:.3e}, document "
+        f"means {out['w2v_means_max_abs_diff']:.3e} (tol {W2V_AGREE_TOL}); "
+        f"LDA topic-word {out['lda_topic_word_max_abs_diff']:.3e}, "
+        f"mixtures {out['lda_mixtures_max_abs_diff']:.3e} (tol "
+        f"{LDA_AGREE_TOL}); fits card {json.dumps(out['card_fit_s'])} cpu "
+        f"{json.dumps(out['cpu_fit_s'])}; seconds card "
+        f"{out['card_s']:.2f} cpu {out['cpu_s']:.2f}")
+    if differ or not (out["w2v_vocabulary_equal"]
+                      and out["lda_vocabulary_equal"]):
+        raise AssertionError(f"[text-agree] host stages differ card to CPU:"
+                             f" {differ}")
+    if max(out["w2v_vectors_max_abs_diff"],
+           out["w2v_means_max_abs_diff"]) > W2V_AGREE_TOL:
+        raise AssertionError("[text-agree] Word2Vec differs card to CPU")
+    if max(out["lda_topic_word_max_abs_diff"],
+           out["lda_mixtures_max_abs_diff"]) > LDA_AGREE_TOL:
+        raise AssertionError("[text-agree] LDA differs card to CPU")
+    out["linear"] = text_linear_agree(device, linear_rows)
+    return out
+
+
+def phase_text_all(device, rows: int = TEXT_ROWS,
+                   agree: bool = True) -> dict:
+    """[text] (K1's text shapes and the serving inside) and, with
+    ``agree``, [text-agree] in turn."""
+    out = {"text": phase_text(device, rows)}
+    if agree:
+        out["agree"] = phase_text_agree(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the card-against-CPU phases, after the timed ones
+# ---------------------------------------------------------------------------
+
+#: the card-against-CPU phases of the whole smoke, [problems-agree] as its
+#: three searches ("name:part"), longest first by their CPU halves on the
+#: host of one H100 (in one run: phase 6 111.9 s, [validate-agree]
+#: 106.1, [wf-agree] 90.0, Boston 71.9, Iris 69.5). They run after the
+#: last timed phase, one process each while the host has cores for it,
+#: so no path is timed while one of them loads the host or the card
+AGREE_PHASES = ("phase_card_vs_cpu", "phase_validate_agree",
+                "phase_workflow_agree", "phase_problems_agree:boston",
+                "phase_problems_agree:iris", "phase_families_agree",
+                "phase_text_agree", f"phase_problems_agree:k{WIDE_K}")
+
+
+def _agree_worker_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def _agree_phase(name: str, device):
+    """``name`` (one of AGREE_PHASES) at its whole-smoke arguments."""
+    if name == "phase_card_vs_cpu":
+        return phase_card_vs_cpu(device, CARD_VS_CPU_ROWS, COLS)
+    name, _, part = name.partition(":")
+    if part:
+        return globals()[name](device, parts=(part,))
+    return globals()[name](device)
+
+
+class AgreeWorker:
+    """AGREE_PHASES in ``workers`` spawned processes (default: one a
+    phase, at most one a core), each with its share of the host's cores,
+    taken in order as a process comes free; ``result`` waits for one of
+    them and raises what it raised. ``close`` stops the processes."""
+
+    def __init__(self, device, workers: int = None):
+        cores = len(os.sched_getaffinity(0))
+        workers = workers or min(len(AGREE_PHASES), cores)
+        ctx = multiprocessing.get_context("spawn")
+        self.pool = ctx.Pool(workers, initializer=_agree_worker_init,
+                             initargs=(max(1, cores // workers),))
+        self.pending = {name: self.pool.apply_async(_agree_phase,
+                                                    (name, device))
+                        for name in AGREE_PHASES}
+
+    def result(self, name: str):
+        return self.pending[name].get()
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
 
 
 def write_out(path, result: dict) -> None:
@@ -3603,6 +4178,17 @@ def main(argv=None) -> int:
                     help="run only the build and the feature-family "
                          "phases ([families] with K1 at its shapes, "
                          "[families-agree]) and print their JSON last")
+    ap.add_argument("--text-rows", type=int, default=TEXT_ROWS,
+                    help="records of the text workflow phase")
+    ap.add_argument("--text-only", action="store_true",
+                    help="run only the build and the text phases ([text] "
+                         "with K1 at its shapes and its serving, "
+                         "[text-agree]) and print their JSON last")
+    ap.add_argument("--agree-witness-rows", type=int, default=None,
+                    help="with --workflow-only: run only [wf-agree] at "
+                         "this many records with the linear families' "
+                         "float64 witness on the card, and print its "
+                         "JSON last")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3613,6 +4199,25 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     laps("device+build")
+    if args.text_only:
+        txt = phase_text_all(device, args.text_rows)
+        laps("9k-9l text")
+        write_out(args.out, {"device": info, "text": txt})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"text": txt}, default=str))
+        return 0
+    if args.workflow_only and args.agree_witness_rows:
+        witness = phase_workflow_agree(device, args.agree_witness_rows,
+                                       witness=True)
+        laps("9 wf-agree witness")
+        write_out(args.out, {"device": info, "workflow_agree": witness})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"workflow_agree": witness}, default=str))
+        return 0
     if args.families_only:
         fam = phase_families_all(device, args.families_rows)
         laps("9i-9j families")
@@ -3666,6 +4271,13 @@ def main(argv=None) -> int:
         log(info["smi"])
         print(json.dumps({"k1": k1}))
         return 0
+    return _whole_smoke(args, device, info, laps, t_start, X, y, k1)
+
+
+def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
+                 X: np.ndarray, y: np.ndarray, k1: dict) -> int:
+    """The whole smoke after phase 3: the timed paths one at a time, then
+    the card-against-CPU phases in an ``AgreeWorker``."""
     main_run = phase_main(device, X, y)
     laps("4 main")
     selected = main_run.pop("selected")
@@ -3693,8 +4305,6 @@ def main(argv=None) -> int:
     lbfgs, svc = phase_lbfgs(device, X, y)
     phase_serve(svc, X[-1000:], tag="serve-svc")
     laps("5 linear")
-    agree = phase_card_vs_cpu(device, CARD_VS_CPU_ROWS, COLS)
-    laps("6 agree")
     # the second main path: the Titanic workflow, its matrix born on the
     # card; K1's counts are zeroed inside, just before its train
     wf_run = phase_workflow(device, args.workflow_rows, profile=False)
@@ -3704,21 +4314,24 @@ def main(argv=None) -> int:
     # record by record, then through the compiled plan and the server
     serve_saved, serve_compiled = phase_serving(wf_run)
     laps("8b-8c serving")
-    wf_agree = phase_workflow_agree(device)
-    laps("9 wf-agree")
     # the feature-validation paths: the validated DAG raced at phase 8's
     # size (its exact search is phase 8's), workflow CV, card against CPU
     checks = phase_validation(device, args.workflow_rows, args.cv_rows,
-                              exact=exact_of(wf_run))
-    laps("9b-9d validation")
+                              exact=exact_of(wf_run), agree=False)
+    laps("9b-9c validation")
     # the multiclass and regression paths: Iris and Boston, each counted
     # from zero just before its train
-    problems = phase_problems(device)
-    laps("9e-9h problems")
+    problems = phase_problems(device, agree=False)
+    laps("9e-9g problems")
     # every transmogrify feature family: its workflow, counted from zero
     # just before its train, K1 at its shapes, save, serve, card vs CPU
-    fam = phase_families_all(device, args.families_rows)
-    laps("9i-9j families")
+    fam = phase_families_all(device, args.families_rows, agree=False)
+    laps("9i families")
+    # the text workflow: Word2Vec and LDA fitted on the card, its search
+    # counted from zero just before its train, K1 on the text matrix,
+    # save, serve under a default ServeConfig(), card against CPU
+    txt = phase_text_all(device, args.text_rows, agree=False)
+    laps("9k text")
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -3735,11 +4348,27 @@ def main(argv=None) -> int:
         search_slice(device, X_s, y_s))
     clear_design_cache()
     laps("10 profiles")
+    # the card-against-CPU phases, after the last timed phase
+    torch.cuda.empty_cache()
+    worker = AgreeWorker(device)
+    try:
+        agree = worker.result("phase_card_vs_cpu")
+        wf_agree = worker.result("phase_workflow_agree")
+        checks["validate_agree"] = worker.result("phase_validate_agree")
+        problems["agree"] = {
+            **worker.result("phase_problems_agree:iris"),
+            **worker.result("phase_problems_agree:boston"),
+            **worker.result(f"phase_problems_agree:k{WIDE_K}")}
+        fam["agree"] = worker.result("phase_families_agree")
+        txt["agree"] = worker.result("phase_text_agree")
+    finally:
+        worker.close()
+    laps("6, 9, 9d, 9h, 9j, 9l agree")
     validate, wf_cv = checks["validate"], checks["workflow_cv"]
     fam_run = fam["families"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
         validate["rung_k1_case"]] + problems["k1"]["cases"] + \
-        fam_run["k1"]["cases"]
+        fam_run["k1"]["cases"] + txt["text"]["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -3777,6 +4406,13 @@ def main(argv=None) -> int:
          for name, rec in fam_run["families"].items()},
         DecisionTreeNumericBucketizer=fam_run["bucketizer"]["k1_launches"])
     entry["launches_families_serve"] = fam_run["serve"]["k1_launches"]
+    txt_run = txt["text"]
+    entry["launches_text"] = txt_run["k1_launches"]
+    entry["launches_text_by_c"] = txt_run["k1_launches_by_c"]
+    entry["launches_text_by_family"] = {
+        name: rec["k1_launches"]
+        for name, rec in txt_run["families"].items()}
+    entry["launches_text_serve"] = txt_run["serve"]["k1_launches"]
     for tag in ("iris", "boston"):
         run = problems[tag]
         entry[f"launches_{tag}"] = run["k1_launches"]
@@ -3791,7 +4427,7 @@ def main(argv=None) -> int:
                          "serve_compiled": serve_compiled,
                          "workflow_agree": wf_agree, **checks,
                          "problems": problems, "families": fam,
-                         "profile": prof,
+                         "text": txt, "profile": prof,
                          "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})
     laps.log()

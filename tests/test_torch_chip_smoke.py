@@ -5,9 +5,13 @@ inputs (random and a real level's slots), the workflow's save-and-serve
 and compiled-serving phases, the feature-validation phases
 ([validate], [workflow-cv], [validate-agree]) and the multiclass and
 regression phases ([k1-problems]' inputs, [iris], [boston],
-[problems-agree]) at a tiny size on an explicit CPU device, the serving,
-validation and problem phases' wiring into the runs (``--problems-only``
-among them), and the script's refusal to run without a card."""
+[problems-agree]), the family phases and the text phases ([text] with its
+default ``ServeConfig()`` server, [k1-text]'s inputs, [text-agree]) at a
+tiny size on an explicit CPU device, the drift sentinel's checks in the
+serving phases, the phases' wiring into the runs (``--problems-only``,
+``--families-only``, ``--text-only`` and ``--workflow-only
+--agree-witness-rows`` among them), and the script's refusal to run
+without a card."""
 import os
 import subprocess
 import sys
@@ -281,11 +285,31 @@ def test_serve_compiled_phase(workflow_out):
     assert server["batches"] == server["full_dispatches"] \
         + server["deadline_dispatches"]
     assert server["ms_p99"] >= server["ms_p50"] > 0
+    # the default config's drift sentinel watched the requests; the same
+    # drive ran without it
+    assert server["drift"]["rowsSeen"] == 64 + 64     # warm-up and drive
+    assert out["drift_holdout"]["rowsSeen"] == 300
+    assert out["drift_shifted"]["status"] in ("warn", "degrade")
+    assert out["server_no_sentinel"]["requests"] == 64
+    assert out["server_no_sentinel"]["ms_p50"] > 0
+    ab = out["sentinel_ab"]
+    assert ab["without"][0] is out["server_no_sentinel"]
+    assert [len(ab["with"]), len(ab["without"])] == [2, 2]
+    assert all(d["requests"] == 64 and d["requests_per_s"] > 0
+               for d in ab["with"] + ab["without"])
     assert [t["stage"] for t in out["trees"]] == [
         "GBTClassifier", "RandomForestClassifier"]
     assert all(t["max_abs_diff_vs_columnar"] <= 1e-12
                and t["prediction_flips"] == 0 for t in out["trees"])
     assert out["k1_launches"] == 0
+
+
+def _main_source() -> str:
+    """The source of the run's entry point and of the whole smoke's body
+    after phase 3."""
+    import inspect
+    return (inspect.getsource(chip_smoke.main)
+            + inspect.getsource(chip_smoke._whole_smoke))
 
 
 def test_serve_compiled_is_wired_in(monkeypatch, capsys):
@@ -294,7 +318,7 @@ def test_serve_compiled_is_wired_in(monkeypatch, capsys):
     phase stubbed and the card faked."""
     import inspect
     import json
-    assert inspect.getsource(chip_smoke.main).count("phase_serving(") == 2
+    assert _main_source().count("phase_serving(") == 2
     calls = []
     monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(chip_smoke, "resolve_device",
@@ -326,8 +350,7 @@ def test_serve_compiled_is_wired_in(monkeypatch, capsys):
                      ("validation", 100_000, 25_000, "phase 8")]
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["serve_compiled"] == {"k1_launches": 0}
-    assert inspect.getsource(chip_smoke.main).count(
-        "phase_validation(") == 3
+    assert _main_source().count("phase_validation(") == 3
 
 
 def _tiny_pool():
@@ -524,6 +547,9 @@ def test_problems_agree_phase(monkeypatch):
     for tag in ("iris", "boston", f"k{chip_smoke.WIDE_K}"):
         assert out[tag]["max_diff"] == 0.0 and out[tag]["same_winner"]
     assert out["boston"]["relative"] and not out["iris"]["relative"]
+    wide = f"k{chip_smoke.WIDE_K}"
+    assert list(chip_smoke.phase_problems_agree(
+        "cpu", rows=240, parts=(wide,))) == [wide]
 
 
 def test_problem_k1_inputs():
@@ -567,8 +593,8 @@ def test_problems_are_wired_in(monkeypatch, capsys):
     the Iris and Boston launches on K1's line."""
     import inspect
     import json
-    src = inspect.getsource(chip_smoke.main)
-    assert src.count("phase_problems(device)") == 2
+    src = _main_source()
+    assert src.count("phase_problems(device") == 2
     assert "launches_{tag}" in src
     calls = []
     monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
@@ -633,6 +659,7 @@ def test_families_phase(families_out):
     assert serve["max_abs_diff_served"] <= 1e-6
     assert serve["host_fallback_batches"] == 0 == serve["k1_launches"]
     assert serve["served"] == 150 == serve["holdout"]
+    assert serve["fingerprints"] and serve["drift"]["rowsSeen"] == 150
     lowered = {label.split("(")[0]
                for label in serve["plan_coverage"]["lowered"]}
     assert set(chip_smoke.FAMILY_DEVICE_STAGES) <= lowered
@@ -695,8 +722,8 @@ def test_families_are_wired_in(monkeypatch, capsys):
     cases to K1's line and lists the family path's launches there."""
     import inspect
     import json
-    src = inspect.getsource(chip_smoke.main)
-    assert src.count("phase_families_all(device, args.families_rows)") == 2
+    src = _main_source()
+    assert src.count("phase_families_all(device, args.families_rows") == 2
     assert 'fam_run["k1"]["cases"]' in src
     assert "launches_families_by_family" in src
     calls = []
@@ -740,6 +767,22 @@ def test_family_tolerances():
     for name, params in (("GBTClassifier", {"min_child_weight": 10.0}),
                          ("RandomForestClassifier", {"max_depth": 3})):
         assert tol(R(model_name=name, params=params)) == chip_smoke.AGREE_TOL
+
+
+@pytest.mark.parametrize("name,reg,expect", [
+    ("LogisticRegression", 0.001, "TEXT_LINEAR_TOL"),
+    ("LogisticRegression", 0.01, "AGREE_TOL"),
+    ("LogisticRegression", 0.2, "AGREE_TOL"),
+    ("LinearSVC", 0.001, "AGREE_TOL"),
+    ("LinearSVC", 0.2, "AGREE_TOL")])
+def test_text_linear_tolerances(name, reg, expect):
+    """[text-agree]'s linear limits: TEXT_LINEAR_TOL only at the
+    LogisticRegression points of reg_param below FAMILY_LINEAR_REG,
+    AGREE_TOL at every other LR point and every LinearSVC point."""
+    from types import SimpleNamespace as R
+    got = chip_smoke._text_linear_tol(R(model_name=name,
+                                        params={"reg_param": reg}))
+    assert got == getattr(chip_smoke, expect)
 
 
 def test_linear_dtype():
@@ -803,3 +846,191 @@ def test_k1_by_fit(monkeypatch):
         "DecisionTreeNumericBucketizer": {1: 1, 2: 1},
         "ModelSelector": {1: 3, 256: 4}}
     assert len(listener.metrics.stage_metrics) == 4
+
+
+@pytest.fixture(scope="module")
+def text_out():
+    """[text] on the CPU at a tiny size (800 records, the card-against-CPU
+    pool at one tree and two rounds), without K1's card-only cases, its
+    default server answering 200 requests."""
+    return chip_smoke.phase_text(
+        "cpu", 800, models=chip_smoke.small_models("cpu", num_rounds=2,
+                                                   num_trees=1),
+        k1=False, server_records=200)
+
+
+def test_text_phase(text_out):
+    """Every family timed; Word2Vec and LDA fitted on the workflow's
+    device (the CPU here) with their seconds; the holdout's log loss and
+    Brier score; save with the drift fingerprints, reload, the compiled
+    plan bitwise the columnar path, records served within 1e-6, a default
+    ``ServeConfig()`` server within 1e-6 of the guarded plan with its
+    sentinel watching every request; no fallback, no K1 launch."""
+    out = text_out
+    assert list(out["families"]) == list(chip_smoke.FAMILIES)
+    assert out["matrix_shape"][0] == 600 and out["matrix_shape"][1] > 1500
+    assert out["word2vec_fit_s"] > 0 and out["lda_fit_s"] > 0
+    assert out["lda_device"] == "cpu"
+    assert 0 < out["holdout_LogLoss"] and 0 < out["holdout_BrierScore"] < 1
+    seconds = out["stage_seconds"]
+    for name in ("Word2Vec", "LDA", "TfIdfVectorizer", "StringIndexer"):
+        assert "fit" in seconds[name], name
+    for name in ("LDAModel", "Word2VecModel", "TfIdfVectorizerModel",
+                 "NameEntityRecognizer", "LangDetector", "NGramSimilarity",
+                 "PhoneNumberParser"):
+        assert "host" in seconds[name], name
+    assert out["k1_launches"] == 0 and "k1" not in out
+    serve = out["serve"]
+    assert serve["fingerprints"] and serve["drift"]["rowsSeen"] == 200
+    assert serve["max_abs_diff_compiled"] == 0.0
+    assert serve["max_abs_diff_served"] <= 1e-6
+    assert serve["host_fallback_batches"] == 0 == serve["k1_launches"]
+    server = serve["server"]
+    assert server["requests"] == 200 and server["max_abs_diff"] <= 1e-6
+    assert server["drift"]["rowsSeen"] == 200
+
+
+def test_text_agree_phase():
+    """[text-agree] with the CPU on both sides: every host stage bitwise,
+    Word2Vec and LDA exactly equal; its linear check on a second text
+    design: the workflow's metric matrix equal to the float64 search on
+    its train matrix, within every grid point's tolerance, the float64
+    witness on the device (the CPU) exact, the CPU's float32 run reported
+    for the 12 linear grid points."""
+    out = chip_smoke.phase_text_agree("cpu", 400, linear_rows=500)
+    assert out["host_stages_bitwise"]
+    assert out["w2v_vocabulary_equal"] and out["lda_vocabulary_equal"]
+    for key in ("w2v_vectors_max_abs_diff", "w2v_means_max_abs_diff",
+                "lda_topic_word_max_abs_diff", "lda_mixtures_max_abs_diff"):
+        assert out[key] == 0.0, key
+    linear = out["linear"]
+    assert linear["records"] == 500 and 360 <= linear["shape"][0] <= 390
+    assert linear["card_float32"] == [0.0] * 12 and linear["within"]
+    assert linear["tol"] == [chip_smoke.TEXT_LINEAR_TOL] * 2 + [
+        chip_smoke.AGREE_TOL] * 10
+    witness = linear["linear_precision_witness"]
+    assert witness["device_float64"] == [0.0] * 12
+    assert len(witness["cpu_float32"]) == 12
+
+
+def test_text_k1_inputs():
+    """[k1-text]'s shapes: the text matrix's forest statistics (integer,
+    exact) and the GBT's [g, h]."""
+    rng = np.random.default_rng(1)
+    X = np.concatenate([rng.normal(size=(300, 3)),
+                        (rng.uniform(size=(300, 5)) < 0.2)], axis=1)
+    y = (rng.uniform(size=300) < 0.4).astype(np.float64)
+    seen = []
+    for label, design, st, slots, exact in chip_smoke.matrix_k1_inputs(
+            "cpu", X, y, "text matrix"):
+        seen.append((label, design.d, st.shape[1], slots, exact))
+        if exact:
+            assert torch.equal(st, st.round())
+    assert seen == [("text matrix forest", 8, 2, (1, 32, 256), True),
+                    ("text matrix GBT [g,h]", 8, 2, (256,), False)]
+
+
+def test_workflow_agree_witness():
+    """``phase_workflow_agree(witness=True)``, the CPU on both sides:
+    the linear families' float64 witness on the device agrees exactly and
+    the metric gap is reported."""
+    got = chip_smoke.phase_workflow_agree("cpu", 900, num_rounds=2,
+                                          num_trees=2, witness=True)
+    assert got["records"] == 900
+    assert got["linear_precision_witness"]["device_float64"] == [0.0] * 12
+    assert got["metric_max_abs_diff"] == 0.0
+
+
+def _fake_card(monkeypatch):
+    monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "phase_device", lambda: {
+        "kind": "fake", "count": 1, "smi": "fake, 1 W"})
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+
+
+def test_text_is_wired_in(monkeypatch, capsys):
+    """``--text-only`` runs phases 1, 2 and the text phases and prints
+    their JSON last; the whole smoke runs them too, adds their K1 cases to
+    K1's line and lists the text path's launches there;
+    ``--workflow-only --agree-witness-rows N`` runs the witness alone."""
+    import inspect
+    import json
+    src = _main_source()
+    assert src.count("phase_text_all(device, args.text_rows") == 2
+    assert 'txt["text"]["k1"]["cases"]' in src
+    assert "launches_text_by_family" in src
+    calls = []
+    _fake_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "phase_text",
+                        lambda dev, rows: calls.append(("text", rows))
+                        or {"phase": "text"})
+    monkeypatch.setattr(chip_smoke, "phase_text_agree",
+                        lambda dev: calls.append(("agree",))
+                        or {"phase": "agree"})
+    monkeypatch.setattr(chip_smoke, "phase_workflow_agree",
+                        lambda dev, rows, witness=False: calls.append(
+                            ("witness", rows, witness)) or {"rows": rows})
+    assert chip_smoke.main(["--text-only", "--text-rows", "1234"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["text"] == {"text": {"phase": "text"},
+                            "agree": {"phase": "agree"}}
+    assert chip_smoke.main(["--workflow-only",
+                            "--agree-witness-rows", "3000"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last == {"workflow_agree": {"rows": 3000}}
+    assert calls == [("text", 1234), ("agree",), ("witness", 3000, True)]
+
+
+def test_agree_worker(monkeypatch):
+    """The whole smoke's card-against-CPU phases run in spawned worker
+    processes: each result comes back, a failing phase raises in the
+    caller, and the workers stop at ``close``; the whole smoke starts them
+    only after its last timed phase (phase 10) and collects every one of
+    AGREE_PHASES, and the composites skip theirs there."""
+    phases = chip_smoke.AGREE_PHASES
+    monkeypatch.setattr(chip_smoke, "AGREE_PHASES",
+                        ("resolve_device", "make_data"))
+    worker = chip_smoke.AgreeWorker("cpu", workers=2)
+    try:
+        assert worker.result("resolve_device") == torch.device("cpu")
+        with pytest.raises(TypeError):
+            worker.result("make_data")
+    finally:
+        worker.close()
+    assert not worker.pool._pool or not any(
+        p.is_alive() for p in worker.pool._pool)
+    src = _main_source()
+    assert src.count("AgreeWorker(") == 1
+    start = src.index("AgreeWorker(")
+    assert src.index('laps("10 profiles")') < start
+    for timed in ("phase_main(", "phase_serving(wf_run)", "phase_text_all(",
+                  "phase_families_all(", "phase_profile("):
+        assert src.rindex(timed) < start, timed
+    for name in phases:
+        name = name.replace(f":k{chip_smoke.WIDE_K}", ":k{WIDE_K}")
+        assert src.index(f'"{name}")') > start, name
+    assert src.count("agree=False") == 4
+
+
+def test_agree_phase_arguments(monkeypatch):
+    """The worker calls phase 6 at its rows and columns, [problems-agree]
+    one search at a time, the others on the device alone."""
+    seen = []
+    monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu",
+                        lambda *a: seen.append(a) or "six")
+    monkeypatch.setattr(chip_smoke, "phase_text_agree",
+                        lambda *a: seen.append(a) or "text")
+    monkeypatch.setattr(chip_smoke, "phase_problems_agree",
+                        lambda *a, **kw: seen.append((a, kw)) or "part")
+    assert chip_smoke._agree_phase("phase_card_vs_cpu", "dev") == "six"
+    assert chip_smoke._agree_phase("phase_text_agree", "dev") == "text"
+    assert chip_smoke._agree_phase("phase_problems_agree:iris",
+                                   "dev") == "part"
+    assert seen == [("dev", chip_smoke.CARD_VS_CPU_ROWS, chip_smoke.COLS),
+                    ("dev",), (("dev",), {"parts": ("iris",)})]
+    parts = [n.partition(":")[2] for n in chip_smoke.AGREE_PHASES
+             if n.startswith("phase_problems_agree")]
+    assert sorted(parts) == sorted(
+        ["iris", "boston", f"k{chip_smoke.WIDE_K}"])

@@ -88,8 +88,8 @@ def _no_card(monkeypatch):
     lambda: load_score_function("model"),
     lambda: ScoringPlan(WorkflowModel((_feature(Real, "x"),))),
     lambda: PlanCache(),
-    lambda: ServingServer(ServeConfig(sentinel=False)),
-    lambda: serve_in_process({}, ServeConfig(sentinel=False)),
+    lambda: ServingServer(ServeConfig()),
+    lambda: serve_in_process({}, ServeConfig()),
 ])
 def test_default_device_needs_a_card(entry, monkeypatch):
     _no_card(monkeypatch)
@@ -149,7 +149,6 @@ def _load_filtered_model():
 
 #: (entry point, the JAX module its error must name)
 UNPORTED = [
-    (lambda: _feature(PickList, "x").lda(), "ops/text_advanced.py"),
     (lambda: ScoringPlan(_cpu_model(), lattice=[8, 24]),
      "tuning/lattice.py"),
     (lambda: Workflow(device="cpu").set_reader(None),
@@ -158,18 +157,13 @@ UNPORTED = [
      "runtime/journal.py"),
     (lambda: Workflow(device="cpu").train(validate="warn"), "lint/"),
     (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
-    (lambda: ScoreFunction(_cpu_model(), guardrails=True).score_batch(
-        [{"x": 1.0}]), "serving/sentinel.py"),
-    (lambda: _cpu_server(), "serving/sentinel.py"),
-    (lambda: ScoringPlan(_cpu_model()).with_guardrails(),
-     "serving/sentinel.py"),
-    (lambda: _cpu_server(sentinel=False, admission_control=object()),
+    (lambda: _cpu_server(admission_control=object()),
      "serving/admission.py"),
-    (lambda: _cpu_server(sentinel=False, lifecycle=object()),
+    (lambda: _cpu_server(lifecycle=object()),
      "serving/lifecycle.py"),
-    (lambda: _cpu_server(sentinel=False).register_refit("m"),
+    (lambda: _cpu_server().register_refit("m"),
      "serving/lifecycle.py"),
-    (lambda: _cpu_server(sentinel=False, coalesce_policy="predicted_cost"),
+    (lambda: _cpu_server(coalesce_policy="predicted_cost"),
      "tuning/policy.py"),
     (lambda: ScoringPlan(_cpu_model()).attach_artifacts({}),
      "artifacts/"),
@@ -178,14 +172,14 @@ UNPORTED = [
     (lambda: serving.ReplicaManager, "serving/fleet.py"),
     (lambda: serving.FleetRouter, "serving/router.py"),
     (lambda: serving.AdmissionController, "serving/admission.py"),
-    (lambda: serving.DriftSentinel, "serving/sentinel.py"),
     (lambda: serving.ModelLifecycle, "serving/lifecycle.py"),
 ]
 
 
 #: the numbers the PORTED entries take in the test ids, which UNPORTED and
 #: PORTED number in one sequence
-_PORTED_AT = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 17, 19)
+_PORTED_AT = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 17, 18, 19, 20, 21,
+              32)
 _UNPORTED_IDS = [m + f"-{i}" for i, (_, m) in zip(
     (i for i in range(len(UNPORTED) + len(_PORTED_AT))
      if i not in _PORTED_AT), UNPORTED)]
@@ -218,14 +212,21 @@ PORTED = [
                                                 device="cpu"),
      "ops/bucketizers.py"),
     (lambda: _feature(PickList, "x").tokenize(), "ops/text.py"),
+    (lambda: _feature(TextList, "x").lda(), "ops/text_advanced.py"),
     (lambda: Workflow(device="cpu").with_workflow_cv(),
      "workflow/workflow.py"),
     (lambda: Workflow(device="cpu").with_raw_feature_filter(
         RawFeatureFilter()), "checkers/raw_feature_filter.py"),
     (lambda: BinaryClassificationModelSelector.with_cross_validation(
         validation="racing", device="cpu").validator, "selector/racing.py"),
+    (lambda: ScoreFunction(_cpu_model(), guardrails=True).score_batch(
+        [{"x": 1.0}]), "serving/sentinel.py"),
     (lambda: _load_filtered_model().raw_feature_filter_results,
      "checkers/raw_feature_filter.py"),
+    (lambda: _cpu_server(), "serving/sentinel.py"),
+    (lambda: ScoringPlan(_cpu_model()).with_guardrails(),
+     "serving/sentinel.py"),
+    (lambda: serving.DriftSentinel, "serving/sentinel.py"),
     (lambda: BinaryClassificationModelSelector.with_train_validation_split(
         device="cpu").validator, "selector/validator.py"),
 ]
@@ -238,11 +239,13 @@ PORTED = [
 def test_ported_options_run(entry, module):
     """The feature families, the feature-validation and the selection
     options run where they raised by name: ``transmogrify`` of a date,
-    date list, geolocation, text list or map feature and both bucketizers
-    give a predictor vector from the ported stage, ``tokenize`` a text
-    list; the checker's output is a predictor, the racing and split
+    date list, geolocation, text list or map feature, both bucketizers and
+    ``lda`` give a predictor vector from the ported stage, ``tokenize`` a
+    text list; the checker's output is a predictor, the racing and split
     validators are the ported classes, a save with raw feature filter
-    results loads them."""
+    results loads them; the default guardrails (with the drift sentinel)
+    serve a batch, a default ``ServeConfig()`` server and guarded plan
+    stand up, and ``serving.DriftSentinel`` is the ported class."""
     from transmogrifai_tpu_torch.checkers import RawFeatureFilterResults
     from transmogrifai_tpu_torch.selector import (RacingCrossValidation,
                                                   TrainValidationSplit)
@@ -252,6 +255,7 @@ def test_ported_options_run(entry, module):
     expect = {"checkers/sanity_checker.py": lambda o: not o.is_response,
               "ops/date.py": vector, "ops/geo.py": vector,
               "ops/maps.py": vector, "ops/bucketizers.py": vector,
+              "ops/text_advanced.py": vector,
               "ops/text.py": lambda o: not o.is_response and (
                   issubclass(o.ftype, OPVector)
                   or issubclass(o.ftype, TextList)),
@@ -260,8 +264,19 @@ def test_ported_options_run(entry, module):
                   lambda o: isinstance(o, RacingCrossValidation),
               "selector/validator.py":
                   lambda o: isinstance(o, TrainValidationSplit)}
+    from transmogrifai_tpu_torch.serving.sentinel import DriftSentinel
     if module == "checkers/raw_feature_filter.py":
         assert isinstance(out, (Workflow, RawFeatureFilterResults))
+    elif module == "serving/sentinel.py":
+        if isinstance(out, list):
+            (pred,) = (v for k, v in out[0].items() if k != "label")
+            assert pred["prediction"] in (0.0, 1.0)
+        elif isinstance(out, ServingServer):
+            assert out.config.sentinel and out.config.guardrails
+        elif isinstance(out, ScoringPlan):
+            assert out.guard is not None
+        else:
+            assert out is DriftSentinel
     else:
         assert expect[module](out)
 
@@ -287,7 +302,11 @@ def test_sources_import_no_jax():
             "selector/racing.py", "selector/validator.py", "ops/date.py",
             "ops/geo.py", "ops/maps.py", "ops/bucketizers.py",
             "testkit/random_data.py", "testkit/spec.py",
-            "examples/families.py"} <= names
+            "examples/families.py", "serving/sentinel.py",
+            "evaluators/logloss.py", "selector/random_params.py",
+            "utils/text_lang.py", "utils/text_ner.py", "ops/ner.py",
+            "ops/derived.py", "ops/index.py", "ops/text_advanced.py",
+            "examples/text.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

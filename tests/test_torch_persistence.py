@@ -277,9 +277,10 @@ def test_score_function_serves_records(saved):
 
 
 def test_score_function_unported_parts_raise(saved):
-    """The compiled batch engine (the default) and the guardrails are
-    ported and serve the records' rows; the drift sentinel that
-    ``guardrails=True`` turns on by default is not, and raises by name."""
+    """The compiled batch engine (the default) and the guardrails, with
+    the drift sentinel that ``guardrails=True`` turns on by default (off
+    here: the model has no training data), serve the records' rows; an
+    unknown engine raises."""
     model, _ = saved
     score = score_function_for(model)
     name = model.result_features[0].name
@@ -289,10 +290,15 @@ def test_score_function_unported_parts_raise(saved):
         assert got[name] == pytest.approx(want[name], abs=1e-12)
     with pytest.raises(ValueError, match="engine must be"):
         score.score_batch(RECORDS, engine="fast")
-    with pytest.raises(NotImplementedError, match="serving/sentinel.py"):
-        ScoreFunction(model, guardrails=True).score_batch(RECORDS)
-    guarded = ScoreFunction(model, guardrails={"sentinel": False})
+    guarded = ScoreFunction(model, guardrails=True)
     assert guarded.score_batch(RECORDS) == rows
+    # a model fitted by hand has no training data to fingerprint: the
+    # default sentinel is unavailable, and the plan serves without it
+    assert not os.path.exists(os.path.join(
+        model.model_dir, "drift-fingerprints.json"))
+    assert guarded._compiled_plan.drift_report() == {"enabled": False}
+    unwatched = ScoreFunction(model, guardrails={"sentinel": False})
+    assert unwatched.score_batch(RECORDS) == rows
 
 
 def _tree_arrays(rng, trees, depth, leaf_shape):

@@ -127,10 +127,9 @@ CASES = [
 def test_admission_matches_jax(trained, records, policy):
     ref, got, ref_name, name = trained
     a = JaxPlan(ref).compile().with_guardrails(
-        admission=JaxPolicy(**policy), sentinel=False).score_guarded(records)
+        admission=JaxPolicy(**policy)).score_guarded(records)
     b = ScoringPlan(got).compile().with_guardrails(
-        admission=AdmissionPolicy(**policy),
-        sentinel=False).score_guarded(records)
+        admission=AdmissionPolicy(**policy)).score_guarded(records)
     assert [(r.row, r.code, r.feature) for r in b.quarantined] == \
         [(r.row, r.code, r.feature) for r in a.quarantined]
     assert b.quarantined_rows == a.quarantined_rows
@@ -147,7 +146,7 @@ def test_clean_guarded_batch_equals_unguarded(trained):
     bytes, and malformed rows cost no new program."""
     _, got, _, name = trained
     plain = ScoringPlan(got).compile().score(RECS[:33])[name]
-    plan = ScoringPlan(got).compile().with_guardrails(sentinel=False)
+    plan = ScoringPlan(got).compile().with_guardrails()
     res = plan.score_guarded(RECS[:33])
     assert res.quarantined == [] and res.invalidated == []
     np.testing.assert_array_equal(res.scored[name].probability,
@@ -163,7 +162,7 @@ def test_columnar_admission_and_score_function(trained):
     """Dataset input is admitted column-wise; ``ScoreFunction`` with
     guardrails attaches the reasons to the row."""
     _, got, _, name = trained
-    plan = ScoringPlan(got).compile().with_guardrails(sentinel=False)
+    plan = ScoringPlan(got).compile().with_guardrails()
     ds = Dataset({
         "x": FeatureColumn.from_values(Real, [0.1, float("inf")]),
         "z": FeatureColumn.from_values(RealNN, [1.0, 2.0]),
@@ -172,7 +171,7 @@ def test_columnar_admission_and_score_function(trained):
     res = plan.score_guarded(ds)
     assert [(r.row, r.code, r.feature) for r in res.quarantined] == \
         [(1, "non_finite", "x")]
-    fn = ScoreFunction(got, guardrails={"sentinel": False})
+    fn = ScoreFunction(got, guardrails=True)
     rows = fn.score_batch([RECS[0], {**RECS[1], "x": "junk"}])
     assert "_guard" not in rows[0] and rows[1][name] is None
     assert rows[1]["_guard"][0]["code"] == "wrong_type"
@@ -248,8 +247,7 @@ def test_trip_fallback_and_recovery(trained, monkeypatch):
     clock = {"t": 0.0}
     breaker = CircuitBreaker(failure_threshold=2, cooldown_seconds=30.0,
                              clock=lambda: clock["t"])
-    plan = ScoringPlan(got).compile().with_guardrails(breaker=breaker,
-                                                      sentinel=False)
+    plan = ScoringPlan(got).compile().with_guardrails(breaker=breaker)
     batch = RECS[:7]
     expected = got.score(batch)[name].probability
     real = plan._run_bucket
@@ -278,7 +276,7 @@ def test_trip_fallback_and_recovery(trained, monkeypatch):
 def test_bug_errors_propagate(trained, monkeypatch):
     """A code defect is not absorbed into the host fallback."""
     _, got, _, _ = trained
-    plan = ScoringPlan(got).compile().with_guardrails(sentinel=False)
+    plan = ScoringPlan(got).compile().with_guardrails()
 
     def boom(*args):
         raise KeyError("genuine bug")
@@ -296,7 +294,7 @@ def test_device_program_faults_propagate(trained, monkeypatch, exc):
     """A kernel failing at capture, or a sticky CUDA error, propagates out
     of the guarded path: no host fallback, no breaker step."""
     _, got, _, _ = trained
-    plan = ScoringPlan(got).compile().with_guardrails(sentinel=False)
+    plan = ScoringPlan(got).compile().with_guardrails()
 
     def fail(*args):
         raise exc
@@ -316,7 +314,7 @@ def test_deadline_orphans_a_hung_dispatch(trained, monkeypatch):
     monkeypatch.setenv("TX_RETRY_MAX_ATTEMPTS", "1")
     _, got, _, name = trained
     plan = ScoringPlan(got).compile().with_guardrails(
-        deadline_seconds=0.1, sentinel=False)
+        deadline_seconds=0.1)
     release = threading.Event()
 
     def hang(*args):

@@ -83,7 +83,6 @@ def trained():
 
 
 def _serve(model, **config):
-    config.setdefault("sentinel", False)
     return serve_in_process({"m": model}, ServeConfig(**config),
                             device="cpu")
 
@@ -105,7 +104,7 @@ def test_concurrent_requests_bitwise_and_jax_parity(trained, monkeypatch):
     no program is added after warm-up; the requests coalesced."""
     model, name = trained
     batch = [dict(r) for r in RECS[:64]]
-    offline = (ScoringPlan(model).compile().with_guardrails(sentinel=False)
+    offline = (ScoringPlan(model).compile().with_guardrails()
                .score_guarded(batch).scored[name])
     server, client = _serve(model, max_wait_ms=10.0)
     try:
@@ -137,7 +136,7 @@ def test_concurrent_requests_bitwise_and_jax_parity(trained, monkeypatch):
     ref = (JaxWorkflow().set_result_features(ref_pred)
            .set_input_records(RECS).train(validate="off"))
     jax_server, jax_client = jax_serve(
-        {"m": ref}, JaxConfig(max_wait_ms=10.0, sentinel=False))
+        {"m": ref}, JaxConfig(max_wait_ms=10.0))
     try:
         ref_rows = jax_client.score_many(batch)
         ref_snapshot = jax_server.metrics_snapshot()
@@ -309,8 +308,8 @@ def test_plan_cache_lru_eviction(trained):
     """Two models under a budget of one: each switch evicts the other
     (counted) and recompiles it on next use; both keep answering."""
     model, name = trained
-    server = ServingServer(ServeConfig(sentinel=False, plan_budget=1,
-                                       max_wait_ms=1.0), device="cpu")
+    server = ServingServer(ServeConfig(plan_budget=1, max_wait_ms=1.0),
+                           device="cpu")
     server.add_model("a", model).add_model("b", model)
     client = server.start_background()
     try:
@@ -329,8 +328,8 @@ def test_target_from_profile_and_prewarm(trained):
     whose recorded dispatch cost fits the wait budget; ``prewarm`` runs
     the named buckets before traffic (none by default)."""
     model, _ = trained
-    server = ServingServer(ServeConfig(sentinel=False, max_batch=32,
-                                       max_wait_ms=1000.0), device="cpu")
+    server = ServingServer(ServeConfig(max_batch=32, max_wait_ms=1000.0),
+                           device="cpu")
     server.add_model("m", model)
     assert server.prewarm() == {}
     warmed = server.prewarm(buckets=[8, 16, 32, 64])
@@ -362,17 +361,27 @@ def test_drain_refuses_new_requests(trained):
 
 
 def test_sentinel_default_raises_by_name(trained):
-    """``ServeConfig()`` keeps the JAX package's ``sentinel=True``; the
-    drift sentinel is not ported, so the default config raises naming
-    it, and ``guardrails=False`` (no sentinel) serves."""
+    """``ServeConfig()`` keeps the JAX package's ``sentinel=True`` and
+    serves: each tenant's drift sentinel observes the answered rows and
+    reports in the metrics snapshot; ``guardrails=False`` serves with no
+    sentinel."""
     model, name = trained
-    with pytest.raises(NotImplementedError,
-                       match="transmogrifai_tpu/serving/sentinel.py"):
-        serve_in_process({"m": model}, ServeConfig(), device="cpu")
+    server, client = serve_in_process({"m": model}, ServeConfig(),
+                                      device="cpu")
+    try:
+        rows = client.score_many([dict(r) for r in RECS[:60]])
+        lanes = server.metrics_snapshot()["sentinels"]
+    finally:
+        server.stop()
+    assert all(r[name]["prediction"] in (0.0, 1.0) for r in rows)
+    (lane,) = lanes.values()
+    assert lane["rowsSeen"] == 60 and set(lane["features"]) == {
+        "x", "z", "cat"}
     server, client = serve_in_process(
         {"m": model}, ServeConfig(guardrails=False), device="cpu")
     try:
         row = client.score(dict(RECS[0]))
+        assert server.metrics_snapshot()["sentinels"] == {}
     finally:
         server.stop()
     assert row[name]["prediction"] in (0.0, 1.0) and "_guard" not in row

@@ -18,8 +18,8 @@ import numpy as np
 
 from ..features.columns import Dataset, PredictionColumn
 
-__all__ = ["EvaluationMetrics", "Evaluator", "RawMetrics",
-           "metrics_from_json"]
+__all__ = ["EvaluationMetrics", "Evaluator", "RawMetrics", "SingleMetric",
+           "MultiMetrics", "metrics_from_json"]
 
 
 @dataclass
@@ -41,6 +41,9 @@ class EvaluationMetrics:
             return v
         return {f.name: conv(getattr(self, f.name))
                 for f in dataclasses.fields(self)}
+
+    def to_map(self) -> Dict[str, Any]:
+        return self.to_json()
 
 
 def metrics_from_json(class_name: str, d: Dict[str, Any]
@@ -101,6 +104,19 @@ class RawMetrics(EvaluationMetrics):
 
     def to_json(self) -> Dict[str, Any]:
         return dict(self.data)
+
+
+@dataclass
+class SingleMetric(EvaluationMetrics):
+    """One named metric value (reference SingleMetric)."""
+    name: str
+    value: float
+
+
+@dataclass
+class MultiMetrics(EvaluationMetrics):
+    """Named collection of metric records (reference MultiMetrics)."""
+    metrics: Dict[str, EvaluationMetrics]
 
 
 class Evaluator:

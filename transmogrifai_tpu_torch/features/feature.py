@@ -274,7 +274,8 @@ class Feature:
     def lda(self, k: int = 10, **params) -> "Feature":
         """Topic-distribution vector from a token list
         (reference RichVectorFeature.lda)."""
-        raise not_ported("Feature.lda (LDA)", "ops/text_advanced.py")
+        from ..ops.text_advanced import LDA
+        return LDA(k=k, **params).set_input(self).get_output()
 
     # -- dunder ------------------------------------------------------------
     def __repr__(self) -> str:

@@ -68,9 +68,8 @@ class ScoreFunction:
         self.extract_errors = 0
         self.extract_error_fields: Dict[str, int] = {}
         #: serving guardrails: False = off, True = defaults, or a dict of
-        #: ``ScoringPlan.with_guardrails`` kwargs (the drift sentinel is
-        #: not ported: pass ``{"sentinel": False}``). Guarded batches attach
-        #: a ``"_guard"`` entry to quarantined or invalidated rows and keep
+        #: ``ScoringPlan.with_guardrails`` kwargs (the defaults include the
+        #: drift sentinel). Guarded batches attach a ``"_guard"`` entry to quarantined or invalidated rows and keep
         #: the ledger on ``last_guard_result``.
         self.guardrails = guardrails
         self.last_guard_result = None

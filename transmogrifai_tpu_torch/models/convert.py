@@ -13,8 +13,13 @@ multiclass and regression families add the multinomial
 (``TreeEnsembleRegressorModel``: leaves (T, 2^depth)), ``GBTRegressorModel``
 and the softmax booster's ``GBTMulticlassClassifierModel`` (feats, thrs
 (R, K, H), leaves (R, K, L), base (K,)). The port's models built from them
-predict the same probabilities, labels and values. :func:`from_jax_model`
-takes any of them by its class name.
+predict the same probabilities, labels and values. The fitted text stages
+carry across too: ``Word2VecModel`` (vocabulary, vectors), ``LDAModel``
+(vocabulary, topic_word, alpha), ``CountVectorizerModel`` (vocabularies,
+binary), ``TfIdfVectorizerModel`` (vocabularies, idf) and
+``StringIndexerModel`` (labels, handle_invalid), as numpy arrays and
+lists with the JAX stage's uid; the caller wires their inputs.
+:func:`from_jax_model` takes any of them by its class name.
 """
 from __future__ import annotations
 
@@ -104,10 +109,38 @@ _MODELS = {
 }
 
 
+def _text_stages():
+    """class name -> (port class, attributes, whether it takes a device)
+    of the fitted text stages."""
+    from ..ops.index import StringIndexerModel
+    from ..ops.text_advanced import (CountVectorizerModel, LDAModel,
+                                     TfIdfVectorizerModel, Word2VecModel)
+    return {
+        "Word2VecModel": (Word2VecModel, ("vocabulary", "vectors"), False),
+        "LDAModel": (LDAModel, ("vocabulary", "topic_word", "alpha"), True),
+        "CountVectorizerModel": (CountVectorizerModel,
+                                 ("vocabulary", "binary"), False),
+        "TfIdfVectorizerModel": (TfIdfVectorizerModel,
+                                 ("vocabulary", "idf"), False),
+        "StringIndexerModel": (StringIndexerModel,
+                               ("labels", "handle_invalid"), False),
+    }
+
+
 def from_jax_model(model, device="cuda"):
-    """The port's counterpart of a fitted JAX package model, by its class
-    name, built from its numpy attributes (copies) on ``device``."""
+    """The port's counterpart of a fitted JAX package model or text stage,
+    by its class name, built from its numpy attributes (copies) on
+    ``device``."""
     name = type(model).__name__
+    stages = _text_stages()
+    if name in stages:
+        cls, attrs, takes_device = stages[name]
+        kwargs = {a: (np.array(getattr(model, a))
+                      if isinstance(getattr(model, a), np.ndarray)
+                      else getattr(model, a)) for a in attrs}
+        if takes_device:
+            kwargs["device"] = device
+        return cls(**kwargs, uid=model.uid)
     if name not in _MODELS:
         raise ValueError(f"no port counterpart for {name}")
     cls, attrs = _MODELS[name]

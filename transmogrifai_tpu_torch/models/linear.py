@@ -421,6 +421,12 @@ def _grid_to_reg_alpha(estimator, grid,
 # estimators and models
 # ---------------------------------------------------------------------------
 
+#: rows a batch is padded to before its running sum: the serving plan's
+#: smallest bucket, from which on the card's scan kernel added every
+#: batch size measured (8 to 8,192 rows) in one order
+_SCAN_MIN_ROWS = 8
+
+
 def _feature_order_margins(X: torch.Tensor, coef: torch.Tensor
                            ) -> torch.Tensor:
     """Each row's products with ``coef`` (d,) or with each row of ``coef``
@@ -428,11 +434,16 @@ def _feature_order_margins(X: torch.Tensor, coef: torch.Tensor
     features): (n,) or (n, k). A row's margin is then the same bit for bit
     whatever batch it is scored in; a matrix product lets the card's BLAS
     pick its kernel, and so its order of additions, by the batch's size
-    (up to 8 float32 ulps apart between buckets of the serving plan)."""
+    (up to 8 float32 ulps apart between buckets of the serving plan). A
+    batch of fewer than _SCAN_MIN_ROWS rows (one served record) is padded
+    with zero rows, so that the scan runs as for a plan's bucket."""
+    n = X.shape[0]
+    if n < _SCAN_MIN_ROWS:
+        X = torch.cat([X, X.new_zeros((_SCAN_MIN_ROWS - n, X.shape[1]))])
     if coef.dim() == 1:
-        return torch.cumsum((X * coef).t(), dim=0)[-1]
+        return torch.cumsum((X * coef).t(), dim=0)[-1][:n]
     return torch.cumsum(X.t()[:, :, None] * coef.t()[:, None, :],
-                        dim=0)[-1]
+                        dim=0)[-1][:n]
 
 
 class _LinearModel(ClassifierModel):

@@ -1,6 +1,8 @@
 """Feature-engineering stages of the PyTorch port: the vectorizers of every
-``transmogrify`` family, the bucketizers, the DSL stages and
-``transmogrify`` (counterparts of ``transmogrifai_tpu/ops/``)."""
+``transmogrify`` family, the bucketizers, the DSL stages, the derived-value,
+indexing and name-entity stages, the advanced text stages (count
+vectorizer, TF-IDF, Word2Vec, LDA) and ``transmogrify`` (counterparts of
+``transmogrifai_tpu/ops/``)."""
 from .bucketizers import (DecisionTreeNumericBucketizer,
                           DecisionTreeNumericBucketizerModel,
                           DecisionTreeNumericMapBucketizer,
@@ -14,11 +16,17 @@ from .categorical import (MultiPickListVectorizer,
 from .combiner import VectorsCombiner
 from .date import (DateListPivot, DateListVectorizer,
                    DateToUnitCircleVectorizer)
+from .derived import (CollectionTransformer, DropIndicesByTransformer,
+                      EmailToPickList, JaccardSimilarity, LangDetector,
+                      MimeTypeDetector, NGramSimilarity, PhoneNumberParser,
+                      TextLenTransformer, ToOccurTransformer, UrlToPickList)
 from .dsl import (AliasTransformer, FillMissingWithMean,
                   FillMissingWithMeanModel, NumericBinaryTransformer,
                   NumericScalarTransformer, StandardScaler,
                   StandardScalerModel)
 from .geo import GeolocationVectorizer, GeolocationVectorizerModel
+from .index import (IndexToString, PredictionDeIndexer, StringIndexer,
+                    StringIndexerModel)
 from .maps import (BinaryMapVectorizer, DateMapToUnitCircleVectorizer,
                    DateMapToUnitCircleVectorizerModel, FilterMap,
                    GeolocationMapVectorizer, GeolocationMapVectorizerModel,
@@ -27,11 +35,15 @@ from .maps import (BinaryMapVectorizer, DateMapToUnitCircleVectorizer,
                    SmartTextMapVectorizerModel, TextMapLenEstimator,
                    TextMapNullEstimator, TextMapPivotVectorizer,
                    TextMapPivotVectorizerModel)
+from .ner import NameEntityRecognizer
 from .numeric import (BinaryVectorizer, IntegralVectorizer, RealVectorizer,
                       RealVectorizerModel)
 from .text import (SmartTextVectorizer, SmartTextVectorizerModel,
                    TextHashVectorizer, TextListHashVectorizer,
                    TextListNullTransformer, TextTokenizer, tokenize)
+from .text_advanced import (LDA, CountVectorizer, CountVectorizerModel,
+                            LDAModel, TfIdfVectorizer, TfIdfVectorizerModel,
+                            Word2Vec, Word2VecModel)
 from .transmogrify import TransmogrifierDefaults, transmogrify
 
 __all__ = [
@@ -57,5 +69,13 @@ __all__ = [
     "DecisionTreeNumericBucketizerModel", "DecisionTreeNumericMapBucketizer",
     "DecisionTreeNumericMapBucketizerModel", "PercentileCalibrator",
     "PercentileCalibratorModel", "ScalerTransformer", "DescalerTransformer",
-    "ScalingType",
+    "ScalingType", "NameEntityRecognizer",
+    "StringIndexer", "StringIndexerModel", "IndexToString",
+    "PredictionDeIndexer",
+    "PhoneNumberParser", "EmailToPickList", "UrlToPickList",
+    "MimeTypeDetector", "LangDetector", "TextLenTransformer",
+    "NGramSimilarity", "JaccardSimilarity", "ToOccurTransformer",
+    "CollectionTransformer", "DropIndicesByTransformer",
+    "CountVectorizer", "CountVectorizerModel", "TfIdfVectorizer",
+    "TfIdfVectorizerModel", "Word2Vec", "Word2VecModel", "LDA", "LDAModel",
 ]

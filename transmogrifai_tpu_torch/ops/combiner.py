@@ -42,8 +42,9 @@ class VectorsCombiner(SequenceTransformer):
                 # per-column records so flatten stays index-consistent
                 meta = VectorMetadata(name=f.name, columns=tuple(
                     VectorColumnMetadata(parent_feature_name=f.name,
-                                         parent_feature_type="OPVector")
-                    for _ in range(col.data.shape[1])))
+                                         parent_feature_type="OPVector",
+                                         index=i)
+                    for i in range(col.data.shape[1])))
             metas.append(meta)
         mat = (np.concatenate(mats, axis=1) if mats
                else np.zeros((0, 0), dtype=np.float64))

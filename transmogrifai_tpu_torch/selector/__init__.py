@@ -5,6 +5,7 @@ from .factories import (BinaryClassificationModelSelector,
 from .selector import (ModelSelector, ModelSelectorSummary, SelectedModel,
                        models_x_folds)
 from .racing import RacingCrossValidation, search_compiles
+from .random_params import RandomParamBuilder
 from .splitters import (DataBalancer, DataCutter, DataSplitter, Splitter,
                         stratified_split)
 from .validator import (BestEstimator, CrossValidation, TrainValidationSplit,
@@ -17,4 +18,4 @@ __all__ = ["BinaryClassificationModelSelector",
            "Splitter", "stratified_split", "BestEstimator",
            "CrossValidation", "RacingCrossValidation",
            "TrainValidationSplit", "ValidationResult", "models_x_folds",
-           "search_compiles"]
+           "search_compiles", "RandomParamBuilder"]

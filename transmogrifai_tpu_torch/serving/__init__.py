@@ -1,9 +1,9 @@
 """Compiled serving of the PyTorch port (counterpart of
 ``transmogrifai_tpu/serving/``): the fitted workflow DAG frozen into
 shape-bucketed device programs, one captured CUDA graph per row bucket on
-the card (``plan.py``), the serving guardrails (``guard.py``) and the
-asyncio micro-batching serving loop that coalesces live requests into
-those buckets (``server.py``).
+the card (``plan.py``), the serving guardrails (``guard.py``), the online
+drift sentinel (``sentinel.py``) and the asyncio micro-batching serving
+loop that coalesces live requests into those buckets (``server.py``).
 
 The JAX package's other serving modules are not ported yet; importing one
 of their names from here raises ``NotImplementedError`` naming the JAX
@@ -14,6 +14,10 @@ from .guard import (AdmissionPolicy, BreakerOpenError, CircuitBreaker,
                     SchemaGuard, ServingGuard)
 from .plan import (EncodedScoreBatch, PlanCompileError, PlanCoverage,
                    ScoringPlan, bucket_for, plan_compiles)
+from .sentinel import (DriftSentinel, DriftThresholds, FeatureFingerprint,
+                       FingerprintSchemaError, compute_fingerprints,
+                       load_fingerprint_doc, load_fingerprints,
+                       save_fingerprints)
 from .server import (PlanCache, ServeConfig, ServeDraining, ServeRejected,
                      ServingClient, ServingServer, serve_in_process)
 from ..utils.ported import not_ported
@@ -24,15 +28,14 @@ __all__ = ["ScoringPlan", "EncodedScoreBatch", "PlanCoverage",
            "CircuitBreaker", "BreakerOpenError", "ServingGuard",
            "GuardReason", "GuardedScoreResult",
            "ServeConfig", "ServingServer", "ServingClient", "PlanCache",
-           "ServeRejected", "ServeDraining", "serve_in_process"]
+           "ServeRejected", "ServeDraining", "serve_in_process",
+           "DriftSentinel", "DriftThresholds", "FeatureFingerprint",
+           "FingerprintSchemaError", "compute_fingerprints",
+           "load_fingerprint_doc", "load_fingerprints",
+           "save_fingerprints"]
 
 #: the JAX package's serving exports that wait for their module's port
 _UNPORTED = {
-    **dict.fromkeys(("DriftSentinel", "DriftThresholds",
-                     "FeatureFingerprint", "FingerprintSchemaError",
-                     "compute_fingerprints", "load_fingerprint_doc",
-                     "load_fingerprints", "save_fingerprints"),
-                    "serving/sentinel.py"),
     **dict.fromkeys(("AdmissionConfig", "AdmissionController", "ServeShed"),
                     "serving/admission.py"),
     **dict.fromkeys(("TcpServingClient", "ServingUnavailable"),

@@ -44,6 +44,7 @@ to the host and are widened to float64 before the model's
 from __future__ import annotations
 
 import concurrent.futures as _cf
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -78,6 +79,8 @@ from .guard import (AdmissionPolicy, CircuitBreaker, GuardedScoreResult,
 __all__ = ["ScoringPlan", "EncodedScoreBatch", "PlanCoverage",
            "PlanCompileError", "plan_compiles", "bucket_for",
            "DEFAULT_MIN_BUCKET", "DEFAULT_MAX_BUCKET"]
+
+_log = logging.getLogger(__name__)
 
 #: runs of the composed program on a side stream before a capture (lazy
 #: initialization, e.g. of the cuBLAS handle, must not happen inside it)
@@ -208,6 +211,8 @@ class ScoringPlan:
         #: serving guardrails (guard.py); None means disabled, and the
         #: default score path is the unguarded one
         self.guard: Optional[ServingGuard] = None
+        #: the online drift sentinel (sentinel.py); None means disabled
+        self.sentinel = None
         #: GuardedScoreResult of the most recent guarded batch
         self.last_guard_result: Optional[GuardedScoreResult] = None
         self._deadline_pool = None
@@ -485,21 +490,40 @@ class ScoringPlan:
                         output_guard: Optional[OutputGuard] = None,
                         breaker: Optional[CircuitBreaker] = None,
                         deadline_seconds: Optional[float] = None,
-                        sentinel: Any = True) -> "ScoringPlan":
+                        sentinel: Any = True,
+                        thresholds=None) -> "ScoringPlan":
         """Enable the serving guardrails: schema admission, output guards,
-        the circuit breaker and a per-batch deadline. Guardrails are off
-        unless this is called. ``sentinel`` keeps the JAX package's
-        default ``True``; the drift sentinel is not ported, so a truthy
-        value raises: pass ``sentinel=False``."""
-        if sentinel:
-            raise not_ported("the drift sentinel (with_guardrails("
-                             "sentinel=...); pass sentinel=False)",
-                             "serving/sentinel.py")
+        the circuit breaker, a per-batch deadline and (``sentinel=True``,
+        the default) the online drift sentinel with ``thresholds``.
+        Guardrails are off unless this is called. ``sentinel`` may also
+        be a prebuilt :class:`~.sentinel.DriftSentinel`."""
         self.guard = ServingGuard(self.model, admission=admission,
                                   output_guard=output_guard,
                                   breaker=breaker,
                                   deadline_seconds=deadline_seconds)
+        from .sentinel import DriftSentinel
+        if isinstance(sentinel, DriftSentinel):
+            self.sentinel = sentinel
+        elif sentinel:
+            self.sentinel = DriftSentinel.for_model(
+                self.model, thresholds=thresholds)
+            if self.sentinel is None:
+                _log.warning(
+                    "drift sentinel unavailable: the model carries no "
+                    "training fingerprints (re-save it with this build "
+                    "or train in-process); serving without drift "
+                    "monitoring")
         return self
+
+    def drift_report(self) -> dict:
+        """Per-feature JS divergence of the scored traffic against
+        training (sentinel.py); ``{"enabled": False}`` without a
+        sentinel."""
+        if self.sentinel is None:
+            return {"enabled": False}
+        report = self.sentinel.drift_report()
+        report["enabled"] = True
+        return report
 
     # -- execution ---------------------------------------------------------
     def score(self, data: Any) -> Dataset:
@@ -508,7 +532,7 @@ class ScoringPlan:
         contract). With guardrails enabled this routes through
         :meth:`score_guarded`, keeping its ledger on
         ``last_guard_result``."""
-        if self.guard is not None:
+        if self.guard is not None or self.sentinel is not None:
             return self.score_guarded(data).scored
         self.compile()
         from ..workflow.workflow import _generate_raw_data
@@ -576,7 +600,7 @@ class ScoringPlan:
         result = self.resolve_guarded(
             scored, quarantined, qmask,
             self.guard.output if self.guard is not None else None,
-            used_fallback, breaker)
+            used_fallback, breaker, raw=ds, sentinel=self.sentinel)
         self.last_guard_result = result
         return result
 
@@ -584,18 +608,24 @@ class ScoringPlan:
                         quarantined: List[GuardReason], qmask: np.ndarray,
                         output_guard: Optional[OutputGuard],
                         used_fallback: bool,
-                        breaker: Optional[CircuitBreaker]
-                        ) -> GuardedScoreResult:
+                        breaker: Optional[CircuitBreaker],
+                        raw: Optional[Dataset] = None,
+                        sentinel=None) -> GuardedScoreResult:
         """The guarded path's finish over a scored batch: the output
         guard, NaN for quarantined rows (their zeroed device outputs mean
-        nothing), the row counters, and the result with its ledger. The
-        serving loop calls it with a tenant's own guards."""
+        nothing), the drift ``sentinel``'s observation of the admitted
+        rows of the ``raw`` batch, the row counters, and the result with
+        its ledger. The serving loop calls it with a tenant's own
+        guards."""
         invalidated: List[GuardReason] = []
         if output_guard is not None:
             scored, invalidated = output_guard.check(
                 scored, self._result_names, skip_rows=qmask)
         if qmask.any():
             scored = _invalidate_rows(scored, self._result_names, qmask)
+        if sentinel is not None and raw is not None:
+            sentinel.observe_dataset(
+                raw.take(np.flatnonzero(~qmask)) if qmask.any() else raw)
         n_bad = int(qmask.sum())
         _telemetry.count("serving_rows_scored", scored.n_rows - n_bad)
         if n_bad:

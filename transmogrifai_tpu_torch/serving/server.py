@@ -27,12 +27,14 @@ buckets, whose graphs a batch of one would otherwise replay for one row:
   recompiles on next use.
 
 Steady state captures no graph, and each answer is bitwise the row that
-an offline ``score_guarded()`` gives. Entry points: :class:`ServingServer`
+an offline ``score_guarded()`` gives, but for a model with an LDA stage:
+its E-step's products over the batch round by the batch's size, so its
+answers agree within 1e-6 (ROADMAP's known divergences). Entry points: :class:`ServingServer`
 on an event loop of the caller's, or on a background thread through
 :meth:`ServingServer.start_background` and :class:`ServingClient`
-(``serve_in_process``). Not ported, and raising by name: the drift
-sentinel (``ServeConfig.sentinel`` keeps the JAX package's default
-``True``: pass ``sentinel=False``), overload admission
+(``serve_in_process``). Each tenant has its own drift sentinel
+(``sentinel.py``) over the batches it scores, reported in
+``metrics_snapshot()``. Not ported, and raising by name: overload admission
 (``admission_control``), the self-healing lifecycle (``lifecycle``,
 ``register_refit``), the predicted-cost coalescer, the state snapshots,
 the AOT artifacts and the TCP front end (``cli/serve.py``).
@@ -100,9 +102,9 @@ class ServeConfig:
     #: False = raw dispatch (no quarantine, no breaker)
     guardrails: bool = True
     admission: Optional[AdmissionPolicy] = None
-    #: the drift sentinel per tenant (with guardrails): not ported, so a
-    #: truthy value raises; pass False
+    #: the drift sentinel per tenant (requires guardrails)
     sentinel: bool = True
+    drift_thresholds: Any = None
     #: per-batch device dispatch deadline; a dispatch still running at
     #: the deadline is orphaned (executor abandoned and replaced) and the
     #: batch falls back to the host columnar path
@@ -124,9 +126,6 @@ class ServeConfig:
 def _check_ported(config: ServeConfig) -> None:
     """Raise by name for each option of ``config`` whose JAX module the
     port does not have yet."""
-    if config.guardrails and config.sentinel:
-        raise not_ported("ServeConfig.sentinel, the drift sentinel (pass "
-                         "sentinel=False)", "serving/sentinel.py")
     if config.lifecycle is not None:
         raise not_ported("ServeConfig.lifecycle, the self-healing "
                          "lifecycle", "serving/lifecycle.py")
@@ -162,13 +161,15 @@ class _CacheEntry:
 
 class _TenantGuards:
     """One tenant's guard stack over a shared compiled plan. The plan
-    itself stays unguarded (``plan.guard is None``); the breaker lives
-    here, per tenant, so tenants fail and recover independently."""
+    itself stays unguarded (``plan.guard is None``); the breaker and the
+    drift sentinel's sketches live here, per tenant, so tenants fail,
+    recover and drift independently."""
 
     def __init__(self, model, config: ServeConfig):
         self.schema: Optional[SchemaGuard] = None
         self.output: Optional[OutputGuard] = None
         self.breaker: Optional[CircuitBreaker] = None
+        self.sentinel = None
         if not config.guardrails:
             return
         self.schema = SchemaGuard(model, policy=config.admission)
@@ -179,6 +180,10 @@ class _TenantGuards:
                             failure_threshold=config.breaker_failures,
                             cooldown_seconds=(
                                 config.breaker_cooldown_seconds)))
+        if config.sentinel:
+            from .sentinel import DriftSentinel
+            self.sentinel = DriftSentinel.for_model(
+                model, thresholds=config.drift_thresholds)
 
 
 class PlanCache:
@@ -301,8 +306,7 @@ class _PreparedBatch:
 class ServingServer:
     """The asyncio micro-batching scorer. Typical in-process use::
 
-        server = ServingServer(ServeConfig(max_wait_ms=2.0,
-                                           sentinel=False))
+        server = ServingServer(ServeConfig(max_wait_ms=2.0))
         server.add_model("titanic", model)       # or a saved model dir
         client = server.start_background()
         row = client.score({"age": 31.0, ...}, model="titanic")
@@ -696,13 +700,14 @@ class ServingServer:
     def _finish_batch(self, prep: _PreparedBatch, scored,
                       used_fallback: bool) -> List[dict]:
         """Blocking post-dispatch host work: the plan's guarded finish
-        (``ScoringPlan.resolve_guarded``) with the tenant's guards, and
-        per-request row boxing."""
+        (``ScoringPlan.resolve_guarded``) with the tenant's guards and
+        drift sentinel, and per-request row boxing."""
         prep.marks["guard_t0"] = time.monotonic()
         prep.marks["fallback"] = used_fallback
         result = prep.entry.plan.resolve_guarded(
             scored, prep.quarantined, prep.qmask, prep.guards.output,
-            used_fallback, prep.guards.breaker)
+            used_fallback, prep.guards.breaker, raw=prep.ds,
+            sentinel=prep.guards.sentinel)
         rows = result.boxed_rows(prep.entry.result_names)
         if used_fallback:
             for row in rows:
@@ -845,18 +850,36 @@ class ServingServer:
         """The live metrics document (the JAX package's schema): loop
         counters, per-tenant latency quantiles, per-lane queue depth,
         plan-cache hits and evictions, per-tenant breaker state, the
-        compile count and the serving slice of the process telemetry. The
-        blocks of modules the port does not have (admission, sentinels,
-        lifecycle, AOT artifacts) report them off."""
+        compile count, each tenant's drift state (per-feature JS against
+        the warn and degrade thresholds, rows observed) and the serving
+        slice of the process telemetry. The blocks of modules the port
+        does not have (admission, lifecycle, AOT artifacts) report them
+        off."""
         entries = self.plans.resident_entries()
-        breakers = {}
+        breakers, sentinels = {}, {}
         for (name, _buckets), entry in entries:
             for tenant, guards in list(entry.guards.items()):
+                lane = f"{name}/{tenant}"
                 if guards.breaker is not None:
-                    breakers[f"{name}/{tenant}"] = guards.breaker.state
+                    breakers[lane] = guards.breaker.state
+                if guards.sentinel is not None:
+                    report = guards.sentinel.drift_report()
+                    sentinels[lane] = {
+                        "status": report["status"],
+                        "rowsSeen": report["rowsSeen"],
+                        "warnThreshold": report["warnThreshold"],
+                        "degradeThreshold": report["degradeThreshold"],
+                        "generation": guards.sentinel.generation,
+                        "features": {
+                            f["feature"]: {
+                                "jsDivergence": f["jsDivergence"],
+                                "status": f["status"],
+                                "rowsObserved": f["rowsObserved"],
+                            } for f in report["features"]},
+                    }
         serving_counters = {
             k: v for k, v in _telemetry.counters().items()
-            if k.startswith(("serve_", "serving_", "breaker_"))}
+            if k.startswith(("serve_", "serving_", "breaker_", "drift_"))}
         lanes = sorted(self._lanes.items())
         return {
             "schema": METRICS_SCHEMA_VERSION,
@@ -885,7 +908,7 @@ class ServingServer:
             "plan_compiles": plan_compiles(),
             "aot": {name: None for (name, _b), _e in entries},
             "breakers": breakers,
-            "sentinels": {},
+            "sentinels": sentinels,
             "lifecycle": None,
             "counters": serving_counters,
             "trace": {"enabled": _trace.enabled(),

@@ -5,9 +5,9 @@ utils/src/main/java/com/salesforce/op/utils/stats/
 StreamingHistogram.java:36): a fixed number of (centroid, count) bins,
 updated in batches (sort + merge) and queried for quantiles by
 interpolation. The serving metrics keep their latency sketches in it; the
-raw feature filter compares two of them through ``density``
-(``checkers/raw_feature_filter.numeric_histogram_js``). Its JSON form
-waits for the drift sentinel.
+raw feature filter and the drift sentinel compare two of them through
+``density`` (``checkers/raw_feature_filter.numeric_histogram_js``), and the
+sentinel saves them in the JAX package's JSON form (``to_json``).
 
 Oversized bin sets merge their closest adjacent pair until ``max_bins``
 remain, ties to the leftmost pair. The JAX package does this in a C++
@@ -118,27 +118,41 @@ class StreamingHistogram:
 
     def sum_upto(self, b: float) -> float:
         """Estimated number of points <= b (StreamingHistogram.java sum())."""
-        c, n = self.centroids, self.counts
-        if c.size == 0:
-            return 0.0
-        if b >= c[-1]:
-            return float(n.sum())
-        if b < c[0]:
-            return 0.0
-        i = int(np.searchsorted(c, b, side="right")) - 1
-        if c.size == 1 or i == c.size - 1:
-            return float(n[:i].sum() + n[i] / 2.0)
-        # trapezoid interpolation between centroid i and i+1
-        ci, ci1, ni, ni1 = c[i], c[i + 1], n[i], n[i + 1]
-        frac = (b - ci) / (ci1 - ci) if ci1 > ci else 0.0
-        mb = ni + (ni1 - ni) * frac
-        s = (ni + mb) * frac / 2.0
-        return float(n[:i].sum() + ni / 2.0 + s)
+        return float(self._sums_upto(np.array([b], dtype=np.float64))[0])
 
     def density(self, breakpoints: Sequence[float]) -> np.ndarray:
-        """Estimated counts falling in intervals defined by breakpoints."""
-        sums = np.asarray([self.sum_upto(b) for b in breakpoints])
+        """Estimated counts falling in intervals defined by breakpoints:
+        ``sum_upto`` at every breakpoint at once."""
+        sums = self._sums_upto(np.asarray(breakpoints, dtype=np.float64))
         return np.diff(np.concatenate([[0.0], sums, [self.total]]))
+
+    def _sums_upto(self, b: np.ndarray) -> np.ndarray:
+        """``sum_upto`` at each of ``b``: the counts of the centroids
+        below, half the count of the one at or below, and the trapezoid
+        up to the next. The counts are integers (each point counts one,
+        a merge adds them), so the running sum is exact."""
+        c, n = self.centroids, self.counts
+        out = np.zeros(b.shape, dtype=np.float64)
+        if c.size == 0 or b.size == 0:
+            return out
+        prefix = np.concatenate([[0.0], np.cumsum(n)])
+        i = np.searchsorted(c, b, side="right") - 1
+        last = c.size - 1
+        mid = (b >= c[0]) & (b < c[-1])
+        edge = mid & (i == last)
+        inner = mid & (i < last)
+        ie = i[edge]
+        out[edge] = prefix[ie] + n[ie] / 2.0
+        ii = i[inner]
+        ci, ci1, ni, ni1 = c[ii], c[ii + 1], n[ii], n[ii + 1]
+        gap = ci1 - ci
+        frac = np.where(gap > 0, (b[inner] - ci) / np.where(gap > 0, gap,
+                                                           1.0), 0.0)
+        mb = ni + (ni1 - ni) * frac
+        s = (ni + mb) * frac / 2.0
+        out[inner] = prefix[ii] + ni / 2.0 + s
+        out[b >= c[-1]] = float(n.sum())
+        return out
 
     def quantile(self, q: float) -> float:
         if not 0.0 <= q <= 1.0:
@@ -155,3 +169,15 @@ class StreamingHistogram:
             return float(c[-1])
         frac = (target - cum[i - 1]) / (cum[i] - cum[i - 1])
         return float(c[i - 1] + (c[i] - c[i - 1]) * frac)
+
+    def to_json(self) -> dict:
+        return {"maxBins": self.max_bins,
+                "centroids": self.centroids.tolist(),
+                "counts": self.counts.tolist()}
+
+    @staticmethod
+    def from_json(d: dict) -> "StreamingHistogram":
+        h = StreamingHistogram(d["maxBins"])
+        h.centroids = np.asarray(d["centroids"], dtype=np.float64)
+        h.counts = np.asarray(d["counts"], dtype=np.float64)
+        return h

@@ -89,8 +89,11 @@ class VectorMetadata:
     columns: tuple[VectorColumnMetadata, ...] = ()
 
     def __post_init__(self):
+        # a column already at its index is kept (the records are frozen):
+        # per-record scoring rebuilds vectors thousands of columns wide
         object.__setattr__(self, "columns", tuple(
-            replace(c, index=i) for i, c in enumerate(self.columns)))
+            c if c.index == i else replace(c, index=i)
+            for i, c in enumerate(self.columns)))
 
     @property
     def size(self) -> int:

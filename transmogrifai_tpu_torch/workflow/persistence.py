@@ -34,12 +34,14 @@ are saved as the JAX package saves them (``rawFeatureFilterResults``,
 arguments (the kept indices and the output metadata), as there; its
 summary stays in memory.
 
-Three parts of a JAX save are left out. Two have no meaning for torch:
-the AOT export of the compiled XLA scoring programs and the
-plan-fingerprint sidecar of the HLO auditor. The third, the drift
-fingerprints that feed the serving sentinel, waits for the port of the
-sentinel (``serving/sentinel.py``). So does the fault-injection hook of
-the fault runtime (``runtime/faults.py``).
+The training data's drift fingerprints (``drift-fingerprints.json``,
+``serving/sentinel.py``) are written beside them, as the JAX package
+writes them, and a saved or loaded model remembers its directory
+(``model_dir``), where the serving sentinel reads them. Two parts of a JAX save have no
+meaning for torch and are left out: the AOT export of the compiled XLA
+scoring programs and the plan-fingerprint sidecar of the HLO auditor. The
+fault-injection hook of the fault runtime (``runtime/faults.py``) waits
+for that module's port.
 """
 from __future__ import annotations
 
@@ -351,6 +353,7 @@ def save_model(model, path: str) -> None:
         json.dump(doc, fh, indent=1)
         fh.flush()
         os.fsync(fh.fileno())
+    _save_drift_fingerprints(model, tmp)
     np.savez(os.path.join(tmp, ARRAYS_NPZ), **arrays)
     _fsync_file(os.path.join(tmp, ARRAYS_NPZ))
     if os.path.isdir(path):
@@ -365,6 +368,32 @@ def save_model(model, path: str) -> None:
         shutil.rmtree(old)
     else:
         os.rename(tmp, path)
+    # the drift sentinel resolves fingerprints through the model dir
+    model.model_dir = path
+
+
+def _save_drift_fingerprints(model, staging_dir: str) -> None:
+    """Write the training data's per-feature distributions into the model
+    directory (``drift-fingerprints.json``), so the serving sentinel
+    compares scored traffic against training without the training data.
+    A model without a train dataset (one loaded from a save) carries
+    none, and the sentinel says it is unavailable; a failing fingerprint
+    never fails the save."""
+    train_ds = getattr(model, "train_dataset", None)
+    if train_ds is None:
+        return
+    from ..serving.sentinel import compute_fingerprints, save_fingerprints
+    try:
+        fps = compute_fingerprints(model.raw_features(), train_ds)
+        if fps:
+            save_fingerprints(
+                fps, staging_dir,
+                trained_at=getattr(model, "trained_generation", 0))
+    except Exception as e:   # never let fingerprinting break a save
+        import logging
+        logging.getLogger(__name__).warning(
+            "drift fingerprints not saved (%s: %s); the saved model "
+            "will serve without the drift sentinel", type(e).__name__, e)
 
 
 def _referenced_array_keys(node: Any) -> List[str]:
@@ -451,6 +480,9 @@ def load_model(path: str, device="cuda"):
         from ..checkers.raw_feature_filter import RawFeatureFilterResults
         rff = RawFeatureFilterResults.from_json(
             doc["rawFeatureFilterResults"])
-    return WorkflowModel(
+    model = WorkflowModel(
         result_features=result, raw_feature_filter_results=rff,
         blacklisted_feature_names=doc.get("blacklistedFeatureNames", ()))
+    # the drift sentinel reads the training fingerprints from here
+    model.model_dir = path
+    return model

@@ -503,6 +503,9 @@ class WorkflowModel:
         #: saved op-model.json (reference OpWorkflowModelWriter:75-120)
         self.raw_feature_filter_results = raw_feature_filter_results
         self.blacklisted_feature_names = list(blacklisted_feature_names)
+        #: the directory the model was saved to or loaded from: the
+        #: drift sentinel reads its training fingerprints there
+        self.model_dir: Optional[str] = None
 
     def raw_features(self) -> List[Feature]:
         return _unique_raw_features(self.result_features)
