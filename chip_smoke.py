@@ -3,8 +3,9 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--workflow-rows N] [--cv-rows N] [--families-rows N] [--text-rows N]
-[--out FILE] [--k1-only | --workflow-only [--agree-witness-rows N] |
---validate-only | --problems-only | --families-only | --text-only]
+[--out FILE] [--k1-only |
+--workflow-only [--agree-witness-rows N] | --validate-only |
+--problems-only | --families-only | --text-only | --readers-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
 ``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d, or with
@@ -13,7 +14,7 @@ linear families' float64 witness on the card (the float32 gap reported,
 the float64 one checked), ``--validate-only`` phases 1, 2 and 9b-9d, 9b
 with its own exact search, ``--problems-only`` phases 1, 2 and 9e-9h,
 ``--families-only`` phases 1, 2, 9i and 9j, ``--text-only`` phases 1, 2,
-9k and 9l; in the whole smoke the card-against-CPU phases 6, 9, 9d, 9h,
+9k and 9l, ``--readers-only`` phases 1, 2 and 9m-9o; in the whole smoke the card-against-CPU phases 6, 9, 9d, 9h,
 9j and 9l run after phase 10, the last timed phase, in a worker process
 each (9h as three), so that no path is timed beside them):
   1. device: card name and count, torch and CUDA versions, power limit;
@@ -107,7 +108,10 @@ each (9h as three), so that no path is timed beside them):
      indicator, one-hot, hash and integer columns, float columns within
      1e-5, metric matrices within 2e-3 (1e-2 at the GBT points of
      min_child_weight 1, where float32 breaks gain ties among the sparse
-     hash columns otherwise than float64) and the same winner;
+     hash columns otherwise than float64) and the same winner; those GBT
+     points searched again on the CPU run's matrix in float64 on the card
+     through the plain histogram (the tree float64 witness,
+     ``tree_dtype``) must agree with the CPU within 2e-3;
  9b. [validate] the validated DAG (transmogrify, ``.sanity_check``, the
      default pool raced at eta 3 from 1/9) on phase 8's records behind
      the raw feature filter: the filter's seconds and exclusions, the
@@ -152,7 +156,9 @@ each (9h as three), so that no path is timed beside them):
      the CPU (forests at 5 trees, the same CPU draws) and a K = 7 multiclass array search (3,000 x 20, the default
      multiclass pool): metric matrices within 2e-3 (relative for RMSE),
      the same winner unless the CPU's top two lie within that; the K = 7
-     forests launch K1 in statistic blocks;
+     forests launch K1 in statistic blocks; Boston's GBT points of depth
+     6 and 12 searched again in float64 on the card through the plain
+     histogram must agree with the CPU within 2e-3 (relative);
  9i. [families] the every-family workflow (``examples/families.py``: the
      JAX package's family DAG of dates, date lists, maps of every kind,
      text, sets, numerics, with a geolocation, tokens and both
@@ -206,6 +212,42 @@ each (9h as three), so that no path is timed beside them):
      on the same matrix (3e-2 at LogisticRegression's reg_param 0.001),
      the float64 search on the card within 2e-3 (the CPU's own float32
      gap reported beside it);
+ 9m. [quickstart] the README's Quick start with the port's imports:
+     100,000 seeded Titanic-shaped records (``QUICKSTART_ROWS``), 75 %
+     written as a CSV and trained through ``DataReaders.Simple.csv_auto``
+     (typed age, sex and survived, transmogrify, ``sanity_check``, the
+     card-against-CPU pool under 3-fold CV): seconds, the search by
+     family, K1 launches by family and C; ``summary_pretty()`` and
+     ``model_insights().pretty()`` printed; save, ``load_score_function``
+     and one record served; the 25 % holdout streamed in batches of 1,000
+     through ``score(engine="compiled")`` within 1e-6 of one whole
+     compiled score, and its AuPR; [k1-quickstart]: K1 against its plain
+     version on its matrix (forest statistics at C = 1, 32, 256, exact;
+     the GBT's [g, h] at C = 256);
+ 9n. [readers] the seeded e-mail event log of ``examples/dataprep.py``
+     (20,000 users, ~205,000 sends and clicks, ``READERS_USERS``)
+     written as deflate Avro files and read by two AggregateDataReaders
+     over AvroProductReader sources, joined left outer by
+     JoinedAggregateReaders: the workflow (sums over 1 and 7 days, a mean,
+     a logical or, the last campaign, a union of topics, the subjects'
+     text, the clicks' midpoint; the label a click in the day after the
+     cutoff) with the card-against-CPU pool, trained at one cutoff and
+     scored 7 days later through a second reader on the same files with
+     its responses (AuPR) and through a third that refuses the response
+     (compiled engine; the label all NaN, the predictions within 1e-6):
+     seconds of Avro reading, aggregation, join, raw
+     extraction, fits and the search by family, K1 launches by family
+     and C; [k1-readers]: K1 against its plain version on the event-log
+     matrix, as [k1-quickstart];
+ 9o. [insights] for both workflows, over their first 5,000 scored rows:
+     RecordInsightsLOCO on the card against a CPU reload of the saved
+     model (every diff within 1e-5, the same top-3 groups wherever no tie
+     straddles K), RecordInsightsCorr on the card against the CPU (within
+     1e-5, NaN alike); ``feature_importances`` of phase 8c's fixed GBT and
+     50-tree forest against their CPU reloads (exact, summing to 1; under
+     ``--readers-only`` fixed trees on the event log); seconds of each, no
+     K1 launch. 9m-9o's seconds together are logged beside their 60 s
+     budget, which is reported, not enforced;
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -258,7 +300,8 @@ from transmogrifai_tpu_torch.serving.sentinel import (  # noqa: E402
     DRIFT_FINGERPRINTS_FILE, DriftSentinel)
 from transmogrifai_tpu_torch.selector.selector import (  # noqa: E402
     models_x_folds)
-from transmogrifai_tpu_torch.utils.device import resolve_device  # noqa: E402
+from transmogrifai_tpu_torch.utils.device import (  # noqa: E402
+    resolve_device, working_dtype)
 from transmogrifai_tpu_torch.utils.listener import (  # noqa: E402
     WorkflowListener)
 
@@ -1616,7 +1659,7 @@ def _tree_stage(device, est, records, tag: str) -> dict:
            "captured_buckets": sorted(plan.capture_seconds),
            "capture_s": dict(plan.capture_seconds),
            "max_abs_diff_vs_columnar": gap, "prediction_flips": flips,
-           "lowered": len(plan.coverage.lowered)}
+           "lowered": len(plan.coverage.lowered), "_model": run.model}
     log(f"[serve-compiled] {tag}: {out['stage']} trained on "
         f"{len(records) - len(holdout)} rows in {train_s:.2f} s; "
         f"{len(holdout)} holdout records compiled in {compiled_s:.3f} s "
@@ -2063,6 +2106,21 @@ def phase_workflow_agree(device, rows: int = AGREE_RECORDS,
     if not exact or float_rel > PREPARED_REL_TOL:
         raise AssertionError("card and CPU prepared matrices disagree")
     out = {}
+    small = [i for i, r in enumerate(results)
+             if r.model_name == "GBTClassifier"
+             and r.params.get("min_child_weight", 1.0) < 10]
+    if small:
+        dev = resolve_device(device)
+        out["tree_precision_witness"] = tree_precision_witness(
+            device, lambda d, models:
+            BinaryClassificationModelSelector.with_cross_validation(
+                num_folds=3, seed=42, stratify=True, models=models,
+                device=d),
+            GBTClassifier(num_rounds=num_rounds, device=dev),
+            [results[i].params for i in small], cols[1].data,
+            np.asarray(cpu["run"].model.train_dataset["survived"].data,
+                       dtype=np.float64), mp[:, small], mc[:, small],
+            "wf-agree")
     if witness:
         run = cpu["run"]
         out["linear_precision_witness"] = linear_precision_witness(
@@ -3256,6 +3314,26 @@ def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS,
         cpu_s = time.perf_counter() - t0
         out[tag] = _agree(card, cpu, tag, relative)
         out[tag].update(card_s=card_s, cpu_s=cpu_s)
+        deep = [i for i, (n, p) in enumerate(cpu["candidates"])
+                if n == "GBTRegressor" and p.get("max_depth", 5) >= 6]
+        if deep:
+            run = cpu["run"]
+            est = next(e for e, _ in _problem_models(example, device)
+                       if type(e).__name__ == "GBTRegressor")
+            out[tag]["tree_precision_witness"] = tree_precision_witness(
+                device, example.default_selector, est,
+                [cpu["candidates"][i][1] for i in deep],
+                run.model.train_dataset[run.vector.name].data,
+                np.asarray(run.model.train_dataset[next(
+                    f.name for f in run.model.raw_features()
+                    if f.is_response)].data, dtype=np.float64),
+                np.asarray(cpu["metric_matrix"])[:, deep],
+                np.asarray(card["metric_matrix"])[:, deep],
+                f"problems-agree {tag}", relative=relative,
+                # float64 on the card keeps the float32 gap here (up to
+                # 4.6e-3 on an H100): near-tie splits of the deep trees
+                # break by the sum order, not the dtype (ROADMAP queue 3)
+                tol=GBT_REG_DEEP_TOL)
     if f"k{WIDE_K}" not in parts:
         return out
     from transmogrifai_tpu_torch.models.registry import (
@@ -3678,6 +3756,68 @@ def linear_precision_witness(device, X: torch.Tensor, y: np.ndarray,
     return out
 
 
+@contextlib.contextmanager
+def tree_dtype(dtype):
+    """Inside the block the tree families compute in ``dtype`` on any
+    device: the port's ``working_dtype`` replaced in the modules of their
+    search and scoring (``models/trees``, ``models/base``), and the level
+    histogram routed to its plain version (``level_hist_plain``; K1 sums
+    float32 only). The design cache is cleared on entry and on exit, so
+    that no design binned in one dtype serves the other."""
+    from transmogrifai_tpu_torch.models import base
+    real = (trees.working_dtype, base.working_dtype, trees.level_hist)
+    trees.working_dtype = base.working_dtype = lambda device: dtype
+    trees.level_hist = (
+        lambda ids, offsets, slot, stats, num_slots, total_bins, plan=None:
+        level_hist_plain(ids, offsets, slot, stats, num_slots, total_bins))
+    clear_design_cache()
+    try:
+        yield
+    finally:
+        trees.working_dtype, base.working_dtype, trees.level_hist = real
+        clear_design_cache()
+
+
+def tree_precision_witness(device, selector_fn, est, grid, X, y,
+                           cpu_metrics: np.ndarray, card_metrics: np.ndarray,
+                           tag: str, relative: bool = False,
+                           tol: float = AGREE_TOL) -> dict:
+    """The tree grid points ``grid`` of ``est``'s family searched again by
+    ``selector_fn(device, models=...)`` (the run's own selector: its
+    holdout cut and folds) on the CPU run's prepared train matrix ``X``,
+    in float64 on ``device`` through the plain histogram
+    (``tree_dtype``). Its largest gap by grid point to ``cpu_metrics``
+    (the CPU run's float64 metrics of those points; relative to them with
+    ``relative``) must be within ``tol``; within AGREE_TOL, the card's
+    float32 gap there (``card_metrics``, logged beside it) is float32's,
+    not the card path's. ``tag`` names the phase in the log."""
+    dev = resolve_device(device)
+    with tree_dtype(torch.float64):
+        sel = selector_fn(dev, models=[(est, grid)])
+        t0 = time.perf_counter()
+        mm = metric_matrix(sel.fit_arrays(
+            torch.as_tensor(X).to(dev, torch.float64), y))
+        seconds = time.perf_counter() - t0
+    scale = np.abs(cpu_metrics) if relative else 1.0
+    out = {"points": grid, "seconds": seconds, "relative": relative,
+           "tol": tol,
+           "device_float64": (np.abs(mm - cpu_metrics) / scale)
+           .max(axis=0).tolist(),
+           "device_float32": (np.abs(card_metrics - cpu_metrics) / scale)
+           .max(axis=0).tolist()}
+    out["within_agree_tol"] = max(out["device_float64"]) <= AGREE_TOL
+    log(f"[{tag}] tree float64 witness, {type(est).__name__} at {grid}: "
+        f"largest gap{' / |cpu|' if relative else ''} to the CPU by grid "
+        f"point: {dev} in float64 (plain histogram, {seconds:.2f} s) "
+        f"{json.dumps(out['device_float64'])} (tol {tol}; within AGREE_TOL "
+        f"{AGREE_TOL}: {out['within_agree_tol']}); the card in float32 "
+        f"{json.dumps(out['device_float32'])}")
+    if max(out["device_float64"]) > tol:
+        raise AssertionError(f"[{tag}] the tree points differ card to CPU "
+                             f"in float64 too")
+    return out
+
+
 def _family_tol(result) -> float:
     """[families-agree]'s metric limit of a grid point: GBT_SMALL_LEAF_TOL
     at the GBT points of min_child_weight < 10, FAMILY_LINEAR_TOL at the
@@ -4067,6 +4207,638 @@ def phase_text_all(device, rows: int = TEXT_ROWS,
 
 
 # ---------------------------------------------------------------------------
+# ingestion and explainability: [quickstart], [readers], [insights]
+# ---------------------------------------------------------------------------
+
+#: records of the README's Quick start CSV (75 % trained, 25 % held out)
+QUICKSTART_ROWS = 100_000
+#: users of the [readers] event log (~10.3 events a user: ~205,000); cut
+#: from 40,000 to keep the three phases within NEW_PHASES_BUDGET_S once
+#: the label-free score reads the log a third time
+READERS_USERS = 20_000
+#: scored rows each model's insights run over
+INSIGHT_ROWS = 5_000
+#: card (float32) against a CPU reload (float64): LOCO's diffs, the Corr
+#: insight's correlations, normalizers and importances
+INSIGHT_TOL = 1e-5
+#: LOCO's top K in [insights]
+INSIGHT_TOP_K = 3
+#: the streamed holdout's batches
+STREAM_BATCH = 1_000
+#: the three new phases together, seconds on the card: logged beside
+#: their time, not enforced (the host's speed varies between machines)
+NEW_PHASES_BUDGET_S = 60.0
+#: the Quick start CSV's columns (the Titanic example's records)
+QUICKSTART_COLUMNS = ("id", "survived", "pClass", "name", "sex", "age",
+                      "sibSp", "parCh", "ticket", "fare", "cabin",
+                      "embarked")
+
+
+def write_csv(path: str, records, columns) -> None:
+    """``records`` as a header CSV, None as an empty cell."""
+    import csv
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(columns)
+        for r in records:
+            w.writerow(["" if r[c] is None else r[c] for c in columns])
+
+
+def quickstart_workflow(csv_path: str, device, models=None,
+                        families: dict = None):
+    """The README's Quick start with the port's imports: typed age, sex
+    and survived, transmogrify, ``sanity_check``, the binary selector
+    under 3-fold CV over ``models`` (default: the card-against-CPU pool,
+    ``small_models``; each family's search timed into ``families`` when it
+    is given), trained through ``DataReaders.Simple.csv_auto``. Returns
+    (workflow, model, prediction feature)."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops import transmogrify
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.types import PickList, Real, RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+    dev = resolve_device(device)
+    age = FeatureBuilder.of("age", Real).extract(
+        lambda r: r.get("age")).as_predictor()
+    sex = FeatureBuilder.of("sex", PickList).extract(
+        lambda r: r.get("sex")).as_predictor()
+    y = FeatureBuilder.of("survived", RealNN).extract(
+        lambda r: r.get("survived")).as_response()
+    checked = transmogrify([age, sex]).sanity_check(y)
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, models=models if models is not None
+        else small_models(dev), device=dev)
+    if families is not None:
+        for est, _ in sel.models:
+            time_family(est, families)
+    pred = sel.set_input(y, checked).get_output()
+    wf = (Workflow(device=dev).set_result_features(pred)
+          .set_reader(DataReaders.Simple.csv_auto(csv_path)))
+    return wf, wf.train(), pred
+
+
+def _scores(scored, name: str) -> np.ndarray:
+    """A scored prediction column's scores: its probabilities, else (a
+    LinearSVC) its raw margins."""
+    col = scored[name]
+    for arr in (col.probability, col.raw_prediction):
+        if arr.shape[1]:
+            return np.asarray(arr, dtype=np.float64)
+    return np.asarray(col.data, dtype=np.float64).reshape(-1, 1)
+
+
+def _searched(families: dict) -> dict:
+    """The family records of a search and K1's launches by C since the
+    counts were zeroed."""
+    return {"families": families, "k1_launches": level_hist.launches,
+            "k1_launches_by_c": dict(sorted(
+                level_hist.launches_by_c.items()))}
+
+
+def _log_families(tag: str, families: dict) -> None:
+    for name, rec in families.items():
+        log(f"[{tag}] {name}: {rec['candidates']} models x folds in "
+            f"{rec['seconds']:.2f} s; K1 launches "
+            f"{rec.get('k1_launches', 0)}: " + " ".join(
+                f"C={c}:{k}" for c, k in rec["k1_launches_by_c"].items()))
+
+
+def _check_k1(tag: str, dev, searched: dict) -> None:
+    if dev.type != "cuda":
+        return
+    idle = [f for f in TREE_FAMILIES if f in searched["families"]
+            and searched["families"][f].get("k1_launches", 0) == 0]
+    if searched["k1_launches"] == 0 or idle:
+        raise AssertionError(f"[{tag}] K1 never launched by "
+                             f"{idle or 'the search'}")
+
+
+def phase_quickstart(device, workdir: str, rows: int = QUICKSTART_ROWS,
+                     models=None) -> dict:
+    """[quickstart]: the README's Quick start (``quickstart_workflow``)
+    on ``rows`` seeded Titanic-shaped records, 75 % written to a CSV and
+    trained through ``DataReaders.Simple.csv_auto``; ``summary_pretty()``
+    and ``model_insights().pretty()`` printed; saved, reloaded through
+    ``load_score_function`` and one record served; the 25 % holdout
+    streamed in batches of STREAM_BATCH (``StreamingReader.from_records``)
+    through ``score(engine="compiled")``, within 1e-6 of one whole-holdout
+    compiled score, and evaluated (AuPR). K1's launches are counted from
+    zero just before the train; on a card, K1 against its plain version on
+    the training matrix (``[k1-quickstart]``)."""
+    from transmogrifai_tpu_torch.readers import StreamingReader
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    train, holdout = titanic.stratified_split(
+        titanic.synthetic_titanic(rows, seed=17))
+    os.makedirs(workdir, exist_ok=True)
+    csv_path = os.path.join(workdir, "titanic.csv")
+    write_csv(csv_path, train, QUICKSTART_COLUMNS)
+    out = {"rows": rows, "train_records": len(train),
+           "holdout_records": len(holdout),
+           "write_csv_s": time.perf_counter() - t0}
+    families: dict = {}
+    clear_design_cache()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    t0 = time.perf_counter()
+    wf, model, pred = quickstart_workflow(csv_path, dev, models, families)
+    out["train_s"] = time.perf_counter() - t0
+    out.update(_searched(families))
+    wf_s = dict(wf.last_train_seconds)
+    out["workflow_seconds"] = wf_s
+    summary = model.summary_pretty()
+    insights = model.model_insights()
+    log(f"[quickstart] summary_pretty():\n{summary}")
+    log(f"[quickstart] model_insights().pretty():\n{insights.pretty()}")
+    selected = pred_stage(model, pred)
+    s = selected.summary
+    out.update(winner=s.best_model_name, winner_params=s.best_model_params,
+               best_metric=s.best_validation_metric,
+               metric_matrix=metric_matrix(selected).tolist(),
+               insight_features=len(insights.features))
+    log(f"[quickstart] {len(train)} CSV records trained on {dev} in "
+        f"{out['train_s']:.2f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in wf_s.items()) + f"); winner "
+        f"{s.best_model_name} {s.best_model_params} AuPR "
+        f"{s.best_validation_metric:.6f}; K1 launches "
+        f"{out['k1_launches']}")
+    _log_families("quickstart", families)
+    _check_k1("quickstart", dev, out)
+    if dev.type == "cuda":
+        checked = pred_stage(model, pred).input_features[1]
+        out["k1"] = phase_k1_inputs(dev, matrix_k1_inputs(
+            dev, model.train_dataset[checked.name].data, np.asarray(
+                model.train_dataset["survived"].data, dtype=np.float64),
+            "quickstart matrix"), "k1-quickstart", 11)
+    # save, reload, serve one record
+    path = os.path.join(workdir, "model")
+    t0 = time.perf_counter()
+    model.save(path)
+    score = load_score_function(path, device=dev)
+    served = score({"age": 29.0, "sex": "female"})[pred.name]
+    out["save_load_s"] = time.perf_counter() - t0
+    out["served"] = served
+    log(f"[quickstart] saved, reloaded on {dev} and served one record in "
+        f"{out['save_load_s']:.2f} s: {served}")
+    if not all(np.isfinite(v) for v in served.values()):
+        raise AssertionError(f"[quickstart] served {served}")
+    # the holdout streamed against one whole score
+    t0 = time.perf_counter()
+    whole = model.score(holdout, engine="compiled")
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = [_scores(model.score(batch, engine="compiled"), pred.name)
+             for batch in StreamingReader.from_records(holdout,
+                                                       STREAM_BATCH)]
+    stream_s = time.perf_counter() - t0
+    p_whole = _scores(whole, pred.name)
+    gap = float(np.abs(np.concatenate(parts) - p_whole).max())
+    evaluator = BinaryClassificationEvaluator(label_col="survived",
+                                              prediction_col=pred.name)
+    metrics = evaluator.evaluate_all(whole)
+    out.update(holdout_aupr=metrics.AuPR, holdout_auroc=metrics.AuROC,
+               whole_score_s=whole_s, stream_s=stream_s,
+               stream_batches=len(parts), stream_max_abs_diff=gap)
+    log(f"[quickstart] holdout {len(holdout)} records: one compiled score "
+        f"{whole_s:.3f} s, {len(parts)} streamed batches of {STREAM_BATCH} "
+        f"{stream_s:.3f} s, max |stream - whole| score {gap:.3e} (tol "
+        f"{COMPILED_SCORE_TOL}); AuPR {metrics.AuPR:.6f} AuROC "
+        f"{metrics.AuROC:.6f}")
+    if gap > COMPILED_SCORE_TOL or not np.isfinite(metrics.AuPR):
+        raise AssertionError("[quickstart] the streamed holdout differs "
+                             "from its whole score")
+    out["_insight_input"] = {"model": model, "prediction": pred,
+                             "path": path, "raw": whole,
+                             "tag": "quickstart"}
+    return out
+
+
+def pred_stage(model, pred):
+    """The SelectedModel that makes ``pred`` in the fitted ``model``."""
+    return model._resolve(pred).origin_stage
+
+
+class _Timed:
+    """Adds the seconds of a bound method's calls to ``seconds[key]``."""
+
+    def __init__(self, obj, method: str, seconds: dict, key: str):
+        real = getattr(obj, method)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                seconds[key] = seconds.get(key, 0.0) + \
+                    time.perf_counter() - t0
+        setattr(obj, method, timed)
+
+
+def timed_event_reader(sends_glob: str, clicks_glob: str, cutoff_ms: int,
+                       seconds: dict, responses: bool = True):
+    """``dataprep.event_reader`` over two ``AvroProductReader`` sources,
+    its Avro reading, both sides' aggregation (reading included) and the
+    whole join timed into ``seconds``. With ``responses`` False the reader
+    refuses a response feature, as a log read before the day after the
+    cutoff has happened would."""
+    from transmogrifai_tpu_torch.examples import dataprep
+    from transmogrifai_tpu_torch.readers import AvroProductReader
+    sources = [AvroProductReader(g) for g in (sends_glob, clicks_glob)]
+    for src in sources:
+        _Timed(src, "read_records", seconds, "avro_read")
+    reader = dataprep.event_reader(*sources, cutoff_ms)
+    for side in (reader.left, reader.right):
+        _Timed(side, "generate_dataset", seconds, "aggregate_and_read")
+    _Timed(reader, "generate_dataset", seconds, "reader_total")
+    if not responses:
+        generate = reader.generate_dataset
+
+        def predictors_only(raw_features):
+            if any(f.is_response for f in raw_features):
+                raise ValueError("the log holds no response yet")
+            return generate(raw_features)
+        reader.generate_dataset = predictors_only
+    return reader
+
+
+def _reader_split(seconds: dict) -> dict:
+    """Avro reading, aggregation and join seconds of a timed reader."""
+    read = seconds.get("avro_read", 0.0)
+    agg = seconds.get("aggregate_and_read", 0.0)
+    return {"avro_read_s": read, "aggregate_s": agg - read,
+            "join_s": seconds.get("reader_total", 0.0) - agg}
+
+
+def phase_readers(device, workdir: str, users: int = READERS_USERS,
+                  models=None) -> dict:
+    """[readers]: the seeded e-mail event log (``examples/dataprep.py``:
+    ``users`` users, sends and clicks) written as deflate Avro files, two
+    AggregateDataReaders over AvroProductReader sources joined left outer
+    by JoinedAggregateReaders; the workflow (``dataprep.event_features``:
+    sums over a day and a week, a mean, a logical or, the last campaign, a
+    union of topics, the subjects' text, the clicks' midpoint; the label
+    whether the user clicks in the day after the cutoff) trained at one
+    cutoff with ``models`` (default: the card-against-CPU pool), then
+    scored at a cutoff 7 days later through a second reader on the same
+    files with its responses (evaluated), and through a third that
+    refuses the response with the compiled engine (the label all NaN, the
+    predictions within ``COMPILED_SCORE_TOL`` of those with responses).
+    Seconds of Avro reading, aggregation, join,
+    raw extraction, fits and the search by family; K1's launches by
+    family and C, counted from zero just before the train; on a card, K1
+    against its plain version on the training matrix (``[k1-readers]``)."""
+    from transmogrifai_tpu_torch.examples import dataprep
+    from transmogrifai_tpu_torch.features.columns import Dataset
+    from transmogrifai_tpu_torch.ops import transmogrify
+    from transmogrifai_tpu_torch.workflow import Workflow
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    sends, clicks = dataprep.synthetic_event_log(users, seed=7)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    globs = dataprep.write_event_log(sends, clicks,
+                                     os.path.join(workdir, "log"))
+    write_s = time.perf_counter() - t0
+    out = {"users": users, "sends": len(sends), "clicks": len(clicks),
+           "events": len(sends) + len(clicks), "generate_s": gen_s,
+           "write_avro_s": write_s,
+           "avro_bytes": sum(os.path.getsize(os.path.join(workdir, "log", f))
+                             for f in os.listdir(os.path.join(workdir,
+                                                              "log")))}
+    del sends, clicks
+    log(f"[readers] {users} users, {out['sends']} sends and "
+        f"{out['clicks']} clicks generated in {gen_s:.2f} s, written as "
+        f"deflate Avro ({out['avro_bytes']} bytes) in {write_s:.2f} s")
+    cut = dataprep.START_MS + 14 * dataprep.DAY_MS
+    label, predictors = dataprep.event_features()
+    vector = transmogrify(predictors)
+    sel = dataprep.default_selector(
+        dev, models if models is not None else small_models(dev))
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families)
+    pred = sel.set_input(label, vector).get_output()
+    clear_design_cache()
+    train_sec: dict = {}
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    wf = (Workflow(device=dev).set_result_features(label, pred)
+          .set_reader(timed_event_reader(*globs, cut, train_sec)))
+    t0 = time.perf_counter()
+    model = wf.train()
+    out["train_s"] = time.perf_counter() - t0
+    out.update(_searched(families))
+    plan = wf.last_prepare_plan
+    search_label = next(k for k in plan.fit_seconds
+                        if k.startswith("ModelSelector("))
+    out["train_reader"] = _reader_split(train_sec)
+    out["workflow_seconds"] = dict(wf.last_train_seconds)
+    out["raw_extraction_s"] = wf.last_train_seconds["raw_extraction"]
+    out["search_s"] = plan.fit_seconds[search_label]
+    out["fits_s"] = sum(v for k, v in plan.fit_seconds.items()
+                        if k != search_label)
+    X = model.train_dataset[vector.name].data
+    selected = pred_stage(model, pred)
+    s = selected.summary
+    out.update(matrix_shape=list(X.shape), matrix_device=str(X.device),
+               winner=s.best_model_name, winner_params=s.best_model_params,
+               best_metric=s.best_validation_metric,
+               metric_matrix=metric_matrix(selected).tolist())
+    log(f"[readers] trained at the cutoff on {dev} in {out['train_s']:.2f} s:"
+        f" Avro reading {out['train_reader']['avro_read_s']:.3f} s, "
+        f"aggregation {out['train_reader']['aggregate_s']:.3f} s, join "
+        f"{out['train_reader']['join_s']:.3f} s (raw extraction "
+        f"{out['raw_extraction_s']:.3f} s); fits {out['fits_s']:.3f} s, "
+        f"search {out['search_s']:.3f} s; matrix {tuple(X.shape)} on "
+        f"{X.device}; winner {s.best_model_name} {s.best_model_params} "
+        f"AuPR {s.best_validation_metric:.6f}; K1 launches "
+        f"{out['k1_launches']}: " + " ".join(
+            f"C={c}:{k}" for c, k in out["k1_launches_by_c"].items()))
+    _log_families("readers", families)
+    _check_k1("readers", dev, out)
+    if dev.type == "cuda":
+        out["k1"] = phase_k1_inputs(dev, matrix_k1_inputs(
+            dev, X, np.asarray(model.train_dataset[label.name].data,
+                               dtype=np.float64), "event-log matrix"),
+            "k1-readers", 13)
+    del X
+    # a week later, through a second reader on the same files
+    score_sec: dict = {}
+    later = timed_event_reader(*globs, cut + 7 * dataprep.DAY_MS, score_sec)
+    evaluator = BinaryClassificationEvaluator(label_col=label.name,
+                                              prediction_col=pred.name)
+    t0 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(later, evaluator)
+    out["score_s"] = time.perf_counter() - t0
+    out["score_reader"] = _reader_split(score_sec)
+    free_sec: dict = {}
+    free_reader = timed_event_reader(*globs, cut + 7 * dataprep.DAY_MS,
+                                     free_sec, responses=False)
+    t0 = time.perf_counter()
+    free = model.score(free_reader, engine="compiled")
+    out["score_without_responses_s"] = time.perf_counter() - t0
+    out["score_without_responses_reader"] = _reader_split(free_sec)
+    p, p_free = _scores(scored, pred.name), _scores(free, pred.name)
+    gap = float(np.abs(p - p_free).max())
+    label_nan = bool(np.isnan(free[label.name].data).all())
+    out.update(score_rows=scored.n_rows, holdout_aupr=metrics.AuPR,
+               holdout_auroc=metrics.AuROC,
+               label_rate=float(np.mean(scored[label.name].data)),
+               without_responses_max_abs_diff=gap,
+               without_responses_label_nan=label_nan)
+    log(f"[readers] scored 7 days later through a second reader: "
+        f"{scored.n_rows} users in {out['score_s']:.2f} s (Avro reading "
+        f"{out['score_reader']['avro_read_s']:.3f} s, aggregation "
+        f"{out['score_reader']['aggregate_s']:.3f} s, join "
+        f"{out['score_reader']['join_s']:.3f} s), label rate "
+        f"{out['label_rate']:.4f}, AuPR {metrics.AuPR:.6f} AuROC "
+        f"{metrics.AuROC:.6f}; without responses (compiled) "
+        f"{out['score_without_responses_s']:.3f} s through a third reader "
+        f"that refuses the response, label all NaN "
+        f"{label_nan}, max |score - score with responses| {gap:.3e} (tol "
+        f"{COMPILED_SCORE_TOL})")
+    if not label_nan or gap > COMPILED_SCORE_TOL or not np.isfinite(
+            metrics.AuPR):
+        raise AssertionError("[readers] scoring without responses differs")
+    path = os.path.join(workdir, "model")
+    model.save(path)
+    free_in = Dataset({f.name: scored[f.name] for f in predictors})
+    out["_insight_input"] = {"model": model, "prediction": pred,
+                             "path": path, "raw": free_in,
+                             "tag": "readers"}
+    return out
+
+
+def _loco_rows(loco, X, meta, top_k: int):
+    """(groups, diffs, seconds) of ``loco`` over the matrix ``X``."""
+    from transmogrifai_tpu_torch.features.columns import FeatureColumn
+    t0 = time.perf_counter()
+    col = FeatureColumn.vector(X, meta)
+    groups, diffs = loco.group_diffs(col)
+    maps = loco.transform_columns([col])
+    return groups, diffs, maps, time.perf_counter() - t0
+
+
+def _top_k_agree(card: np.ndarray, cpu: np.ndarray, k: int,
+                 tol: float) -> tuple:
+    """Rows whose top-K groups by |diff| differ between the two diff
+    matrices, among the rows where no tie straddles K (the K-th and
+    K+1-th |diff| of the CPU's apart by more than 2 ``tol``); and the
+    count of rows so compared."""
+    k = min(k, cpu.shape[1])
+    if k == cpu.shape[1]:
+        return 0, cpu.shape[0]
+    a, b = np.abs(card), np.abs(cpu)
+    srt = -np.sort(-b, axis=1)
+    clear = srt[:, k - 1] - srt[:, k] > 2 * tol
+    top_a = np.argsort(-a, axis=1, kind="stable")[:, :k]
+    top_b = np.argsort(-b, axis=1, kind="stable")[:, :k]
+    differ = [i for i in np.flatnonzero(clear)
+              if set(top_a[i]) != set(top_b[i])]
+    return len(differ), int(clear.sum())
+
+
+def phase_insights(device, inputs, trees=None, rows: int = INSIGHT_ROWS
+                   ) -> dict:
+    """[insights], for each workflow of ``inputs`` (the _insight_input of
+    [quickstart] and [readers]): its first ``rows`` scored rows' feature
+    vector (``compute_data_up_to``) on the card in its working dtype,
+    through RecordInsightsLOCO on the card and, those same values in
+    float64, on a CPU reload of the same saved model (every diff within
+    INSIGHT_TOL, the same top-K groups wherever no tie straddles K), and
+    RecordInsightsCorr fitted and applied on the card and on the CPU
+    (correlations, normalizers and importances within INSIGHT_TOL, NaN
+    alike); then ``feature_importances`` of each fixed tree model of
+    ``trees`` ((tag, model) on the card) against its CPU reload: exact,
+    summing to 1. Seconds of each; K1 launches none."""
+    import tempfile
+    from transmogrifai_tpu_torch.features.columns import (FeatureColumn,
+                                                          PredictionColumn)
+    from transmogrifai_tpu_torch.insights import (RecordInsightsCorr,
+                                                  RecordInsightsLOCO)
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    dev = resolve_device(device)
+    launches = level_hist.launches
+    out = {}
+    for inp in inputs:
+        tag, model, pred = inp["tag"], inp["model"], inp["prediction"]
+        raw = inp["raw"].take(np.arange(min(rows, inp["raw"].n_rows)))
+        selected = pred_stage(model, pred)
+        vec_f = selected.input_features[1]
+        t0 = time.perf_counter()
+        data = model.compute_data_up_to(pred, raw)
+        compute_s = time.perf_counter() - t0
+        meta = data[vec_f.name].metadata
+        # the vector as the card holds it (the working dtype there); the
+        # CPU reload reads those same values in float64
+        X = torch.as_tensor(np.asarray(data[vec_f.name].data), device=dev,
+                            dtype=working_dtype(dev))
+        X_host = X.double().cpu().numpy()
+        cpu_model = WorkflowModel.load(inp["path"], device="cpu")
+        cpu_sel = pred_stage(cpu_model, pred)
+        rec = {"rows": int(X_host.shape[0]), "columns": int(X_host.shape[1]),
+               "vector_device": str(X.device), "vector_dtype": str(X.dtype),
+               "compute_data_up_to_s": compute_s}
+        # LOCO
+        groups, d_card, maps, rec["loco_card_s"] = _loco_rows(
+            RecordInsightsLOCO(model=selected, top_k=INSIGHT_TOP_K), X,
+            meta, INSIGHT_TOP_K)
+        _, d_cpu, _, rec["loco_cpu_s"] = _loco_rows(
+            RecordInsightsLOCO(model=cpu_sel, top_k=INSIGHT_TOP_K), X_host,
+            meta, INSIGHT_TOP_K)
+        rec["loco_groups"] = len(groups)
+        rec["loco_max_abs_diff"] = float(np.abs(d_card - d_cpu).max())
+        rec["loco_top_k_differ"], rec["loco_rows_compared"] = _top_k_agree(
+            d_card, d_cpu, INSIGHT_TOP_K, INSIGHT_TOL)
+        # Corr, on the card's predictions
+        preds = data[pred.name]
+        fit_s = {}
+        corr = {}
+        for where, Xw in (("card", X), ("cpu", X_host)):
+            cols = [PredictionColumn.from_arrays(
+                preds.data, probability=preds.probability,
+                raw_prediction=preds.raw_prediction),
+                FeatureColumn.vector(Xw, meta)]
+            t0 = time.perf_counter()
+            cm = RecordInsightsCorr(top_k=INSIGHT_TOP_K).fit_columns(cols)
+            imp = cm.importances(torch.as_tensor(
+                Xw, device=dev if where == "card" else "cpu",
+                dtype=working_dtype(dev if where == "card"
+                                   else torch.device("cpu"))))
+            cm.transform_columns(cols)
+            fit_s[where] = time.perf_counter() - t0
+            corr[where] = (cm, imp)
+        (cc, ic), (cp, ip) = corr["card"], corr["cpu"]
+        nan_same = bool(np.array_equal(np.isnan(cc.score_corr),
+                                       np.isnan(cp.score_corr)))
+        corr_gap = float(np.nanmax(np.abs(cc.score_corr - cp.score_corr))) \
+            if np.isfinite(cp.score_corr).any() else 0.0
+        norm_gap = max(float(np.abs(getattr(cc, a) - getattr(cp, a)).max()
+                             / max(1.0, float(np.abs(getattr(cp, a)).max())))
+                       for a in ("norm_shift", "norm_scale"))
+        imp_gap = float(np.abs(ic - ip).max())
+        rec.update(corr_card_s=fit_s["card"], corr_cpu_s=fit_s["cpu"],
+                   corr_max_abs_diff=corr_gap, corr_nan_alike=nan_same,
+                   corr_norm_max_rel_diff=norm_gap,
+                   corr_importance_max_abs_diff=imp_gap)
+        log(f"[insights] {tag}: {rec['rows']} rows x {rec['columns']} "
+            f"columns on {rec['vector_device']} (compute_data_up_to "
+            f"{compute_s:.3f} s); LOCO over {len(groups)} groups: card "
+            f"{rec['loco_card_s']:.3f} s, CPU reload {rec['loco_cpu_s']:.3f}"
+            f" s, max |card - cpu| diff {rec['loco_max_abs_diff']:.3e} (tol "
+            f"{INSIGHT_TOL}), top-{INSIGHT_TOP_K} groups differ in "
+            f"{rec['loco_top_k_differ']} of {rec['loco_rows_compared']} "
+            f"rows without a tie at K; Corr card {fit_s['card']:.3f} s, CPU "
+            f"{fit_s['cpu']:.3f} s, correlations {corr_gap:.3e}, NaN alike "
+            f"{nan_same}, normalizers rel {norm_gap:.3e}, importances "
+            f"{imp_gap:.3e}; e.g. {maps.data[0]}")
+        if (rec["loco_max_abs_diff"] > INSIGHT_TOL
+                or rec["loco_top_k_differ"] or corr_gap > INSIGHT_TOL
+                or not nan_same or norm_gap > INSIGHT_TOL
+                or imp_gap > INSIGHT_TOL):
+            raise AssertionError(f"[insights] {tag}: card and CPU "
+                                 f"insights disagree")
+        out[tag] = rec
+    for tag, model in trees or ():
+        with tempfile.TemporaryDirectory() as path:
+            t0 = time.perf_counter()
+            stage = _model_stage(model)
+            imp = stage.feature_importances
+            card_s = time.perf_counter() - t0
+            model.save(os.path.join(path, "m"))
+            cpu = _model_stage(WorkflowModel.load(os.path.join(path, "m"),
+                                                  device="cpu"))
+            imp_cpu = cpu.feature_importances
+        same = bool(np.array_equal(imp, imp_cpu))
+        rec = {"model": type(stage).__name__, "trees_on": str(stage.device),
+               "features": int(imp.size), "nonzero": int((imp > 0).sum()),
+               "sum": float(imp.sum()), "seconds": card_s, "equal": same,
+               "top": [int(j) for j in np.argsort(-imp, kind="stable")[:5]]}
+        log(f"[insights] {tag}: feature_importances of {rec['model']} on "
+            f"{rec['trees_on']} in {card_s:.4f} s: {rec['nonzero']} of "
+            f"{rec['features']} columns split on, sum {rec['sum']!r}, "
+            f"equal to the CPU reload's: {same}; top columns {rec['top']}")
+        if not same or abs(rec["sum"] - 1.0) > 1e-12:
+            raise AssertionError(f"[insights] {tag}: importances differ")
+        out[tag] = rec
+    out["k1_launches"] = level_hist.launches - launches
+    if out["k1_launches"]:
+        raise AssertionError("[insights] K1 launched while explaining")
+    return out
+
+
+def _model_stage(model):
+    """The prediction model of a fitted workflow model."""
+    from transmogrifai_tpu_torch.models.base import PredictionModel
+    return next(s for s in model.stages() if isinstance(s, PredictionModel))
+
+
+def fixed_tree_models(device, run: dict) -> list:
+    """(tag, model) of a fixed depth-6 20-round GBT and a 50-tree depth-6
+    forest on [readers]' event-log workflow (the --readers-only stand-in
+    for phase 8c's Titanic trees)."""
+    from transmogrifai_tpu_torch.examples import dataprep
+    from transmogrifai_tpu_torch.ops import transmogrify
+    from transmogrifai_tpu_torch.workflow import Workflow
+    dev = resolve_device(device)
+    inp = run["_insight_input"]
+    out = []
+    for tag, est in (("gbt", GBTClassifier(num_rounds=20, max_depth=6,
+                                           device=dev)),
+                     ("rf", RandomForestClassifier(num_trees=50, max_depth=6,
+                                                   device=dev))):
+        label, predictors = dataprep.event_features()
+        pred = est.set_input(label, transmogrify(predictors)).get_output()
+        ds = inp["model"].train_dataset
+        raw = type(ds)({f.name: ds[f.name] for f in [label] + predictors})
+        model = (Workflow(device=dev).set_result_features(pred)
+                 .set_input_dataset(raw).train())
+        out.append((f"{tag}-fixed", model))
+    return out
+
+
+def phase_ingest_explain(device, quickstart_rows: int = QUICKSTART_ROWS,
+                         users: int = READERS_USERS, trees=None,
+                         families=FAMILIES, num_rounds: int = 20) -> dict:
+    """[quickstart] and [readers], each searching the card-against-CPU
+    pool (``small_models``: ``families`` at ``num_rounds`` boosting
+    rounds), and [insights] in turn (``trees``: phase 8c's fixed GBT and
+    forest; without them, fixed trees on [readers]' workflow), with their
+    seconds."""
+    import shutil
+    import tempfile
+    pool = lambda: small_models(device, num_rounds,  # noqa: E731
+                                families=families)
+    workdir = tempfile.mkdtemp(prefix="ingest_explain_")
+    try:
+        t0 = time.perf_counter()
+        qs = phase_quickstart(device, os.path.join(workdir, "quickstart"),
+                              quickstart_rows, models=pool())
+        t1 = time.perf_counter()
+        rd = phase_readers(device, os.path.join(workdir, "readers"), users,
+                           models=pool())
+        t2 = time.perf_counter()
+        if trees is None:
+            trees = fixed_tree_models(device, rd)
+        t3 = time.perf_counter()
+        ins = phase_insights(device, [qs.pop("_insight_input"),
+                                      rd.pop("_insight_input")], trees)
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = {"quickstart": t1 - t0, "readers": t2 - t1,
+               "insights": t4 - t3, "fixed_trees": t3 - t2,
+               "total": (t2 - t0) + (t4 - t3)}
+    within = seconds["total"] <= NEW_PHASES_BUDGET_S
+    log(f"[ingest-explain] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+        f"(budget {NEW_PHASES_BUDGET_S} s for the three phases, reported "
+        f"only: within {within}"
+        f"{', the fixed trees outside it' if seconds['fixed_trees'] > 0.01 else ''})")
+    return {"quickstart": qs, "readers": rd, "insights": ins,
+            "seconds": seconds, "within_budget": within}
+
+
+# ---------------------------------------------------------------------------
 # the card-against-CPU phases, after the timed ones
 # ---------------------------------------------------------------------------
 
@@ -4184,6 +4956,11 @@ def main(argv=None) -> int:
                     help="run only the build and the text phases ([text] "
                          "with K1 at its shapes and its serving, "
                          "[text-agree]) and print their JSON last")
+    ap.add_argument("--readers-only", action="store_true",
+                    help="run only the build and the ingestion and "
+                         "explainability phases ([quickstart], [readers], "
+                         "[insights] with fixed trees on the event log) "
+                         "and print their JSON last")
     ap.add_argument("--agree-witness-rows", type=int, default=None,
                     help="with --workflow-only: run only [wf-agree] at "
                          "this many records with the linear families' "
@@ -4207,6 +4984,15 @@ def main(argv=None) -> int:
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(info["smi"])
         print(json.dumps({"text": txt}, default=str))
+        return 0
+    if args.readers_only:
+        ie = phase_ingest_explain(device)
+        laps("9m-9o ingest-explain")
+        write_out(args.out, {"device": info, "ingest_explain": ie})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"ingest_explain": ie}, default=str))
         return 0
     if args.workflow_only and args.agree_witness_rows:
         witness = phase_workflow_agree(device, args.agree_witness_rows,
@@ -4247,6 +5033,8 @@ def main(argv=None) -> int:
         wf_run = phase_workflow(device, args.workflow_rows, profile=False)
         wf_run["copies"] = phase_workflow_copies(device)
         serve_saved, serve_compiled = phase_serving(wf_run)
+        for t in serve_compiled.get("trees", ()):
+            t.pop("_model")
         wf_agree = phase_workflow_agree(device)
         checks = phase_validation(device, args.workflow_rows, args.cv_rows,
                                   exact=exact_of(wf_run))
@@ -4313,6 +5101,9 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
     # the third and fourth paths: save, reload and serve phase 8's model
     # record by record, then through the compiled plan and the server
     serve_saved, serve_compiled = phase_serving(wf_run)
+    # phase 8c's fixed GBT and forest, whose importances [insights] reads
+    fixed_trees = [(f"{t['stage']}-8c", t.pop("_model"))
+                   for t in serve_compiled["trees"]]
     laps("8b-8c serving")
     # the feature-validation paths: the validated DAG raced at phase 8's
     # size (its exact search is phase 8's), workflow CV, card against CPU
@@ -4332,6 +5123,13 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
     # save, serve under a default ServeConfig(), card against CPU
     txt = phase_text_all(device, args.text_rows, agree=False)
     laps("9k text")
+    # ingestion and explainability: the README's Quick start from a CSV,
+    # the keyed event log from Avro files, the insights of both on the
+    # card against CPU reloads, phase 8c's trees' importances; each
+    # search counted from zero just before its train
+    ie = phase_ingest_explain(device, trees=fixed_trees)
+    del fixed_trees
+    laps("9m-9o ingest-explain")
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -4368,7 +5166,8 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
     fam_run = fam["families"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
         validate["rung_k1_case"]] + problems["k1"]["cases"] + \
-        fam_run["k1"]["cases"] + txt["text"]["k1"]["cases"]
+        fam_run["k1"]["cases"] + txt["text"]["k1"]["cases"] + \
+        ie["quickstart"]["k1"]["cases"] + ie["readers"]["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -4413,6 +5212,14 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
         name: rec["k1_launches"]
         for name, rec in txt_run["families"].items()}
     entry["launches_text_serve"] = txt_run["serve"]["k1_launches"]
+    for tag in ("quickstart", "readers"):
+        run = ie[tag]
+        entry[f"launches_{tag}"] = run["k1_launches"]
+        entry[f"launches_{tag}_by_c"] = run["k1_launches_by_c"]
+        entry[f"launches_{tag}_by_family"] = {
+            name: rec.get("k1_launches", 0)
+            for name, rec in run["families"].items()}
+    entry["launches_insights"] = ie["insights"]["k1_launches"]
     for tag in ("iris", "boston"):
         run = problems[tag]
         entry[f"launches_{tag}"] = run["k1_launches"]
@@ -4427,7 +5234,8 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
                          "serve_compiled": serve_compiled,
                          "workflow_agree": wf_agree, **checks,
                          "problems": problems, "families": fam,
-                         "text": txt, "profile": prof,
+                         "text": txt, "ingest_explain": ie,
+                         "profile": prof,
                          "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})
     laps.log()

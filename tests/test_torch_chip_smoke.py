@@ -9,9 +9,11 @@ regression phases ([k1-problems]' inputs, [iris], [boston],
 default ``ServeConfig()`` server, [k1-text]'s inputs, [text-agree]) at a
 tiny size on an explicit CPU device, the drift sentinel's checks in the
 serving phases, the phases' wiring into the runs (``--problems-only``,
-``--families-only``, ``--text-only`` and ``--workflow-only
---agree-witness-rows`` among them), and the script's refusal to run
-without a card."""
+``--families-only``, ``--text-only``, ``--readers-only`` and
+``--workflow-only --agree-witness-rows`` among them), the ingestion and
+explainability phases ([quickstart], [readers], [insights]), the tree
+families' float64 witness (``tree_dtype``), and the script's refusal to
+run without a card."""
 import os
 import subprocess
 import sys
@@ -412,6 +414,12 @@ def test_workflow_agree_phase():
     assert got["others_bitwise"] and got["float_max_rel_diff"] == 0.0
     assert got["metric_max_abs_diff"] == 0.0 and got["same_winner"]
     assert 0 < got["float_columns"] < 10
+    # the GBT points at min_child_weight 1 searched again in float64 on
+    # the plain histogram: the CPU on both sides, no gap
+    witness = got["tree_precision_witness"]
+    assert [p["min_child_weight"] for p in witness["points"]] == [1.0, 1.0]
+    assert witness["device_float64"] == witness["device_float32"] == \
+        [0.0, 0.0]
 
 
 #: a Chrome trace as torch.profiler (kineto) exports one: a copy each way,
@@ -1034,3 +1042,150 @@ def test_agree_phase_arguments(monkeypatch):
              if n.startswith("phase_problems_agree")]
     assert sorted(parts) == sorted(
         ["iris", "boston", f"k{chip_smoke.WIDE_K}"])
+
+
+@pytest.fixture(scope="module")
+def ingest_out():
+    """[quickstart], [readers] and [insights] on the CPU at a tiny size:
+    1,200 Quick start records, 250 event-log users, the GBT family alone
+    at two rounds, fixed trees on the event log."""
+    return chip_smoke.phase_ingest_explain(
+        "cpu", quickstart_rows=1200, users=250,
+        families=("GBTClassifier",), num_rounds=2)
+
+
+def test_quickstart_phase(ingest_out):
+    """The README's DAG trained through ``csv_auto`` on the CSV's 900
+    records, its summaries printed, a served record, the holdout streamed
+    in batches equal to its whole score."""
+    qs = ingest_out["quickstart"]
+    assert qs["train_records"] == 900 and qs["holdout_records"] == 300
+    assert qs["winner"] == "GBTClassifier"
+    assert list(qs["families"]) == ["GBTClassifier"]
+    assert qs["stream_max_abs_diff"] <= chip_smoke.COMPILED_SCORE_TOL
+    assert qs["stream_batches"] == 1 and np.isfinite(qs["holdout_aupr"])
+    assert all(np.isfinite(v) for v in qs["served"].values())
+    assert qs["k1_launches"] == 0 and qs["insight_features"] >= 2
+    assert "_insight_input" not in qs
+
+
+def test_readers_phase(ingest_out):
+    """The event log through Avro files and the joined aggregate readers:
+    trained, scored a week later through a reader with responses and
+    through one that refuses them (the Avro files read again)."""
+    rd = ingest_out["readers"]
+    assert rd["users"] == 250 and rd["events"] == rd["sends"] + rd["clicks"]
+    assert rd["avro_bytes"] > 0 and rd["matrix_device"] == "cpu"
+    for part in ("train_reader", "score_reader",
+                 "score_without_responses_reader"):
+        assert set(rd[part]) == {"avro_read_s", "aggregate_s", "join_s"}
+        assert all(v >= 0 for v in rd[part].values())
+        assert rd[part]["avro_read_s"] > 0
+    assert rd["score_rows"] > 200 and 0 < rd["label_rate"] < 0.5
+    assert rd["without_responses_label_nan"]
+    assert rd["without_responses_max_abs_diff"] == 0.0
+    assert rd["raw_extraction_s"] >= rd["train_reader"]["avro_read_s"]
+
+
+def test_insights_phase(ingest_out):
+    """LOCO and Corr on the CPU against a CPU reload agree exactly; the
+    fixed trees' importances equal their reloads'; no K1 launch."""
+    ins = ingest_out["insights"]
+    for tag in ("quickstart", "readers"):
+        rec = ins[tag]
+        assert rec["loco_max_abs_diff"] == 0.0
+        assert rec["loco_top_k_differ"] == 0
+        assert rec["corr_max_abs_diff"] == 0.0 and rec["corr_nan_alike"]
+        assert rec["corr_importance_max_abs_diff"] == 0.0
+    assert ins["readers"]["loco_groups"] == 10
+    assert ins["quickstart"]["loco_groups"] == 2
+    for tag in ("gbt-fixed", "rf-fixed"):
+        assert ins[tag]["equal"] and abs(ins[tag]["sum"] - 1.0) < 1e-12
+    assert ins["k1_launches"] == 0
+    secs = ingest_out["seconds"]
+    assert secs["total"] == pytest.approx(
+        secs["quickstart"] + secs["readers"] + secs["insights"])
+    assert ingest_out["within_budget"] == (
+        secs["total"] <= chip_smoke.NEW_PHASES_BUDGET_S)
+
+
+def test_top_k_agree():
+    """Top-K groups compared only where no tie straddles K."""
+    cpu = np.array([[0.5, 0.4, 0.1], [0.5, 0.3, 0.3], [0.1, 0.2, 0.9]])
+    card = np.array([[0.4, 0.5, 0.1], [0.5, 0.3, 0.3], [0.1, 0.2, 0.9]])
+    assert chip_smoke._top_k_agree(card, cpu, 1, 1e-5) == (1, 3)
+    assert chip_smoke._top_k_agree(card, cpu, 2, 1e-5) == (0, 2)
+    assert chip_smoke._top_k_agree(card, cpu, 3, 1e-5) == (0, 3)
+
+
+def test_tree_dtype():
+    """Inside ``tree_dtype`` the tree modules' working dtype is the one
+    given and the level histogram is the plain version; both come back
+    after, also on an error."""
+    from transmogrifai_tpu_torch.models import base, trees
+    real = (trees.working_dtype, base.working_dtype, trees.level_hist)
+    with pytest.raises(KeyError):
+        with chip_smoke.tree_dtype(torch.float16):
+            assert trees.working_dtype("cuda") is torch.float16
+            assert base.working_dtype("cpu") is torch.float16
+            assert trees.level_hist is not real[2]
+            raise KeyError
+    assert (trees.working_dtype, base.working_dtype,
+            trees.level_hist) == real
+
+
+@pytest.mark.parametrize("kind", ["binary", "regression"])
+def test_tree_precision_witness(kind):
+    """The witness on the CPU against the same search on the CPU: every
+    gap 0, the card's float32 gap reported as given."""
+    from transmogrifai_tpu_torch.models.trees import (GBTClassifier,
+                                                      GBTRegressor)
+    from transmogrifai_tpu_torch.selector import (
+        BinaryClassificationModelSelector, RegressionModelSelector)
+    X, y = chip_smoke.make_data(400, 6)
+    if kind == "binary":
+        factory = BinaryClassificationModelSelector.with_cross_validation
+        est, grid = GBTClassifier(num_rounds=2, device="cpu"), [
+            {"max_depth": 3, "min_child_weight": 1.0}]
+    else:
+        y = X[:, 0] * 2.0 + X[:, 1]
+        factory = RegressionModelSelector.with_cross_validation
+        est, grid = GBTRegressor(num_rounds=2, device="cpu"), [
+            {"max_depth": 6}, {"max_depth": 12}]
+    selector_fn = lambda d, models: factory(  # noqa: E731
+        num_folds=3, models=models, device=d)
+    cpu = chip_smoke.metric_matrix(selector_fn(
+        torch.device("cpu"), models=[(est, grid)]).fit_arrays(X, y))
+    got = chip_smoke.tree_precision_witness(
+        "cpu", selector_fn, est, grid, X, y, cpu, cpu + 1e-3, "test",
+        relative=kind == "regression")
+    assert got["device_float64"] == [0.0] * len(grid)
+    assert max(got["device_float32"]) > 0.0 and got["within_agree_tol"]
+    with pytest.raises(AssertionError, match="float64 too"):
+        chip_smoke.tree_precision_witness(
+            "cpu", selector_fn, est, grid, X, y, cpu + 1.0, cpu, "test")
+    wide = chip_smoke.tree_precision_witness(
+        "cpu", selector_fn, est, grid, X, y, cpu + 5e-3, cpu, "test",
+        tol=1e-2)
+    assert not wide["within_agree_tol"]
+
+
+def test_ingest_explain_is_wired_in(monkeypatch, capsys):
+    """``--readers-only`` runs phases 1, 2 and the three new phases and
+    prints their JSON last; the whole smoke runs them after [text] with
+    phase 8c's trees and lists their launches on K1's line."""
+    import json
+    src = _main_source()
+    assert src.count("phase_ingest_explain(device") == 2
+    assert "trees=fixed_trees" in src
+    assert 'for tag in ("quickstart", "readers")' in src
+    assert 'entry[f"launches_{tag}_by_family"]' in src
+    assert 'entry["launches_insights"]' in src
+    calls = []
+    _fake_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "phase_ingest_explain",
+                        lambda dev: calls.append(dev) or {"phase": "ingest"})
+    assert chip_smoke.main(["--readers-only"]) == 0
+    assert len(calls) == 1
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last == {"ingest_explain": {"phase": "ingest"}}

@@ -6,19 +6,24 @@ FeatureBuilder.scala:47-130). Usage:
 
     age  = FeatureBuilder.real("age").extract(lambda r: r["age"]).as_predictor()
     y    = FeatureBuilder.real_nn("survived").extract(...).as_response()
+    y, xs = FeatureBuilder.from_dataframe(df, response="survived")
 
-The DataFrame schema inference (``from_dataframe``, ``infer_schema``) is
-not ported.
+``from_dataframe`` (reference FeatureBuilder.fromDataFrame:190-217) infers a
+typed feature per column from a pandas DataFrame schema; pandas is
+imported only there, so the package runs without it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Type
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
+import numpy as np
+
+from .. import types as T
 from ..types import FeatureType
 from .feature import Feature
 from .generator import FeatureGeneratorStage
 
-__all__ = ["FeatureBuilder", "FeatureBuilderWithExtract"]
+__all__ = ["FeatureBuilder", "FeatureBuilderWithExtract", "infer_schema"]
 
 
 class FeatureBuilderWithExtract:
@@ -126,3 +131,64 @@ class FeatureBuilder(metaclass=_FeatureBuilderMeta):
     @staticmethod
     def of(name: str, ftype: Type[FeatureType]) -> _FeatureBuilderFor:
         return _FeatureBuilderFor(name, ftype)
+
+    @staticmethod
+    def from_dataframe(df, response: str,
+                       response_type: Type[FeatureType] = T.RealNN,
+                       schema: Optional[Dict[str, Type[FeatureType]]] = None,
+                       ) -> Tuple[Feature, List[Feature]]:
+        """Infer one typed feature per DataFrame column
+        (reference FeatureBuilder.fromDataFrame:190-217)."""
+        inferred = schema or infer_schema(df)
+        if response not in df.columns:
+            raise ValueError(f"Response column {response!r} not in DataFrame")
+        feats: List[Feature] = []
+        resp: Optional[Feature] = None
+        for name in df.columns:
+            ftype = response_type if name == response \
+                else inferred.get(name, T.Text)
+            builder = FeatureBuilderWithExtract(
+                name, ftype, _make_column_extract(name))
+            if name == response:
+                resp = builder.as_response()
+            else:
+                feats.append(builder.as_predictor())
+        return resp, feats
+
+
+def _make_column_extract(name: str):
+    return lambda rec: rec.get(name) if isinstance(rec, dict) \
+        else getattr(rec, name, None)
+
+
+def infer_schema(df, categorical_max_card: int = 100
+                 ) -> Dict[str, Type[FeatureType]]:
+    """Pandas dtype -> feature type inference. Low-cardinality strings map
+    to PickList, integer {0,1} to Binary (mirrors the intent of the
+    reference's CSV auto-readers, readers/.../CSVAutoReaders.scala)."""
+    import pandas as pd
+    out: Dict[str, Type[FeatureType]] = {}
+    for name in df.columns:
+        s = df[name]
+        dt = s.dtype
+        if pd.api.types.is_bool_dtype(dt):
+            out[name] = T.Binary
+        elif pd.api.types.is_integer_dtype(dt) or pd.api.types.is_float_dtype(dt):
+            vals = s.dropna().unique()
+            if len(vals) <= 2 and set(np.asarray(vals, dtype=float)) <= {0.0, 1.0}:
+                out[name] = T.Binary
+            elif pd.api.types.is_integer_dtype(dt):
+                out[name] = T.Integral
+            else:
+                out[name] = T.Real
+        elif pd.api.types.is_datetime64_any_dtype(dt):
+            out[name] = T.DateTime
+        else:
+            non_null = s.dropna()
+            nunique = non_null.nunique()
+            if 0 < nunique <= min(categorical_max_card,
+                                  max(2, len(non_null) // 2)):
+                out[name] = T.PickList
+            else:
+                out[name] = T.Text
+    return out

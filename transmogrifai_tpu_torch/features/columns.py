@@ -235,10 +235,47 @@ class Dataset:
     def select(self, names: Sequence[str]) -> "Dataset":
         return Dataset({n: self[n] for n in names})
 
+    def drop(self, names: Sequence[str]) -> "Dataset":
+        drop = set(names)
+        return Dataset({n: c for n, c in self._columns.items()
+                        if n not in drop})
+
     def take(self, idx: np.ndarray) -> "Dataset":
         """Rows ``idx`` of every column (a tensor column gathers on its
         own device)."""
         return Dataset({n: c.take(idx) for n, c in self._columns.items()})
+
+    def rows(self, names: Optional[Sequence[str]] = None):
+        """Iterate boxed row dicts — local-scoring edge only (a tensor
+        column is copied to the host once)."""
+        names = list(names) if names is not None else self.column_names
+        cols = {n: host_column(self._columns[n]) for n in names}
+        for i in range(self.n_rows):
+            yield {n: cols[n].boxed(i) for n in names}
+
+    # -- conversion (pandas is imported here only) -------------------------
+    @staticmethod
+    def from_pandas(df, schema: Dict[str, Type[FeatureType]]) -> "Dataset":
+        import pandas as pd
+        cols = {}
+        for name, ftype in schema.items():
+            values = [None if (v is None or (not isinstance(v, (list, tuple, set, frozenset, dict, np.ndarray))
+                               and pd.isna(v))) else v
+                      for v in df[name].tolist()]
+            cols[name] = FeatureColumn.from_values(ftype, values)
+        return Dataset(cols)
+
+    def to_pandas(self, names: Optional[Sequence[str]] = None):
+        import pandas as pd
+        names = list(names) if names is not None else self.column_names
+        out = {}
+        for n in names:
+            c = host_column(self._columns[n])
+            if c.kind == ColumnKind.VECTOR:
+                out[n] = [np.asarray(row) for row in c.data]
+            else:
+                out[n] = c.data
+        return pd.DataFrame(out)
 
     def __repr__(self) -> str:
         parts = ", ".join(f"{n}: {c.ftype.__name__}"

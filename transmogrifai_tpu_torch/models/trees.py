@@ -697,6 +697,30 @@ class _TreeArrays:
         self.depth = int(depth)
         self.n_features = int(n_features)
 
+    @property
+    def feature_importances(self) -> np.ndarray:
+        """Normalized real-split counts per training column, numpy
+        float64 (the JAX package's ``_split_count_importances``): a
+        finite threshold is a split, +inf a dead node; the counting runs
+        where the trees live."""
+        return _split_count_importances(self.feats, self.thrs,
+                                        self.n_features)
+
+
+def _split_count_importances(feats: torch.Tensor, thrs: torch.Tensor,
+                             n_features: int) -> np.ndarray:
+    """Each feature's count of real splits over every tree (any heap
+    layout: the booster's (rounds, K, heap) too), divided by their total;
+    zeros where no tree split."""
+    real = torch.isfinite(thrs)
+    if feats.numel() == 0 or not bool(real.any()):
+        return np.zeros(n_features)
+    counts = torch.bincount(feats[real].long().reshape(-1),
+                            minlength=n_features)
+    counts = counts.cpu().numpy().astype(np.float64)
+    total = counts.sum()
+    return counts / total if total > 0 else counts
+
 
 class GBTClassifierModel(_TreeArrays, ClassifierModel):
     """Boosted binary classifier: sigmoid over summed leaf margins. The

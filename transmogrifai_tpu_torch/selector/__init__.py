@@ -7,7 +7,7 @@ from .selector import (ModelSelector, ModelSelectorSummary, SelectedModel,
 from .racing import RacingCrossValidation, search_compiles
 from .random_params import RandomParamBuilder
 from .splitters import (DataBalancer, DataCutter, DataSplitter, Splitter,
-                        stratified_split)
+                        SplitterSummary, stratified_split)
 from .validator import (BestEstimator, CrossValidation, TrainValidationSplit,
                         ValidationResult)
 
@@ -15,7 +15,7 @@ __all__ = ["BinaryClassificationModelSelector",
            "MultiClassificationModelSelector", "RegressionModelSelector",
            "ModelSelector", "ModelSelectorSummary", "SelectedModel",
            "DataBalancer", "DataCutter", "DataSplitter",
-           "Splitter", "stratified_split", "BestEstimator",
+           "Splitter", "SplitterSummary", "stratified_split", "BestEstimator",
            "CrossValidation", "RacingCrossValidation",
            "TrainValidationSplit", "ValidationResult", "models_x_folds",
            "search_compiles", "RandomParamBuilder"]

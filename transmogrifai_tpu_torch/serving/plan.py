@@ -527,10 +527,10 @@ class ScoringPlan:
 
     # -- execution ---------------------------------------------------------
     def score(self, data: Any) -> Dataset:
-        """Score a Dataset or record iterable through the plan; returns
-        the raw and result feature columns (the ``Workflow.score``
-        contract). With guardrails enabled this routes through
-        :meth:`score_guarded`, keeping its ledger on
+        """Score a Dataset, record iterable or DataReader through the
+        plan; returns the raw and result feature columns (the
+        ``Workflow.score`` contract). With guardrails enabled this routes
+        through :meth:`score_guarded`, keeping its ledger on
         ``last_guard_result``."""
         if self.guard is not None or self.sentinel is not None:
             return self.score_guarded(data).scored
@@ -546,8 +546,10 @@ class ScoringPlan:
         returned Dataset keeps every row; quarantined or invalidated rows
         carry NaN outputs and one machine-readable reason each."""
         self.compile()
+        from ..readers.data_readers import DataReader
         from ..workflow.workflow import _generate_raw_data
-        if self.guard is not None and not isinstance(data, Dataset):
+        if self.guard is not None \
+                and not isinstance(data, (Dataset, DataReader)):
             # record admission materializes the raw Dataset itself:
             # malformed fields become boxable placeholders, and the row
             # is masked out

@@ -56,12 +56,13 @@ def register_stage_class(cls):
 
 def stage_class_by_name(name: str):
     """Resolve a stage class for deserialization, importing the checkers,
-    ops, models and selector packages first so their classes register
-    (reference OpPipelineStageReader class-for-name,
+    insights, ops, models and selector packages first so their classes
+    register (reference OpPipelineStageReader class-for-name,
     OpPipelineStageReader.scala:89-135)."""
     if name in _STAGE_REGISTRY:
         return _STAGE_REGISTRY[name]
     from .. import checkers as _checkers  # noqa: F401
+    from .. import insights as _insights  # noqa: F401
     from .. import models as _models  # noqa: F401
     from .. import ops as _ops  # noqa: F401
     from .. import selector as _selector  # noqa: F401

@@ -11,7 +11,8 @@ layout:
   types, parent links), and every stage's class name + ctor args (the
   ``_ctor_args`` record taken at construction, ``stages/base.py``), with
   the ``$array``, ``$seq``, ``$dict``, ``$stage``, ``$selsummary``,
-  ``$ftype``, ``$vmeta`` and ``$fn`` encodings;
+  ``$ftype``, ``$vmeta`` and ``$fn`` encodings (and ``$aggregator``,
+  below);
 - ``arrays.npz`` — every array referenced from ctor args (model
   coefficients, tree heaps, …), keyed ``<stage-uid>/<path>``.
 
@@ -27,6 +28,11 @@ Functions (``extract_fn`` of raw-feature generators, ``fn`` of lambda
 transformers) round-trip only when importable (``module:qualname``);
 otherwise they are dropped and the generator falls back to by-name lookup;
 a ``LambdaTransformer`` whose function was dropped raises on load.
+
+A raw feature's monoid aggregator (``features/aggregators.py``, which the
+aggregate readers use) is written as ``{"$aggregator": <class>, "args":
+...}``, so that a model trained through an aggregate reader saves and
+reloads; the JAX package cannot save such a model.
 
 The raw feature filter's results and the blacklisted raw features' names
 are saved as the JAX package saves them (``rawFeatureFilterResults``,
@@ -169,6 +175,10 @@ def encode_value(v: Any, arrays: Dict[str, np.ndarray], key: str) -> Any:
         raise ValueError(f"Cannot serialize class {v!r} at {key}")
     if isinstance(v, VectorMetadata):
         return {"$vmeta": v.to_json()}
+    from ..features.aggregators import MonoidAggregator
+    if isinstance(v, MonoidAggregator):
+        return {"$aggregator": type(v).__name__,
+                "args": encode_value(_aggregator_args(v), arrays, key)}
     if callable(v):
         return {"$fn": resolve_importable_fn(v)}  # None = dropped
     raise ValueError(
@@ -194,6 +204,9 @@ def decode_value(v: Any, arrays: Dict[str, np.ndarray],
             return VectorMetadata.from_json(v["$vmeta"])
         if "$stage" in v:
             return stage_from_json(v["$stage"], arrays, device)
+        if "$aggregator" in v:
+            return _aggregator(v["$aggregator"],
+                               decode_value(v["args"], arrays, device))
         if "$selsummary" in v:
             from ..selector.selector import ModelSelectorSummary
             return ModelSelectorSummary.from_json(v["$selsummary"])
@@ -209,6 +222,25 @@ def decode_value(v: Any, arrays: Dict[str, np.ndarray],
     if isinstance(v, list):
         return [decode_value(x, arrays, device) for x in v]
     return v
+
+
+def _aggregator_args(agg) -> dict:
+    """A monoid aggregator's constructor arguments (a raw feature's
+    aggregator, which the aggregate readers use)."""
+    from ..features.aggregators import CustomMonoidAggregator
+    if isinstance(agg, CustomMonoidAggregator):
+        return {"zero": agg._zero, "combine": agg._combine}
+    return dict(vars(agg))
+
+
+def _aggregator(name: str, args: dict):
+    """Inverse of ``_aggregator_args``: a combine function that was not
+    importable at save time cannot be restored."""
+    from ..features import aggregators
+    if name == "CustomMonoidAggregator" and args.get("combine") is None:
+        raise ValueError("CustomMonoidAggregator combine function was not "
+                         "importable at save time and cannot be restored")
+    return getattr(aggregators, name)(**args)
 
 
 # ---------------------------------------------------------------------------

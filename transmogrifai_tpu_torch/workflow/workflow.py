@@ -28,12 +28,20 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
   device matrix, the segment is refit per fold on the device, and the
   selector searches each fold's matrix (``validate_prepared``).
 
+- a reader (``set_reader``, ``readers/``) supplies the raw data, keyed and
+  aggregated around a cutoff where it is an aggregate reader; a model
+  scores a reader as it scores records;
+- ``WorkflowModel.model_insights``, ``summary`` and ``summary_pretty``
+  explain the fitted model (``insights/``).
+
 Estimator -> fitted-model DAG rewiring uses ``Feature.copy_with_new_stages``
-as the reference does (OpWorkflow.scala:347). Readers, resumed searches
-and the lint pre-flight are not ported and raise.
+as the reference does (OpWorkflow.scala:347). Resumed searches and the
+lint pre-flight are not ported and raise.
 """
 from __future__ import annotations
 
+import json
+import logging
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -51,16 +59,49 @@ from ..utils.ported import not_ported
 
 __all__ = ["Workflow", "WorkflowModel", "cut_dag"]
 
+_log = logging.getLogger(__name__)
+
+
+def _nan_column(f: Feature, n: int) -> FeatureColumn:
+    return FeatureColumn(ftype=f.ftype,
+                         data=np.full(n, np.nan, dtype=np.float64))
+
 
 def _generate_raw_data(raw_features: Sequence[Feature], data: Any,
                        require_responses: bool) -> Dataset:
-    """Materialize raw feature columns from a Dataset or record iterable
-    (reference generateRawData, OpWorkflow.scala:222).
+    """Materialize raw feature columns from a DataReader, a Dataset or a
+    record iterable (reference generateRawData, OpWorkflow.scala:222 +
+    DataReader.generateDataFrame, readers/.../DataReader.scala:173).
 
     At score time (``require_responses=False``) absent response features
     become all-NaN columns so non-nullable label types don't block
     label-free scoring.
     """
+    from ..readers.data_readers import DataReader
+    if isinstance(data, DataReader):
+        # (reference reader.generateDataFrame, Reader.scala:168)
+        try:
+            data = data.generate_dataset(raw_features)
+        except Exception:
+            if require_responses:
+                raise
+            # label-free scoring: a response column the data can't
+            # produce becomes all-NaN instead of failing extraction (one
+            # reading of the data when every column can be produced)
+            predictors = [f for f in raw_features if not f.is_response]
+            ds0 = data.generate_dataset(predictors)
+            cols0 = {f.name: ds0[f.name] for f in predictors}
+            for f in raw_features:
+                if not f.is_response:
+                    continue
+                try:
+                    cols0[f.name] = data.generate_dataset([f])[f.name]
+                except Exception as e:
+                    _log.warning(
+                        "response %r not extractable from score data "
+                        "(%s); substituting an all-NaN column", f.name, e)
+                    cols0[f.name] = _nan_column(f, ds0.n_rows)
+            data = Dataset(cols0)
     if isinstance(data, Dataset):
         n = data.n_rows
         cols: Dict[str, FeatureColumn] = {}
@@ -68,8 +109,7 @@ def _generate_raw_data(raw_features: Sequence[Feature], data: Any,
             if f.name in data:
                 cols[f.name] = data[f.name]
             elif f.is_response and not require_responses:
-                cols[f.name] = FeatureColumn(
-                    ftype=f.ftype, data=np.full(n, np.nan, dtype=np.float64))
+                cols[f.name] = _nan_column(f, n)
             else:
                 raise KeyError(
                     f"Raw feature {f.name!r} not present in input dataset")
@@ -91,9 +131,7 @@ def _generate_raw_data(raw_features: Sequence[Feature], data: Any,
                     return None
             vals = [safe(r) for r in records]
             if all(v is None for v in vals):
-                cols[f.name] = FeatureColumn(
-                    ftype=f.ftype,
-                    data=np.full(len(records), np.nan, dtype=np.float64))
+                cols[f.name] = _nan_column(f, len(records))
                 continue
         cols[f.name] = gen.extract_column(records)
     return Dataset(cols)
@@ -274,7 +312,10 @@ class Workflow:
         return self
 
     def set_reader(self, reader) -> "Workflow":
-        raise not_ported("Workflow.set_reader", "readers/data_readers.py")
+        """A DataReader supplies (and possibly aggregates) the raw data
+        (reference setReader, OpWorkflow.scala:122)."""
+        self._input_data = reader
+        return self
 
     def with_listener(self, listener) -> "Workflow":
         """Attach a WorkflowListener collecting per-stage metrics
@@ -287,7 +328,7 @@ class Workflow:
         """Enable pre-DAG raw-feature exclusion during ``train()``
         (reference withRawFeatureFilter on OpWorkflow). ``score_data``
         (records or a Dataset) optionally supplies scoring-time data for
-        the distribution-shift checks."""
+        the distribution-shift checks; a DataReader too."""
         self._raw_feature_filter = rff
         self._rff_score_data = score_data
         return self
@@ -586,6 +627,56 @@ class WorkflowModel:
             pred = (prediction_feature if prediction_feature is not None
                     else self.result_features[-1])
             evaluator.prediction_col = pred.name
+
+    def compute_data_up_to(self, feature: Feature, data: Any) -> Dataset:
+        """Materialize all columns needed to produce ``feature``
+        (reference computeDataUpTo:105). ``feature`` may be the
+        pre-training handle; it is resolved into the fitted DAG by uid."""
+        feature = self._resolve(feature)
+        ds = _generate_raw_data(_unique_raw_features([feature]), data,
+                                require_responses=False)
+        return _fit_and_transform_layers(topo_layers([feature]), ds)
+
+    def _resolve(self, feature: Feature) -> Feature:
+        """The fitted-DAG feature with ``feature``'s uid (features keep
+        their uid through copy_with_new_stages)."""
+        found: List[Feature] = []
+
+        def visit(f: Feature):
+            if f.uid == feature.uid:
+                found.append(f)
+
+        for rf in self.result_features:
+            rf.traverse(visit)
+            if found:
+                return found[0]
+        raise KeyError(
+            f"Feature {feature.name!r} is not part of this workflow model")
+
+    # -- explainability ----------------------------------------------------
+    def model_insights(self):
+        """Post-hoc explainability report
+        (reference OpWorkflowModel.modelInsights:162)."""
+        from ..insights import extract_model_insights
+        return extract_model_insights(self)
+
+    def summary(self) -> str:
+        """JSON summary of all stage metadata (reference summary:182)."""
+        return json.dumps(self.model_insights().to_json(), indent=1,
+                          default=str)
+
+    def summary_pretty(self) -> str:
+        """(reference summaryPretty:204): the insights, then the model
+        selector's summary."""
+        insights = self.model_insights()
+        parts = [insights.pretty()]
+        if insights.selected_model:
+            from ..selector.selector import SelectedModel
+            for s in self.stages():
+                if isinstance(s, SelectedModel) and s.summary:
+                    parts.append(s.summary.pretty())
+                    break
+        return "\n\n".join(parts)
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str) -> None:
