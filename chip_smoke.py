@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--workflow-rows N] [--cv-rows N] [--families-rows N] [--text-rows N]
 [--out FILE] [--k1-only |
 --workflow-only [--agree-witness-rows N] | --validate-only |
---problems-only | --families-only | --text-only | --readers-only]
+--problems-only | --families-only | --text-only | --readers-only |
+--models-only [--per-candidate]]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
 ``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d, or with
@@ -14,9 +15,11 @@ linear families' float64 witness on the card (the float32 gap reported,
 the float64 one checked), ``--validate-only`` phases 1, 2 and 9b-9d, 9b
 with its own exact search, ``--problems-only`` phases 1, 2 and 9e-9h,
 ``--families-only`` phases 1, 2, 9i and 9j, ``--text-only`` phases 1, 2,
-9k and 9l, ``--readers-only`` phases 1, 2 and 9m-9o; in the whole smoke the card-against-CPU phases 6, 9, 9d, 9h,
-9j and 9l run after phase 10, the last timed phase, in a worker process
-each (9h as three), so that no path is timed beside them):
+9k and 9l, ``--readers-only`` phases 1, 2 and 9m-9o, ``--models-only``
+phases 1, 2 and 9p-9r; in the whole smoke the card-against-CPU phases 6,
+9, 9d, 9h, 9j, 9l and 9r run after phase 10, the last timed phase, in a
+worker process each (9h as three), so that no path is timed beside
+them):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
   3. K1 (level histogram) against its plain PyTorch version at the GBT
@@ -248,6 +251,30 @@ each (9h as three), so that no path is timed beside them):
      ``--readers-only`` fixed trees on the event log); seconds of each, no
      K1 launch. 9m-9o's seconds together are logged beside their 60 s
      budget, which is reported, not enforced;
+ 9p. [host-metric] the Titanic DAG on 20,000 records selected under
+     LogLossEvaluator (no device metric) over the card-against-CPU pool:
+     every family's batched fold x grid fits (every tree family launching
+     K1 through them), each fold's tree models in one
+     ``batch_predict_raw`` group a shape, the log loss on the host;
+     seconds and K1 launches by family and C, the groups, the winner and
+     the holdout log loss and AuPR. The same pool on its prepared matrix
+     by the device path and by the host path (an AuPR evaluator that
+     overrides ``metric_from``): within AGREE_TOL (GBT_SMALL_LEAF_TOL at
+     GBT min_child_weight 1), the same winner; then under
+     ``TX_TREE_EDGES=fold``, with K1 at one fold's design against its
+     plain version (exact); ``--per-candidate`` also times the host path
+     candidate by candidate, the loop its batched fits replace;
+ 9q. [mlp] the Iris example on 300,000 records with the opt-in MLP grid:
+     the batched fold fits' seconds, the L-BFGS refit's seconds and
+     iterations, the holdout F1 and Error; save, reload, 1,001 records
+     served one at a time and the holdout through the compiled plan
+     (``_serve_problem``); an IsotonicRegressionCalibrator on the
+     winner's scores and a ``wrap_estimator`` family (a host stage), each
+     served once, their coverage logged;
+ 9r. [models-agree] the MLP's batched fits and F1 matrix on 3,000 Iris
+     records and the log-loss search of the small pool on 3,000 Titanic
+     records, card against CPU, within AGREE_TOL (GBT_SMALL_LEAF_TOL at
+     GBT min_child_weight 1);
  10. torch.profiler windows over the LogisticRegression search (at 250
      and at 200 FISTA iterations, whose difference is FISTA's own cost),
      one GBT fit, one 50-tree, depth-6 RF fit and the RF search's
@@ -279,7 +306,8 @@ sys.path.insert(0, ROOT)
 
 from transmogrifai_tpu_torch import _build  # noqa: E402
 from transmogrifai_tpu_torch.models.hist_kernel import (  # noqa: E402
-    HistPlan, _packed, compact_ids, hist_bytes, level_hist, level_hist_plain)
+    HistPlan, _packed, compact_ids, hist_bytes, index_add_rows, level_hist,
+    level_hist_plain)
 from transmogrifai_tpu_torch.models import linear, trees  # noqa: E402
 from transmogrifai_tpu_torch.models.draws import TorchDraws  # noqa: E402
 from transmogrifai_tpu_torch.models.linear import (  # noqa: E402
@@ -304,6 +332,9 @@ from transmogrifai_tpu_torch.utils.device import (  # noqa: E402
     resolve_device, working_dtype)
 from transmogrifai_tpu_torch.utils.listener import (  # noqa: E402
     WorkflowListener)
+from transmogrifai_tpu_torch.models import (  # noqa: E402
+    IsotonicRegressionCalibrator, wrap_estimator)
+from transmogrifai_tpu_torch.serving import ScoringPlan  # noqa: E402
 
 #: H100 SXM published peaks: HBM bytes/s and
 #: float32 operations/s outside the tensor cores
@@ -699,31 +730,36 @@ def small_models(device, num_rounds: int = 20, num_trees: int = 5,
     return [pool[f] for f in families]
 
 
-def time_family(est, record: dict) -> None:
-    """Wrap ``est``'s search so that its calls add up their seconds, their
-    candidates and the K1 launches by slot count they made (each call ends
-    in the read-back of its metric matrix; a racing search calls a family
-    once a rung)."""
-    search = est.eval_fold_grid_arrays
+def time_family(est, record: dict, fit: bool = False) -> None:
+    """Wrap ``est``'s search (``eval_fold_grid_arrays``, or with ``fit``
+    the host path's ``fit_fold_grid_arrays``) so that its calls add up
+    their seconds, their candidates and the K1 launches by slot count they
+    made (each call ends in the read-back of its metric matrix or of its
+    models; a racing search calls a family once a rung)."""
+    name = "fit_fold_grid_arrays" if fit else "eval_fold_grid_arrays"
+    search = getattr(est, name)
 
     def timed(*args, **kwargs):
         before = collections.Counter(level_hist.launches_by_c)
         t0 = time.perf_counter()
-        mm = search(*args, **kwargs)
+        out = search(*args, **kwargs)
+        if fit and torch.cuda.is_available():
+            torch.cuda.synchronize()     # models may stay on the card
         seconds = time.perf_counter() - t0
         by_c = collections.Counter(level_hist.launches_by_c) - before
         rec = record.setdefault(type(est).__name__, {
             "seconds": 0.0, "candidates": 0, "calls": 0,
             "k1_launches_by_c": {}})
         rec["seconds"] += seconds
-        rec["candidates"] += int(mm.size)
+        rec["candidates"] += (sum(len(row) for row in out) if fit
+                              else int(out.size))
         rec["calls"] += 1
         rec["models_x_folds_per_s"] = rec["candidates"] / rec["seconds"]
         merged = collections.Counter(rec["k1_launches_by_c"]) + by_c
         rec["k1_launches_by_c"] = dict(sorted(merged.items()))
         rec["k1_launches"] = sum(merged.values())
-        return mm
-    est.eval_fold_grid_arrays = timed
+        return out
+    setattr(est, name, timed)
 
 
 def phase_main(device, X: np.ndarray, y: np.ndarray, models=None,
@@ -2523,7 +2559,9 @@ def phase_validate(device, rows: int, exact=None, models=None,
 def phase_workflow_cv(device, rows: int, models=None,
                       tag: str = "workflow-cv") -> dict:
     """[workflow-cv]: the validated DAG of ``[validate]`` with
-    ``with_workflow_cv()`` and exact CV on ``rows`` records: the
+    ``with_workflow_cv()`` and exact CV on ``rows`` records over
+    ``models`` (default: the default pool, its forests at PATH_TREES
+    trees, ``path_pool``): the
     prepare plan fits the vectorizers once, the checker is refit per fold
     on the card and each fold's matrix searched on its own. Prints the
     pre-pass seconds, each fold's refit seconds and matrix width, the
@@ -2533,8 +2571,8 @@ def phase_workflow_cv(device, rows: int, models=None,
     dev = resolve_device(device)
     t_phase = time.perf_counter()
     records = titanic.synthetic_titanic(rows, seed=42)
-    v = validated_workflow(dev, records, models=models, validation="exact",
-                           workflow_cv=True)
+    v = validated_workflow(dev, records, models=models or path_pool(dev),
+                           validation="exact", workflow_cv=True)
     run = _train_validated(v, tag, profile=False)
     out = {k: val for k, val in run.items()
            if k not in ("model", "summary", "rff_results")}
@@ -2783,6 +2821,14 @@ def phase_validation(device, rows: int, cv_rows: int, exact=None,
 IRIS_ROWS = 300_000
 #: records of the Boston path: about 400 times the UCI data's 506
 BOSTON_ROWS = 200_000
+#: trees of the forests on the earlier slices' own paths ([workflow-cv],
+#: [iris], [boston], [families], [text]); the main paths ([main],
+#: [workflow]) and [validate], which is held to [workflow]'s exact search,
+#: keep the default pool's 50. Cut from 50 (to 25, then 10) when the whole
+#: smoke took 1,187.2 s and then 1,196.7 s of its 1,200 s on slow hosts:
+#: those forest searches are host-bound (a tree level's ops do not shrink
+#: with the rows), so fewer rows would not have shortened them
+PATH_TREES = 10
 #: records of each example in the card-against-CPU phase
 PROBLEMS_AGREE_ROWS = 3000
 #: trees of the forests in the card-against-CPU phase
@@ -2794,12 +2840,16 @@ WIDE_K, WIDE_ROWS, WIDE_COLS = 7, 3000, 20
 #: 200,000 x 26: no node of 4,095 differs, with the label centred on the
 #: card or not, so the card keeps the JAX package's raw statistics
 VARIANCE_DEPTH = 12
-#: card against CPU relative RMSE of a GBTRegressor point of depth 6 or
-#: more on the Boston records: its leaves hold a few rows, float32 sums of
-#: residuals break near ties in gain otherwise than float64, and a split
-#: that flips in one round moves every later round. Measured on an H100
-#: at 2,000 training rows: up to 6.43e-3 at depth 12 (min_child_weight 1),
-#: 3.21e-3 at depth 6; every other point of either example <= 4.2e-4
+#: card (float32) against CPU relative RMSE of a GBTRegressor point of
+#: depth 6 or more on the Boston records: its leaves hold a few rows,
+#: float32 sums of residuals break near ties in gain otherwise than
+#: float64, and a split that flips in one round moves every later round.
+#: Measured on an H100 at 2,000 training rows: up to 6.43e-3 at depth 12
+#: (min_child_weight 1), 3.21e-3 at depth 6; every other point of either
+#: example <= 4.2e-4. The gap is float32's: the same points in float64 on
+#: the card, which adds in the CPU's row order (``index_add_rows``, the
+#: base mean on the host), are within 2.5e-16 of the CPU and repeat bit
+#: for bit (the float64 witness holds them to AGREE_TOL)
 GBT_REG_DEEP_TOL = 1e-2
 
 
@@ -3072,14 +3122,15 @@ def _drift_misread(drift: dict) -> bool:
 
 
 def phase_problem(device, example, records, tag: str, models=None,
-                  serve: bool = True) -> dict:
+                  serve: bool = True, expect_k1: bool = True) -> dict:
     """One problem path: ``example.run`` (``Workflow.train``: typed
     features, transmogrify, the selector's holdout cut and search, the
     winner's refit and holdout evaluation) on ``records`` on ``device``,
     timed by stage and by family, K1's launches by family and slot count
     counted from zero just before the train; then, with ``serve``, save,
     reload and serve (``_serve_problem``). Fails unless every tree family
-    launched K1 on a card and the metrics are finite."""
+    launched K1 on a card (and, with ``expect_k1``, the workflow did) and
+    the metrics are finite."""
     dev = resolve_device(device)
     sel = example.default_selector(dev, models=models)
     families: dict = {}
@@ -3153,7 +3204,7 @@ def phase_problem(device, example, records, tag: str, models=None,
         idle = [f for f in families if "Forest" in f or "Tree" in f
                 or "GBT" in f or "XGBoost" in f
                 if families[f].get("k1_launches", 0) == 0]
-        if launches == 0 or idle:
+        if (expect_k1 and launches == 0) or idle:
             raise AssertionError(f"[{tag}] K1 never launched by "
                                  f"{idle or 'the workflow'}")
     if serve:
@@ -3193,15 +3244,16 @@ def _variance_check(device, X: np.ndarray, y: np.ndarray) -> dict:
 
 def phase_iris(device, rows: int = IRIS_ROWS) -> dict:
     """[iris]: the Iris example (``examples/iris.py``) on ``rows``
-    synthetic records: the example's five-family pool (LR 8, RF 18 at 50
-    trees, NaiveBayes 1, DT 18, XGBoost 9 points, x 3 folds) and its
-    DataCutter(reserve_test_fraction=0.2), then save, serve and compiled
-    scoring."""
+    synthetic records: the example's five-family pool (LR 8, RF 18 at
+    PATH_TREES trees, NaiveBayes 1, DT 18, XGBoost 9 points, x 3 folds)
+    and its DataCutter(reserve_test_fraction=0.2), then save, serve and
+    compiled scoring."""
     from transmogrifai_tpu_torch.examples import iris
     t0 = time.perf_counter()
     records = iris.synthetic_iris(rows)
     gen_s = time.perf_counter() - t0
-    out = phase_problem(device, iris, records, "iris")
+    out = phase_problem(device, iris, records, "iris",
+                        models=_problem_models(iris, device, PATH_TREES))
     out["generate_s"] = gen_s
     if len(out["candidates"]) != 54:
         raise AssertionError(f"[iris] {len(out['candidates'])} candidates, "
@@ -3212,7 +3264,7 @@ def phase_iris(device, rows: int = IRIS_ROWS) -> dict:
 def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
     """[boston]: the Boston example (``examples/boston.py``) on ``rows``
     synthetic records: the default regression pool (LinearRegression 8,
-    RF 18 at 50 trees, GBT 18, GLM 6 points, x 3 folds) and its
+    RF 18 at PATH_TREES trees, GBT 18, GLM 6 points, x 3 folds) and its
     DataSplitter(reserve_test_fraction=0.2), then save, serve and
     compiled scoring; last, the variance statistics' card-against-CPU
     check (``_variance_check``)."""
@@ -3220,7 +3272,8 @@ def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
     t0 = time.perf_counter()
     records = boston.synthetic_boston(rows)
     gen_s = time.perf_counter() - t0
-    out = phase_problem(device, boston, records, "boston")
+    out = phase_problem(device, boston, records, "boston",
+                        models=_problem_models(boston, device, PATH_TREES))
     out["generate_s"] = gen_s
     if len(out["candidates"]) != 50:
         raise AssertionError(f"[boston] {len(out['candidates'])} "
@@ -3231,6 +3284,14 @@ def phase_boston(device, rows: int = BOSTON_ROWS) -> dict:
         device, X.double().cpu().numpy(),
         np.array([r["medv"] for r in records]))
     return out
+
+
+def path_pool(device):
+    """The default binary pool on ``device`` with its forests at
+    PATH_TREES trees (grids whole)."""
+    return [(est.with_params(num_trees=PATH_TREES)
+             if type(est).__name__ == "RandomForestClassifier" else est, grid)
+            for est, grid in default_binary_models(resolve_device(device))]
 
 
 def _problem_models(example, device, num_trees: int = AGREE_TREES):
@@ -3296,6 +3357,8 @@ def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS,
     forests run K1 in split statistic blocks on the card."""
     from transmogrifai_tpu_torch.examples import boston, iris
     out = {}
+    if "boston" in parts and resolve_device(device).type == "cuda":
+        out["row_order"] = phase_row_order(device)
     for example, tag, relative in ((iris, "iris", False),
                                    (boston, "boston", True)):
         if tag not in parts:
@@ -3329,11 +3392,7 @@ def phase_problems_agree(device, rows: int = PROBLEMS_AGREE_ROWS,
                     if f.is_response)].data, dtype=np.float64),
                 np.asarray(cpu["metric_matrix"])[:, deep],
                 np.asarray(card["metric_matrix"])[:, deep],
-                f"problems-agree {tag}", relative=relative,
-                # float64 on the card keeps the float32 gap here (up to
-                # 4.6e-3 on an H100): near-tie splits of the deep trees
-                # break by the sum order, not the dtype (ROADMAP queue 3)
-                tol=GBT_REG_DEEP_TOL)
+                f"problems-agree {tag}", relative=relative)
     if f"k{WIDE_K}" not in parts:
         return out
     from transmogrifai_tpu_torch.models.registry import (
@@ -3671,8 +3730,9 @@ def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
                    k1: bool = True) -> dict:
     """[families]: the family workflow (``examples/families.py``) on
     ``rows`` testkit records with ``models`` (default: the whole default
-    pool); with ``k1``, K1 at its shapes (``family_k1_inputs``, the card
-    only); then save, reload, the holdout through the compiled plan
+    pool, its forests at PATH_TREES trees, ``path_pool``); with ``k1``,
+    K1 at its shapes (``family_k1_inputs``, the card only); then save,
+    reload, the holdout through the compiled plan
     (bitwise the columnar path) and 1,001 records served one at a time
     (``_serve_problem``)."""
     from transmogrifai_tpu_torch.examples import families
@@ -3680,7 +3740,8 @@ def phase_families(device, rows: int = FAMILIES_ROWS, models=None,
     records = families.synthetic_families(rows)
     gen_s = time.perf_counter() - t0
     log(f"[families] {rows} records generated in {gen_s:.2f} s")
-    out = _train_families(device, records, models=models)
+    out = _train_families(device, records,
+                          models=models or path_pool(device))
     out["generate_s"] = gen_s
     run = out.pop("run")
     if models is None and len(out["metric_matrix"][0]) != 48:
@@ -3778,6 +3839,58 @@ def tree_dtype(dtype):
         clear_design_cache()
 
 
+def phase_row_order(device, seed: int = 13) -> dict:
+    """The float64 tree witness's sums (``index_add_rows``) on the card
+    against the CPU's ``index_add_``, which adds each index's rows in row
+    order: random float64 rows on few indices (many rows an index, as a
+    tree level's slots and bins have), 1 to 5 statistics a row and the
+    plain histogram of a random design; must be equal bit for bit and
+    repeat bit for bit. The atomic ``index_add_`` is logged beside it."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for n, segs, S in ((100_000, 7, 2), (50_000, 300, 3), (20_000, 1, 4),
+                       (30_000, 64, 5), (4_000, 16, 1)):
+        idx = torch.randint(0, segs, (n,), generator=gen)
+        src = torch.randn((n, S), generator=gen, dtype=torch.float64)
+        if S == 1:
+            src = src[:, 0]
+        shape = (segs,) + tuple(src.shape[1:])
+        cpu = torch.zeros(shape, dtype=torch.float64).index_add_(0, idx, src)
+        idx_d, src_d = idx.to(dev), src.to(dev)
+        card = [index_add_rows(torch.zeros(shape, dtype=torch.float64,
+                                           device=dev), idx_d, src_d).cpu()
+                for _ in range(2)]
+        atomic = torch.zeros(shape, dtype=torch.float64, device=dev
+                             ).index_add_(0, idx_d, src_d).cpu()
+        rec = {"equal_to_cpu": bool(torch.equal(card[0], cpu)),
+               "repeats": bool(torch.equal(card[0], card[1])),
+               "atomic_equal_to_cpu": bool(torch.equal(atomic, cpu)),
+               "max_abs_diff": float((card[0] - cpu).abs().max()),
+               "atomic_max_abs_diff": float((atomic - cpu).abs().max())}
+        out[f"n={n} segments={segs} S={S}"] = rec
+    X, y = make_data(3_000, 12, seed=seed)
+    design_cpu = _PackedDesign(X, 32, torch.device("cpu"))
+    design = _PackedDesign(X, 32, dev)
+    st = torch.randn((3_000, 2), generator=gen, dtype=torch.float64)
+    slot = torch.randint(0, 16, (3_000,), generator=gen, dtype=torch.int32)
+    cpu = level_hist_plain(design_cpu.ids, design_cpu.offsets, slot, st, 16,
+                           design_cpu.total_bins)
+    card = level_hist_plain(design.ids, design.offsets, slot.to(dev),
+                            st.to(dev), 16, design.total_bins).cpu()
+    out["plain histogram C=16 S=2"] = {
+        "equal_to_cpu": bool(torch.equal(card, cpu)), "repeats": True,
+        "max_abs_diff": float((card - cpu).abs().max())}
+    log(f"[row-order] float64 index_add_rows on {dev} against the CPU's "
+        f"index_add_: {json.dumps(out)}")
+    bad = [k for k, r in out.items()
+           if not (r["equal_to_cpu"] and r["repeats"])]
+    if bad:
+        raise AssertionError(f"[row-order] the card's float64 sums part "
+                             f"from the CPU's row order at {bad}")
+    return out
+
+
 def tree_precision_witness(device, selector_fn, est, grid, X, y,
                            cpu_metrics: np.ndarray, card_metrics: np.ndarray,
                            tag: str, relative: bool = False,
@@ -3792,29 +3905,39 @@ def tree_precision_witness(device, selector_fn, est, grid, X, y,
     float32 gap there (``card_metrics``, logged beside it) is float32's,
     not the card path's. ``tag`` names the phase in the log."""
     dev = resolve_device(device)
+    runs, seconds = [], []
     with tree_dtype(torch.float64):
-        sel = selector_fn(dev, models=[(est, grid)])
-        t0 = time.perf_counter()
-        mm = metric_matrix(sel.fit_arrays(
-            torch.as_tensor(X).to(dev, torch.float64), y))
-        seconds = time.perf_counter() - t0
+        # twice on a card: the float64 path adds in row order there
+        # (``index_add_rows``), so its matrix must repeat bit for bit
+        for _ in range(2 if dev.type == "cuda" else 1):
+            sel = selector_fn(dev, models=[(est, grid)])
+            t0 = time.perf_counter()
+            runs.append(metric_matrix(sel.fit_arrays(
+                torch.as_tensor(X).to(dev, torch.float64), y)))
+            seconds.append(time.perf_counter() - t0)
+    mm = runs[0]
     scale = np.abs(cpu_metrics) if relative else 1.0
     out = {"points": grid, "seconds": seconds, "relative": relative,
            "tol": tol,
+           "repeats_bitwise": bool(np.array_equal(runs[0], runs[-1])),
            "device_float64": (np.abs(mm - cpu_metrics) / scale)
            .max(axis=0).tolist(),
+           "device_float64_exact": bool(np.array_equal(mm, cpu_metrics)),
            "device_float32": (np.abs(card_metrics - cpu_metrics) / scale)
            .max(axis=0).tolist()}
     out["within_agree_tol"] = max(out["device_float64"]) <= AGREE_TOL
     log(f"[{tag}] tree float64 witness, {type(est).__name__} at {grid}: "
         f"largest gap{' / |cpu|' if relative else ''} to the CPU by grid "
-        f"point: {dev} in float64 (plain histogram, {seconds:.2f} s) "
+        f"point: {dev} in float64 (plain histogram, row-order sums, "
+        f"{' and '.join(f'{t:.2f}' for t in seconds)} s) "
         f"{json.dumps(out['device_float64'])} (tol {tol}; within AGREE_TOL "
-        f"{AGREE_TOL}: {out['within_agree_tol']}); the card in float32 "
+        f"{AGREE_TOL}: {out['within_agree_tol']}; equal to the CPU's: "
+        f"{out['device_float64_exact']}; the second run repeats the first "
+        f"bit for bit: {out['repeats_bitwise']}); the card in float32 "
         f"{json.dumps(out['device_float32'])}")
-    if max(out["device_float64"]) > tol:
+    if max(out["device_float64"]) > tol or not out["repeats_bitwise"]:
         raise AssertionError(f"[{tag}] the tree points differ card to CPU "
-                             f"in float64 too")
+                             f"in float64 too, or between two runs")
     return out
 
 
@@ -4029,7 +4152,8 @@ def phase_text(device, rows: int = TEXT_ROWS, models=None,
                k1: bool = True,
                server_records: int = TEXT_SERVER_RECORDS) -> dict:
     """[text]: the text workflow (``examples/text.py``) on ``rows``
-    records with ``models`` (default: the whole default pool); with
+    records with ``models`` (default: the whole default pool, its forests
+    at PATH_TREES trees, ``path_pool``); with
     ``k1``, K1 on the text matrix (``matrix_k1_inputs``, the card only);
     then save (with the drift fingerprints), reload, the holdout through
     the compiled plan (bitwise the columnar path) and its default
@@ -4041,7 +4165,7 @@ def phase_text(device, rows: int = TEXT_ROWS, models=None,
     records = text.synthetic_text(rows)
     gen_s = time.perf_counter() - t0
     log(f"[text] {rows} records generated in {gen_s:.2f} s")
-    out = _train_text(device, records, models=models)
+    out = _train_text(device, records, models=models or path_pool(device))
     out["generate_s"] = gen_s
     run = out.pop("run")
     if models is None and len(out["metric_matrix"][0]) != 48:
@@ -4839,6 +4963,498 @@ def phase_ingest_explain(device, quickstart_rows: int = QUICKSTART_ROWS,
 
 
 # ---------------------------------------------------------------------------
+# the model layer: host-metric searches, fold edges, the MLP, the
+# calibrator and the external-estimator adapter
+# ---------------------------------------------------------------------------
+
+#: records of the host-metric path (the Titanic DAG, ~587 columns)
+HOST_METRIC_RECORDS = 20_000
+#: records of the MLP path (the Iris DAG, its 8 columns)
+MLP_RECORDS = 300_000
+#: records of the MLP and host-metric card-against-CPU checks
+MODELS_AGREE_RECORDS = 3_000
+
+
+class OwnAuPR(BinaryClassificationEvaluator):
+    """A user's evaluator: AuPR through its own ``metric_from``, which
+    the device metric cannot see, so the validator takes its host path."""
+
+    def metric_from(self, metrics) -> float:
+        return float(metrics.AuPR)
+
+
+def centroid_fit(X, y, shrink=0.0):
+    """A host estimator for ``wrap_estimator``: shrunken class centroids."""
+    classes = np.unique(y)
+    cents = np.stack([X[y == c].mean(axis=0) for c in classes])
+    return {"classes": classes, "centroids": cents * (1.0 - shrink)}
+
+
+def centroid_predict(state, X):
+    d2 = ((X[:, None, :] - state["centroids"][None, :, :]) ** 2).sum(-1)
+    e = np.exp(-d2 + d2.min(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+@contextlib.contextmanager
+def batch_groups(record: dict):
+    """Count the static groups ``batch_predict_raw`` stacks (one traversal
+    each) and its calls inside the block."""
+    real = trees.batch_predict_raw
+    record.update(calls=0, groups=0, models=0)
+
+    def spy(models, X):
+        keys = {(type(m).__name__, m.depth, tuple(m.feats.shape),
+                 tuple(m.leaves.shape)) for m in models
+                if isinstance(m, (trees._EnsembleModel,
+                                  trees.GBTClassifierModel,
+                                  trees.GBTRegressorModel))}
+        record["calls"] += 1
+        record["groups"] += len(keys)
+        out = real(models, X)
+        record["models"] += len(out)
+        return out
+    trees.batch_predict_raw = spy
+    try:
+        yield record
+    finally:
+        trees.batch_predict_raw = real
+
+
+def _search_matrix(device, X, y, evaluator=None, families=None,
+                   per_candidate: bool = False) -> dict:
+    """The card-against-CPU pool (``small_models``) searched on ``X``, y
+    (3-fold stratified CV, the default splitter) under ``evaluator``
+    (AuPR on the card when None), K1 counted from zero just before; with
+    ``per_candidate`` the host path fits candidate by candidate on each
+    fold's rows instead of its batched fits."""
+    dev = resolve_device(device)
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, stratify=True, evaluator=evaluator,
+        models=small_models(dev), device=dev)
+    if per_candidate:
+        sel.validator._use_batched_kernel = lambda est: False
+    if families is not None:
+        for est, _ in sel.models:
+            time_family(est, families, fit=True)
+    clear_design_cache()
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    t0 = time.perf_counter()
+    selected = sel.fit_arrays(X, y)
+    seconds = time.perf_counter() - t0
+    mm = metric_matrix(selected)
+    s = selected.summary
+    return {"metric_matrix": mm, "seconds": seconds,
+            "winner": s.best_model_name, "winner_params": s.best_model_params,
+            "k1_launches": level_hist.launches,
+            "k1_launches_by_c": dict(sorted(
+                level_hist.launches_by_c.items()))}
+
+
+def phase_host_metric(device, rows: int = HOST_METRIC_RECORDS,
+                      per_candidate: bool = False) -> dict:
+    """[host-metric]: the Titanic DAG on ``rows`` records selected under
+    ``LogLossEvaluator`` (no device metric) over the card-against-CPU pool
+    (``small_models``: every default family, forests at 5 trees): every
+    family takes its batched fold x grid fit, each fold's tree models score
+    in one ``batch_predict_raw`` group a shape, the log loss runs on the
+    host. Seconds and K1 launches by family and C, the groups, the winner
+    and the holdout log loss and AuPR; every tree family must launch K1
+    through ``fit_fold_grid_arrays``. Then the same pool on the same
+    prepared matrix by the device path (AuPR) and by the host path (an
+    AuPR evaluator overriding ``metric_from``): matrices within AGREE_TOL
+    (GBT_SMALL_LEAF_TOL at the GBT points of min_child_weight 1), the
+    same winner; then under ``TX_TREE_EDGES=fold``
+    (its matrix and K1 launches) with K1 at one fold's design against its
+    plain version (exact). With ``per_candidate``, the host path is timed
+    once more fitting candidate by candidate (the loop the batched fits
+    replace) on the same matrix."""
+    from transmogrifai_tpu_torch.evaluators import LogLossEvaluator
+    dev = resolve_device(device)
+    records = titanic.synthetic_titanic(rows, seed=42)
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, stratify=True, evaluator=LogLossEvaluator(),
+        models=small_models(dev), device=dev)
+    families: dict = {}
+    for est, _ in sel.models:
+        time_family(est, families, fit=True)
+    clear_design_cache()
+    validator.reset_family_profile()
+    groups: dict = {}
+    level_hist.launches = 0
+    level_hist.launches_by_c.clear()
+    with batch_groups(groups):
+        run = titanic.run(records, device=dev, model_stage=sel)
+    launches = level_hist.launches
+    by_c = dict(sorted(level_hist.launches_by_c.items()))
+    for rec in validator.family_profile():
+        if rec["family"] in families:
+            families[rec["family"]]["host_path_s"] = rec["seconds"]
+    selected = next(s for s in run.model.stages()
+                    if type(s).__name__ == "SelectedModel")
+    s = selected.summary
+    mm = metric_matrix(selected)
+    logloss = LogLossEvaluator(label_col="survived",
+                               prediction_col=run.prediction.name
+                               ).evaluate_all(run.scored).LogLoss
+    X = run.model.train_dataset[run.vector.name].data
+    y = np.asarray(run.model.train_dataset["survived"].data,
+                   dtype=np.float64)
+    out = {"records": rows, "matrix_shape": list(X.shape),
+           "train_s": sum(run.workflow.last_train_seconds.values()),
+           "selector_timings_s": dict(s.timings), "families": families,
+           "k1_launches": launches, "k1_launches_by_c": by_c,
+           "batch_predict_raw": dict(groups), "winner": s.best_model_name,
+           "winner_params": s.best_model_params,
+           "best_metric": s.best_validation_metric,
+           "holdout_logloss": logloss, "holdout_AuPR": run.metrics.AuPR,
+           "metric_matrix": mm.tolist()}
+    log(f"[host-metric] {rows} records on {dev}: matrix {tuple(X.shape)}; "
+        f"train {out['train_s']:.2f} s; selector stages "
+        f"{json.dumps({k: round(v, 3) for k, v in s.timings.items()})}; "
+        f"batch_predict_raw {json.dumps(groups)}")
+    for name, rec in families.items():
+        log(f"[host-metric] {name}: {rec['candidates']} models x folds, "
+            f"batched fits {rec['seconds']:.2f} s of the host path's "
+            f"{rec['host_path_s']:.2f} s; K1 launches "
+            f"{rec.get('k1_launches', 0)}: " + " ".join(
+                f"C={c}:{k}" for c, k in rec["k1_launches_by_c"].items()))
+    log(f"[host-metric] winner {s.best_model_name} {s.best_model_params} "
+        f"mean LogLoss {s.best_validation_metric:.6f}; holdout LogLoss "
+        f"{logloss:.6f} AuPR {run.metrics.AuPR:.6f}; K1 launches "
+        f"{launches}")
+    if set(families) != set(FAMILIES) or any(
+            rec["calls"] != 1 for rec in families.values()):
+        raise AssertionError(f"[host-metric] not every family took its "
+                             f"batched fit once: {families}")
+    if not np.isfinite(logloss) or mm.shape != (3, 20):
+        raise AssertionError(f"[host-metric] bad result: {mm}, {logloss}")
+    if dev.type == "cuda":
+        idle = [f for f in TREE_FAMILIES
+                if families[f].get("k1_launches", 0) == 0]
+        if idle:
+            raise AssertionError(f"[host-metric] K1 never launched by "
+                                 f"{idle}'s fit_fold_grid_arrays")
+    # the same pool and matrix by both validator paths
+    device_run = _search_matrix(dev, X, y)
+    host_families: dict = {}
+    host_run = _search_matrix(dev, X, y, OwnAuPR(), host_families)
+    # the same candidates, each fitted twice on the card (K1's float
+    # atomics may break a near tie of a small-leaf GBT otherwise), scored
+    # in float32 on the card or in float64 on the host: AGREE_TOL, and
+    # GBT_SMALL_LEAF_TOL at the GBT points of min_child_weight 1 (on an
+    # H100 at 15,000 x 567: GBT 1.14e-3-4.31e-3, the others <= 6.5e-7)
+    a, b = device_run["metric_matrix"], host_run["metric_matrix"]
+    gap = np.abs(a - b).max(axis=0)
+    points = [(type(est).__name__, p) for est, grid in small_models("cpu")
+              for p in grid]
+    tol = np.array([GBT_SMALL_LEAF_TOL if name == "GBTClassifier"
+                    and p.get("min_child_weight", 1.0) < 10 else AGREE_TOL
+                    for name, p in points])
+    by_point = {f"{name} {json.dumps(p)}": float(g)
+                for (name, p), g in zip(points, gap)}
+    same = (device_run["winner"], device_run["winner_params"]) == (
+        host_run["winner"], host_run["winner_params"])
+    out["device_vs_host"] = {
+        "max_abs_diff": float(gap.max()), "by_point": by_point,
+        "over_tol": [k for k, g, t in zip(by_point, gap, tol) if g > t],
+        "same_winner": same,
+        "device_s": device_run["seconds"], "host_s": host_run["seconds"],
+        "host_families": host_families,
+        "winner": [device_run["winner"], device_run["winner_params"]]}
+    log(f"[host-metric] the same pool on the same {tuple(X.shape)} matrix: "
+        f"device path {device_run['seconds']:.2f} s, host path (AuPR "
+        f"through metric_from) {host_run['seconds']:.2f} s; max |device - "
+        f"host| {gap.max():.3e} (tol {AGREE_TOL}, {GBT_SMALL_LEAF_TOL} at "
+        f"GBT min_child_weight 1) by grid point {json.dumps(by_point)}; "
+        f"winners {device_run['winner']} {device_run['winner_params']} / "
+        f"{host_run['winner']} {host_run['winner_params']}")
+    if out["device_vs_host"]["over_tol"] or not same:
+        raise AssertionError("[host-metric] the device and host paths "
+                             "disagree")
+    if per_candidate:
+        loop = _search_matrix(dev, X, y, OwnAuPR(), per_candidate=True)
+        out["per_candidate"] = {
+            "seconds": loop["seconds"], "batched_s": host_run["seconds"],
+            "max_abs_diff_to_batched": float(np.abs(
+                loop["metric_matrix"] - b).max()),
+            "winner": [loop["winner"], loop["winner_params"]]}
+        log(f"[host-metric] the host path candidate by candidate (fold "
+            f"rows, the refit solvers) on the same matrix: "
+            f"{loop['seconds']:.2f} s against the batched fits' "
+            f"{host_run['seconds']:.2f} s; max |loop - batched| "
+            f"{out['per_candidate']['max_abs_diff_to_batched']:.3e}; winner "
+            f"{loop['winner']} {loop['winner_params']}")
+    # TX_TREE_EDGES=fold: one design a fold
+    old = os.environ.get("TX_TREE_EDGES")
+    os.environ["TX_TREE_EDGES"] = "fold"
+    try:
+        fold_run = _search_matrix(dev, X, y)
+    finally:
+        if old is None:
+            os.environ.pop("TX_TREE_EDGES")
+        else:
+            os.environ["TX_TREE_EDGES"] = old
+    diff = float(np.abs(fold_run["metric_matrix"] - a).max())
+    out["fold_edges"] = {k: (v.tolist() if isinstance(v, np.ndarray)
+                             else v) for k, v in fold_run.items()}
+    out["fold_edges"]["max_abs_diff_to_matrix_edges"] = diff
+    log(f"[host-metric] TX_TREE_EDGES=fold: {fold_run['seconds']:.2f} s, "
+        f"winner {fold_run['winner']} {fold_run['winner_params']}, max "
+        f"|fold - matrix edges| {diff:.3e}; K1 launches "
+        f"{fold_run['k1_launches']}: " + " ".join(
+            f"C={c}:{k}" for c, k in fold_run["k1_launches_by_c"].items()))
+    if not np.all(np.isfinite(fold_run["metric_matrix"])) or (
+            dev.type == "cuda" and fold_run["k1_launches"] == 0):
+        raise AssertionError("[host-metric] the fold-edge search failed")
+    if dev.type == "cuda":
+        folds = CrossValidation(BinaryClassificationEvaluator(), num_folds=3,
+                                seed=42, stratify=True)._splits(y)
+        Xh = X.cpu().numpy() if isinstance(X, torch.Tensor) else X
+
+        def fold_design():
+            design = _PackedDesign(Xh, 32, dev, edge_rows=folds[0][0])
+            yield ("fold-0 design", design,
+                   _problem_k1_stats(design, "cls", y), (1, 32), True)
+        out["k1"] = phase_k1_inputs(dev, fold_design(), "host-metric", 13)
+    clear_design_cache()
+    return out
+
+
+def phase_mlp(device, rows: int = MLP_RECORDS) -> dict:
+    """[mlp]: the Iris example on ``rows`` records (its 8 columns) with the
+    opt-in MLP grid (hidden (10,) and (32, 16)): the batched fold fits'
+    seconds (the device search), the L-BFGS refit's seconds and
+    iterations, the holdout F1 and Error; save, reload and serve 1,001
+    holdout records one at a time, the holdout through the compiled plan
+    (``_serve_problem``). Then an IsotonicRegressionCalibrator fitted on
+    the winner's class-2 scores and a ``wrap_estimator`` family in a small
+    search, each in its own workflow, served once through its plan, their
+    coverage logged (the external family is a host stage)."""
+    from transmogrifai_tpu_torch.examples import iris
+    from transmogrifai_tpu_torch.models import mlp
+    from transmogrifai_tpu_torch.models.registry import (
+        default_multiclass_extra_models)
+    dev = resolve_device(device)
+    models = [(est, grid) for est, grid in default_multiclass_extra_models(dev)
+              if type(est).__name__ == "MultilayerPerceptronClassifier"]
+    refits = []
+    real_fit = mlp._fit_mlp
+
+    def timed_fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        params, iterations = real_fit(*args, **kwargs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        refits.append({"seconds": time.perf_counter() - t0,
+                       "iterations": iterations,
+                       "rows": int(args[0].shape[0])})
+        return params, iterations
+    mlp._fit_mlp = timed_fit
+    try:
+        out = phase_problem(dev, iris, iris.synthetic_iris(rows), "mlp",
+                            models=models, serve=True, expect_k1=False)
+    finally:
+        mlp._fit_mlp = real_fit
+    run = out.pop("run")
+    out["refits"] = refits
+    fam = out["families"]["MultilayerPerceptronClassifier"]
+    log(f"[mlp] batched fold fits (6 x 100 Adam steps a point, 3 folds as "
+        f"lanes) with their metric: {fam['seconds']:.2f} s; L-BFGS refit "
+        + ", ".join(f"{r['seconds']:.2f} s / {r['iterations']} iterations "
+                    f"on {r['rows']} rows" for r in refits)
+        + f"; holdout F1 {out['holdout']['F1']:.6f} Error "
+        f"{out['holdout']['Error']:.6f}")
+    if not refits or out["winner"] != "MultilayerPerceptronClassifier":
+        raise AssertionError(f"[mlp] no MLP refit: {out['winner']}")
+    # the calibrator on the winner's class-2 scores of the holdout
+    scored = run.model.score(run.holdout)[run.prediction.name]
+    cal_records = [{"score": float(p), "label": float(lab == 2)}
+                   for p, lab in zip(scored.probability[:, 2],
+                                     (r["label"] for r in run.holdout))]
+    out["calibrator"] = _serve_one(dev, "calibrator", cal_records, "score",
+                                   lambda: IsotonicRegressionCalibrator(
+                                       device=dev))
+    # a wrap_estimator family in a small search over the Iris columns
+    ext_records = iris.synthetic_iris(3_000, seed=5)
+    ext = iris.run(ext_records, device=dev, models=[(
+        wrap_estimator(centroid_fit, centroid_predict),
+        [{"shrink": 0.0}, {"shrink": 0.2}])])
+    plan = ScoringPlan(ext.model, device=dev).compile()
+    t0 = time.perf_counter()
+    one = plan.score(ext.holdout[:1])[ext.prediction.name]
+    cov = plan.describe()["coverage"]
+    out["external"] = {"train_s": ext.seconds, "serve_s":
+                       time.perf_counter() - t0, "coverage": cov,
+                       "holdout": ext.metrics.to_json(),
+                       "probability": one.probability[0].tolist()}
+    log(f"[mlp] wrap_estimator family (shrunken centroids, 2 points) on "
+        f"3,000 Iris records: train {ext.seconds:.2f} s, holdout F1 "
+        f"{ext.metrics.F1:.6f}; served one record "
+        f"{out['external']['serve_s'] * 1e3:.2f} ms, P = "
+        f"{np.round(one.probability[0], 4).tolist()}; coverage "
+        f"{json.dumps(cov)}")
+    if "SelectedModel" not in str(cov["fallback"]) or not np.isclose(
+            one.probability[0].sum(), 1.0):
+        raise AssertionError("[mlp] the external family did not serve as "
+                             "a host stage")
+    del run
+    clear_design_cache()
+    return out
+
+
+def _serve_one(dev, tag: str, records, column: str, make_stage) -> dict:
+    """``make_stage()`` fitted on ``records`` (a Real ``column`` through
+    transmogrify, a RealNN ``label``) in a workflow on ``dev``, then one
+    record served through the compiled plan, against the columnar path."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops import transmogrify
+    from transmogrifai_tpu_torch.types import Real, RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+    x = FeatureBuilder.of(column, Real).extract(
+        lambda r: r.get(column)).as_predictor()
+    label = FeatureBuilder.of("label", RealNN).extract(
+        lambda r: r.get("label")).as_response()
+    out_f = make_stage().set_input(label, transmogrify([x])).get_output()
+    t0 = time.perf_counter()
+    model = Workflow(device=dev).set_result_features(out_f) \
+        .set_input_records(records).train()
+    train_s = time.perf_counter() - t0
+    plan = model.scoring_plan()
+    t0 = time.perf_counter()
+    one = float(plan.score(records[:1])[out_f.name].data[0])
+    serve_s = time.perf_counter() - t0
+    want = float(model.score(records[:1])[out_f.name].data[0])
+    cov = plan.describe()["coverage"]
+    log(f"[mlp] {tag} on {len(records)} holdout scores: train "
+        f"{train_s:.2f} s; served one record {serve_s * 1e3:.2f} ms: "
+        f"{one:.6f} (columnar {want:.6f}); coverage {json.dumps(cov)}")
+    if abs(one - want) > COMPILED_SCORE_TOL or cov["fallback"] or not (
+            0.0 <= one <= 1.0):
+        raise AssertionError(f"[mlp] the {tag} did not serve on the card")
+    return {"train_s": train_s, "serve_s": serve_s, "coverage": cov,
+            "served": one, "columnar": want}
+
+
+def phase_models_agree(device, rows: int = MODELS_AGREE_RECORDS) -> dict:
+    """[models-agree]: the MLP's batched fold fits and eval matrix on
+    ``rows`` Iris records, the card (float32) against the CPU (float64)
+    from the same draws: each fold's validation probabilities and the
+    metric matrix within AGREE_TOL; then the host-metric search (log
+    loss) of the small pool on ``rows`` Titanic records on both, within
+    AGREE_TOL (GBT_SMALL_LEAF_TOL at the GBT points of min_child_weight
+    1, as in [families-agree]) with the same winner unless the CPU's top
+    two lie within AGREE_TOL."""
+    from transmogrifai_tpu_torch.evaluators import LogLossEvaluator
+    from transmogrifai_tpu_torch.models.mlp import (
+        MultilayerPerceptronClassifier)
+    X, y = iris_matrix(rows, seed=7)
+    cv = CrossValidation(BinaryClassificationEvaluator(), num_folds=3,
+                         seed=42, stratify=True)
+    splits = cv._splits(y)
+    masks = np.zeros((3, len(y)))
+    for f, (tr, _) in enumerate(splits):
+        masks[f, tr] = 1.0
+    Xv = np.stack([X[va] for _, va in splits])
+    yv = np.stack([y[va] for _, va in splits])
+    grid = [{"hidden_layers": (10,)}, {"hidden_layers": (32, 16)}]
+    sides = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        est = MultilayerPerceptronClassifier(device=where)
+        t0 = time.perf_counter()
+        fitted = est.fit_fold_grid_arrays(X, y, masks, grid)
+        probs = np.stack([[fitted[f][g].predict_arrays(Xv[f]).probability
+                           for g in range(len(grid))] for f in range(3)])
+        mm = est.eval_fold_grid_arrays(X, y, masks, grid, Xv, yv,
+                                       ("multiclass", "F1"))
+        sides[side] = (probs, mm, time.perf_counter() - t0)
+    prob_gap = float(np.abs(sides["card"][0] - sides["cpu"][0]).max())
+    mm_gap = float(np.abs(sides["card"][1] - sides["cpu"][1]).max())
+    out = {"mlp": {"rows": rows, "probability_max_diff": prob_gap,
+                   "metric_max_diff": mm_gap,
+                   "card_s": sides["card"][2], "cpu_s": sides["cpu"][2]}}
+    log(f"[models-agree] MLP batched fits on {rows} Iris records: card "
+        f"{sides['card'][2]:.2f} s, cpu {sides['cpu'][2]:.2f} s; validation "
+        f"probabilities max |card - cpu| {prob_gap:.3e}, F1 matrix "
+        f"{mm_gap:.3e} (tol {AGREE_TOL})")
+    if prob_gap > AGREE_TOL or mm_gap > AGREE_TOL:
+        raise AssertionError("[models-agree] the MLP's fits disagree")
+    records = titanic.synthetic_titanic(rows, seed=7)
+    runs = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        dev = resolve_device(where)
+        sel = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, seed=42, stratify=True,
+            evaluator=LogLossEvaluator(), models=small_models(dev),
+            device=dev)
+        t0 = time.perf_counter()
+        run = titanic.run(records, device=dev, model_stage=sel)
+        selected = next(s for s in run.model.stages()
+                        if type(s).__name__ == "SelectedModel")
+        runs[side] = (metric_matrix(selected), selected.summary,
+                      time.perf_counter() - t0)
+    a, b = runs["card"][0], runs["cpu"][0]
+    results = runs["cpu"][1].validation_results
+    tol = np.array([GBT_SMALL_LEAF_TOL if r.model_name == "GBTClassifier"
+                    and r.params.get("min_child_weight", 1.0) < 10
+                    else AGREE_TOL for r in results])
+    finite = np.isfinite(b)
+    gap = np.where(finite, np.abs(a - b), 0.0)
+    over = [(results[i].model_name, results[i].params,
+             float(gap[:, i].max())) for i in range(gap.shape[1])
+            if gap[:, i].max() > tol[i]]
+    means = np.sort(b[:, finite.all(axis=0)].mean(axis=0))
+    close = len(means) > 1 and means[1] - means[0] < AGREE_TOL
+    same = (runs["card"][1].best_model_name,
+            runs["card"][1].best_model_params) == (
+        runs["cpu"][1].best_model_name, runs["cpu"][1].best_model_params)
+    by_point = {f"{r.model_name} {json.dumps(r.params)}":
+                float(gap[:, i].max()) for i, r in enumerate(results)}
+    out["host_metric"] = {"rows": rows, "max_abs_diff": float(gap.max()),
+                          "by_point": by_point,
+                          "nan_equal": bool(np.array_equal(
+                              finite, np.isfinite(a))),
+                          "same_winner": same, "over": over,
+                          "card_s": runs["card"][2], "cpu_s": runs["cpu"][2]}
+    log(f"[models-agree] host-metric search (log loss) on {rows} Titanic "
+        f"records: card {runs['card'][2]:.2f} s, cpu {runs['cpu'][2]:.2f} s;"
+        f" max |card - cpu| {gap.max():.3e} (tol {AGREE_TOL}, "
+        f"{GBT_SMALL_LEAF_TOL} at GBT min_child_weight 1); winner card "
+        f"{runs['card'][1].best_model_name} cpu "
+        f"{runs['cpu'][1].best_model_name}"
+        f"{' (top two within tol)' if close else ''}; over tol {over}; by "
+        f"grid point {json.dumps(by_point)}")
+    if over or not np.array_equal(finite, np.isfinite(a)) or not (
+            same or close):
+        raise AssertionError("[models-agree] the host-metric searches "
+                             "disagree card to CPU")
+    clear_design_cache()
+    return out
+
+
+def phase_models(device, agree: bool = True,
+                 per_candidate: bool = False) -> dict:
+    """The model layer's phases (without [models-agree] unless
+    ``agree``; ``per_candidate``: see ``phase_host_metric``)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"host_metric": phase_host_metric(device,
+                                            per_candidate=per_candidate)}
+    seconds["host_metric"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["mlp"] = phase_mlp(device)
+    seconds["mlp"] = time.perf_counter() - t0
+    if agree:
+        t0 = time.perf_counter()
+        out["agree"] = phase_models_agree(device)
+        seconds["models_agree"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"[models] phase seconds {json.dumps(seconds)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the card-against-CPU phases, after the timed ones
 # ---------------------------------------------------------------------------
 
@@ -4851,7 +5467,8 @@ def phase_ingest_explain(device, quickstart_rows: int = QUICKSTART_ROWS,
 AGREE_PHASES = ("phase_card_vs_cpu", "phase_validate_agree",
                 "phase_workflow_agree", "phase_problems_agree:boston",
                 "phase_problems_agree:iris", "phase_families_agree",
-                "phase_text_agree", f"phase_problems_agree:k{WIDE_K}")
+                "phase_models_agree", "phase_text_agree",
+                f"phase_problems_agree:k{WIDE_K}")
 
 
 def _agree_worker_init(threads: int) -> None:
@@ -4961,6 +5578,14 @@ def main(argv=None) -> int:
                          "explainability phases ([quickstart], [readers], "
                          "[insights] with fixed trees on the event log) "
                          "and print their JSON last")
+    ap.add_argument("--models-only", action="store_true",
+                    help="run only the build and the model-layer phases "
+                         "([host-metric], [mlp], [models-agree]) and print "
+                         "their JSON last")
+    ap.add_argument("--per-candidate", action="store_true",
+                    help="with --models-only: time the host path once more "
+                         "candidate by candidate, the loop its batched fits "
+                         "replace")
     ap.add_argument("--agree-witness-rows", type=int, default=None,
                     help="with --workflow-only: run only [wf-agree] at "
                          "this many records with the linear families' "
@@ -4984,6 +5609,15 @@ def main(argv=None) -> int:
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(info["smi"])
         print(json.dumps({"text": txt}, default=str))
+        return 0
+    if args.models_only:
+        mod = phase_models(device, per_candidate=args.per_candidate)
+        laps("9p-9r models")
+        write_out(args.out, {"device": info, "models": mod})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"models": mod}, default=str))
         return 0
     if args.readers_only:
         ie = phase_ingest_explain(device)
@@ -5130,6 +5764,11 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
     ie = phase_ingest_explain(device, trees=fixed_trees)
     del fixed_trees
     laps("9m-9o ingest-explain")
+    # the model layer: a host-metric search (log loss) of every family's
+    # batched fits, both validator paths and fold edges on its matrix,
+    # then the MLP, the calibrator and an external family
+    mod = phase_models(device, agree=False)
+    laps("9p-9q models")
     prof = {}
     prof["lr_search"] = phase_fista_profile(device, X_s, y_s)
     gbt, rf = profiled_estimators(device)
@@ -5159,15 +5798,17 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
             **worker.result(f"phase_problems_agree:k{WIDE_K}")}
         fam["agree"] = worker.result("phase_families_agree")
         txt["agree"] = worker.result("phase_text_agree")
+        mod["agree"] = worker.result("phase_models_agree")
     finally:
         worker.close()
-    laps("6, 9, 9d, 9h, 9j, 9l agree")
+    laps("6, 9, 9d, 9h, 9j, 9l, 9r agree")
     validate, wf_cv = checks["validate"], checks["workflow_cv"]
     fam_run = fam["families"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
         validate["rung_k1_case"]] + problems["k1"]["cases"] + \
         fam_run["k1"]["cases"] + txt["text"]["k1"]["cases"] + \
-        ie["quickstart"]["k1"]["cases"] + ie["readers"]["k1"]["cases"]
+        ie["quickstart"]["k1"]["cases"] + ie["readers"]["k1"]["cases"] + \
+        mod["host_metric"]["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -5220,6 +5861,18 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
             name: rec.get("k1_launches", 0)
             for name, rec in run["families"].items()}
     entry["launches_insights"] = ie["insights"]["k1_launches"]
+    hm = mod["host_metric"]
+    entry["launches_host_metric"] = hm["k1_launches"]
+    entry["launches_host_metric_by_c"] = hm["k1_launches_by_c"]
+    entry["launches_host_metric_by_family"] = {
+        name: rec.get("k1_launches", 0)
+        for name, rec in hm["families"].items()}
+    entry["launches_host_metric_device_vs_host_by_family"] = {
+        name: rec.get("k1_launches", 0) for name, rec in
+        hm["device_vs_host"]["host_families"].items()}
+    entry["launches_fold_edges"] = hm["fold_edges"]["k1_launches"]
+    entry["launches_fold_edges_by_c"] = hm["fold_edges"]["k1_launches_by_c"]
+    entry["launches_mlp"] = mod["mlp"]["k1_launches"]
     for tag in ("iris", "boston"):
         run = problems[tag]
         entry[f"launches_{tag}"] = run["k1_launches"]
@@ -5235,6 +5888,7 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
                          "workflow_agree": wf_agree, **checks,
                          "problems": problems, "families": fam,
                          "text": txt, "ingest_explain": ie,
+                         "models": mod,
                          "profile": prof,
                          "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})

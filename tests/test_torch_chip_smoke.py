@@ -1019,7 +1019,7 @@ def test_agree_worker(monkeypatch):
     for name in phases:
         name = name.replace(f":k{chip_smoke.WIDE_K}", ":k{WIDE_K}")
         assert src.index(f'"{name}")') > start, name
-    assert src.count("agree=False") == 4
+    assert src.count("agree=False") == 5
 
 
 def test_agree_phase_arguments(monkeypatch):
@@ -1189,3 +1189,4 @@ def test_ingest_explain_is_wired_in(monkeypatch, capsys):
     assert len(calls) == 1
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last == {"ingest_explain": {"phase": "ingest"}}
+

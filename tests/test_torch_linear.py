@@ -337,11 +337,14 @@ def test_fista_single_fit_iterate_count(fit_data, monkeypatch):
 def test_multinomial_and_fold_grid_models_are_named():
     """Three classes fit the multinomial model ((3, d) coefficients, its
     parity is in test_torch_multiclass.py); the fold x grid path that
-    returns models is still named as not ported."""
+    returns models is binary-only, as in the JAX package, and names that
+    for three classes (its binary parity is in
+    test_torch_fold_grid_fit.py)."""
     X, y = _data(n=60)
     y3 = np.arange(60) % 3.0
     model = tl.LogisticRegression(device="cpu").fit_arrays(X, y3)
     assert tuple(model.coefficients.shape) == (3, X.shape[1])
     assert model.predict_arrays(X).probability.shape == (60, 3)
-    with pytest.raises(NotImplementedError, match="fit_fold_grid_arrays"):
-        tl.LinearSVC(device="cpu").fit_fold_grid_arrays(X, y, None, [{}])
+    with pytest.raises(NotImplementedError, match="binary-only"):
+        tl.LinearSVC(device="cpu").fit_fold_grid_arrays(
+            X, y3, np.ones((1, 60)), [{}])

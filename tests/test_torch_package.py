@@ -432,16 +432,27 @@ def test_problem_sources_are_walked():
 
 
 def test_unported_family_raises_by_name():
-    """The JAX package's multiclass opt-in MLP is not ported: asking for
-    it by name raises, naming its module."""
+    """The JAX package's multiclass opt-in MLP, which raised by name
+    until it was ported, is picked by name now: the filter keeps it
+    after the softmax XGBoost, in the opt-in pool's order, on the
+    selector's device; its module is among those the AST walk covers,
+    and its default device is the card, which raises without one."""
+    from transmogrifai_tpu_torch.models.mlp import (
+        MultilayerPerceptronClassifier)
     from transmogrifai_tpu_torch.selector import (
         MultiClassificationModelSelector)
-    with pytest.raises(NotImplementedError,
-                       match="transmogrifai_tpu/models/mlp.py"):
-        MultiClassificationModelSelector.with_cross_validation(
-            model_types_to_use=["XGBoostClassifier",
-                                "MultilayerPerceptronClassifier"],
-            device="cpu")
+    sel = MultiClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["XGBoostClassifier",
+                            "MultilayerPerceptronClassifier"],
+        device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == [
+        "XGBoostClassifier", "MultilayerPerceptronClassifier"]
+    assert sel.models[1][0].device.type == "cpu"
+    assert "models/mlp.py" in {str(p.relative_to(PKG))
+                               for p in PKG.rglob("*.py")}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MultilayerPerceptronClassifier()
 
 
 #: names of a JAX subpackage's ``__all__`` that wait for a later slice,
@@ -455,7 +466,7 @@ WAITING = {
 
 
 @pytest.mark.parametrize("subpackage", ["selector", "readers", "insights",
-                                        "features", "workflow"])
+                                        "features", "workflow", "models"])
 def test_public_names_match_jax(subpackage):
     """Every name of the JAX subpackage's ``__all__`` is in the port's
     ``__all__`` and importable there, but the ones WAITING lists, whose

@@ -128,9 +128,10 @@ def test_default_grid_is_the_reference_grid():
 
 
 def test_unported_families_are_named():
-    """With no filter the selector builds the default pool; a family the
-    port does not have (the JAX package's MLP) raises an error that names
-    it; filters keep the pool's order, and pick the opt-in families
+    """With no filter the selector builds the default pool; the MLP,
+    ported since, filters as the JAX package filters it: it joins the
+    multiclass pool by name, and a binary selector, whose pools lack it,
+    drops it; filters keep the pool's order, and pick the opt-in families
     (NaiveBayes) after the default ones."""
     sel = BinaryClassificationModelSelector.with_cross_validation(
         device="cpu")
@@ -138,12 +139,18 @@ def test_unported_families_are_named():
         "LogisticRegression", "RandomForestClassifier", "GBTClassifier",
         "LinearSVC"]
     assert sum(len(g) for _, g in sel.models) == 48
-    with pytest.raises(NotImplementedError,
-                       match="MultilayerPerceptronClassifier"):
-        BinaryClassificationModelSelector.with_cross_validation(
-            model_types_to_use=["GBTClassifier",
-                                "MultilayerPerceptronClassifier"],
-            device="cpu")
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["GBTClassifier",
+                            "MultilayerPerceptronClassifier"],
+        device="cpu")
+    assert [type(e).__name__ for e, _ in sel.models] == ["GBTClassifier"]
+    from transmogrifai_tpu_torch.selector import (
+        MultiClassificationModelSelector)
+    sel = MultiClassificationModelSelector.with_cross_validation(
+        model_types_to_use=["MultilayerPerceptronClassifier"], device="cpu")
+    assert [(type(e).__name__, g) for e, g in sel.models] == [
+        ("MultilayerPerceptronClassifier",
+         [{"hidden_layers": (10,)}, {"hidden_layers": (32, 16)}])]
     sel = BinaryClassificationModelSelector.with_cross_validation(
         model_types_to_use=["NaiveBayes", "GBTClassifier"], device="cpu")
     assert [type(e).__name__ for e, _ in sel.models] == [

@@ -49,9 +49,10 @@ def binary_from_sigmoid(margin: torch.Tensor):
     """(score, plabel) from GBT margins — the twin of
     ``GBTClassifierModel.raw_to_probability`` (p = sigmoid(margin), label
     = argmax of [1 - p, p]): on the CPU with the JAX package's CPU
-    arithmetic (``utils/ref_math.py``), on the card in the host model's
-    order of operations."""
-    p = (ref_math.sigmoid(margin) if margin.device.type == "cpu"
+    arithmetic in float64 (``utils/ref_math.py``, the card's float64
+    witness too), on the card's float32 in the host model's order of
+    operations."""
+    p = (ref_math.sigmoid(margin) if margin.dtype == torch.float64
          else 1.0 / (1.0 + torch.exp(-margin)))
     return p, (p > 1.0 - p).to(margin.dtype)
 

@@ -132,6 +132,56 @@ class NaiveBayes(Predictor):
                                model_type=self.model_type,
                                device=self.device)
 
+    def _fold_grid(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate's closed form: yields
+        (fold, grid index, model type, pi (K,), theta (K, d)) of each, one
+        batch of products per model type. Raises FamilyPreconditionError
+        on a negative feature, NotImplementedError for a grid parameter
+        the batch cannot vary or a fold that lacks a class."""
+        _check_non_negative(X)
+        grid = [dict(p) for p in (list(grid) or [{}])]
+        for p in grid:
+            extra = set(p) - {"smoothing", "model_type"}
+            if extra:
+                raise NotImplementedError(
+                    f"the NaiveBayes search cannot vary {sorted(extra)}")
+        masks = np.asarray(masks, dtype=np.float64)
+        check_fold_classes(y, masks)
+        k = num_classes(y)
+        F = masks.shape[0]
+        dtype = working_dtype(self.device)
+        masks_t = torch.as_tensor(masks, dtype=dtype, device=self.device)
+        groups = {}
+        for gi, p in enumerate(grid):
+            cand = self.with_params(**p)
+            groups.setdefault(cand.model_type, []).append((gi, cand))
+        for model_type, members in groups.items():
+            Xt, onehot = members[0][1]._inputs(X, y, k)
+            gk = len(members)
+            sm = torch.as_tensor([float(c.smoothing) for _, c in members]
+                                 * F, dtype=dtype, device=self.device)
+            pi, theta = _nb_closed_form(
+                Xt, onehot, masks_t.repeat_interleave(gk, dim=0), sm,
+                model_type)
+            for f in range(F):
+                for j, (gi, _) in enumerate(members):
+                    c = f * gk + j
+                    yield f, gi, model_type, pi[c], theta[c]
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate fitted as the search fits
+        it, (F, G) models out. A negative feature raises
+        FamilyPreconditionError, so the validator falls back to fits
+        candidate by candidate, which score that family NaN."""
+        F = np.asarray(masks).shape[0]
+        models = [[None] * len(list(grid) or [{}]) for _ in range(F)]
+        for f, gi, model_type, pi, theta in self._fold_grid(X, y, masks,
+                                                            grid):
+            models[f][gi] = NaiveBayesModel(
+                pi.cpu().numpy(), theta.cpu().numpy(),
+                model_type=model_type, device=self.device)
+        return models
+
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:
         """Device-resident search: every (fold, grid point) candidate's
@@ -145,46 +195,22 @@ class NaiveBayes(Predictor):
             raise NotImplementedError(
                 "NaiveBayes device eval needs a classification metric")
         _check_non_negative(X)
-        k = num_classes(y)
-        if spec[0] == "binary" and k != 2:
+        if spec[0] == "binary" and num_classes(y) != 2:
             raise NotImplementedError(
                 "binary device eval needs binary labels")
-        grid = [dict(p) for p in subset_grid(grid, cand_idx)]
-        for p in grid:
-            extra = set(p) - {"smoothing", "model_type"}
-            if extra:
-                raise NotImplementedError(
-                    f"the NaiveBayes search cannot vary {sorted(extra)}")
-        masks = np.asarray(masks, dtype=np.float64)
-        check_fold_classes(y, masks)
-        F = masks.shape[0]
+        grid = subset_grid(grid, cand_idx)
+        F = np.asarray(masks).shape[0]
         mfn = metric_fn(*spec)
         dtype = working_dtype(self.device)
         Xv = torch.as_tensor(X_val, dtype=dtype, device=self.device)
         yv = torch.as_tensor(np.asarray(y_val), dtype=dtype,
                              device=self.device)
-        masks_t = torch.as_tensor(masks, dtype=dtype, device=self.device)
         mm = torch.full((F, len(grid)), torch.nan, dtype=dtype,
                         device=self.device)
-        groups = {}
-        for gi, p in enumerate(grid):
-            cand = self.with_params(**p)
-            groups.setdefault(cand.model_type, []).append((gi, cand))
-        for model_type, members in groups.items():
-            cand0 = members[0][1]
-            Xt, onehot = cand0._inputs(X, y, k)
-            gk = len(members)
-            sm = torch.as_tensor([float(c.smoothing) for _, c in members]
-                                 * F, dtype=dtype, device=self.device)
-            pi, theta = _nb_closed_form(
-                Xt, onehot, masks_t.repeat_interleave(gk, dim=0), sm,
-                model_type)
-            for f in range(F):
-                for j, (gi, _) in enumerate(members):
-                    c = f * gk + j
-                    raw = _nb_raw(pi[c], theta[c], Xv[f], model_type)
-                    scores = (binary_from_raw_pair(raw)
-                              if spec[0] == "binary"
-                              else softmax_probability(raw))
-                    mm[f, gi] = mfn(yv[f], scores)
+        for f, gi, model_type, pi, theta in self._fold_grid(X, y, masks,
+                                                            grid):
+            raw = _nb_raw(pi, theta, Xv[f], model_type)
+            scores = (binary_from_raw_pair(raw) if spec[0] == "binary"
+                      else softmax_probability(raw))
+            mm[f, gi] = mfn(yv[f], scores)
         return mm.cpu().numpy().astype(np.float64)

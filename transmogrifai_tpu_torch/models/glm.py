@@ -246,6 +246,37 @@ class GeneralizedLinearRegression(Predictor):
             groups.setdefault(key, []).append((gi, cand))
         return grid, groups
 
+    def _fold_grid(self, X, y, masks, grid):
+        """The masked IRLS of every (fold, grid point) candidate, one batch
+        a (family, link, intercept, max_iter) group: yields (fold, grid
+        index, link, coefficients (d,), intercept 0-d) of each."""
+        masks = np.asarray(masks, dtype=np.float64)
+        F = masks.shape[0]
+        Xt, yt = self._tensors(X, y)
+        for (family, link, fit_int, mi), members in self._grid_groups(
+                grid)[1].items():
+            gk = len(members)
+            W, B = self._irls(
+                Xt, yt, np.repeat(masks, gk, axis=0),
+                np.tile([float(c.reg_param) for _, c in members], F),
+                np.tile([float(c.variance_power) for _, c in members], F),
+                family, link, mi, fit_int)
+            for f in range(F):
+                for j, (gi, _) in enumerate(members):
+                    yield f, gi, link, W[f * gk + j], B[f * gk + j]
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate fitted as the search fits
+        it, (F, G) models out."""
+        grid = self._grid_groups(grid)[0]
+        models = [[None] * len(grid) for _ in range(np.asarray(masks)
+                                                    .shape[0])]
+        for f, gi, link, w, b in self._fold_grid(X, y, masks, grid):
+            models[f][gi] = GeneralizedLinearRegressionModel(
+                w.cpu().numpy(), float(b.cpu()), link=link,
+                device=self.device)
+        return models
+
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:
         """Device-resident search: the masked IRLS of every (fold, grid
@@ -255,26 +286,13 @@ class GeneralizedLinearRegression(Predictor):
         if spec[0] != "regression":
             raise NotImplementedError(
                 "GLM device eval needs a regression metric")
-        grid, groups = self._grid_groups(subset_grid(grid, cand_idx))
-        masks = np.asarray(masks, dtype=np.float64)
-        F = masks.shape[0]
-        Xt, yt = self._tensors(X, y)
+        grid = self._grid_groups(subset_grid(grid, cand_idx))[0]
         Xv = torch.as_tensor(X_val, device=self.device).to(torch.float64)
         yv = torch.as_tensor(np.asarray(y_val, dtype=np.float64),
                              device=self.device)
         mfn = metric_fn(*spec)
-        mm = torch.full((F, len(grid)), torch.nan, dtype=torch.float64,
-                        device=self.device)
-        for (family, link, fit_int, mi), members in groups.items():
-            gk = len(members)
-            W, B = self._irls(
-                Xt, yt, np.repeat(masks, gk, axis=0),
-                np.tile([float(c.reg_param) for _, c in members], F),
-                np.tile([float(c.variance_power) for _, c in members], F),
-                family, link, mi, fit_int)
-            for f in range(F):
-                for j, (gi, _) in enumerate(members):
-                    c = f * gk + j
-                    mm[f, gi] = mfn(yv[f], _glm_predict(W[c], B[c], link,
-                                                        Xv[f]))
+        mm = torch.full((np.asarray(masks).shape[0], len(grid)), torch.nan,
+                        dtype=torch.float64, device=self.device)
+        for f, gi, link, w, b in self._fold_grid(X, y, masks, grid):
+            mm[f, gi] = mfn(yv[f], _glm_predict(w, b, link, Xv[f]))
         return mm.cpu().numpy()

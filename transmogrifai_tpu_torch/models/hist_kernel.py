@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["HistPlan", "compact_ids", "hist_bytes", "level_hist",
-           "level_hist_plain", "padded_stride"]
+           "index_add_rows", "level_hist_plain", "padded_stride"]
 
 #: dynamic shared memory one block may opt into on an H100 (bytes)
 SMEM_BLOCK = 232_448
@@ -241,9 +241,40 @@ def level_hist_plain(ids: torch.Tensor, offsets: torch.Tensor,
                       C * TB)
     out = torch.zeros((C * TB + 1, S), dtype=stats.dtype,
                       device=stats.device)
-    out.index_add_(0, seg.reshape(-1),
+    index_add_rows(out, seg.reshape(-1),
                    stats[:, None, :].expand(n, d, S).reshape(n * d, S))
     return out[:C * TB].view(C, TB, S)
+
+
+def index_add_rows(out: torch.Tensor, index: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """``out.index_add_(0, index, src)`` with each index's rows added one
+    after another in row order, the CPU's order, into an ``out`` of
+    zeros. A float64 sum on a card (the float64 tree witness, which must
+    grow the CPU's trees) runs under torch's deterministic algorithms:
+    their ``index_add_`` sorts the indices stably and adds each index's
+    rows in turn (measured on an H100: equal to the CPU bit for bit), but
+    for rows of one value, which a warp reduces in another order; those
+    are summed as rows of two, the second zero. The atomics of the
+    default kernel add in no fixed order. Other sums are the plain
+    ``index_add_``."""
+    if out.device.type != "cuda" or out.dtype != torch.float64:
+        return out.index_add_(0, index, src)
+    narrow = src[0].numel() == 1 if src.shape[0] else False
+    acc = (torch.zeros((out.shape[0], 2), dtype=out.dtype, device=out.device)
+           if narrow else out)
+    rows = (torch.stack([src.reshape(-1), torch.zeros_like(src.reshape(-1))],
+                        dim=1) if narrow else src)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        acc.index_add_(0, index, rows)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+    if narrow:
+        out.add_(acc[:, 0].reshape(out.shape))
+    return out
 
 
 def _lib():

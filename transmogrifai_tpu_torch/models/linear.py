@@ -539,10 +539,24 @@ class _LinearEstimator(Predictor):
                                device=self.device)
 
     def fit_fold_grid_arrays(self, X, y, masks, grid):
-        raise NotImplementedError(
-            f"{type(self).__name__}.fit_fold_grid_arrays (the fold x grid "
-            f"path that returns fitted models) is not ported yet; the "
-            f"search uses eval_fold_grid_arrays")
+        """Every (fold, grid point) candidate fitted as the search fits
+        it (fixed-trip FISTA, see ``parallel/cv.fit_linear_fold_grid``),
+        (F, G) models out. Binary labels only, as in the JAX package: the
+        multinomial search fits candidate by candidate."""
+        if len(y) and int(np.max(y)) + 1 > 2:
+            raise NotImplementedError("batched kernel is binary-only")
+        from ..parallel.cv import fit_linear_fold_grid
+        ga = _grid_to_reg_alpha(self, grid, allowed=self.grid_params)
+        params = fit_linear_fold_grid(
+            self.kind, X, y, masks, ga, fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)
+        d = X.shape[1]
+        # the JAX package's intercept types: a 0-d array for the logistic
+        # model, a float for the SVC
+        return [[self.model_type(
+            p[:d], p[d] if self.kind == "logistic" else float(p[d]),
+            device=self.device) for p in row] for row in params]
 
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:
@@ -659,6 +673,21 @@ class LinearRegression(Predictor):
             device=self.device)
         return LinearRegressionModel(coef[0].cpu().numpy(),
                                      float(b[0].cpu()), device=self.device)
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate fitted as the search fits
+        it (see ``parallel/cv.fit_linear_fold_grid``), (F, G) models
+        out."""
+        from ..parallel.cv import fit_linear_fold_grid
+        ga = _grid_to_reg_alpha(self, grid)
+        params = fit_linear_fold_grid(
+            "squared", X, y, masks, ga, fit_intercept=self.fit_intercept,
+            standardize=self.standardization, max_iter=self.max_iter,
+            device=self.device)
+        d = X.shape[1]
+        return [[LinearRegressionModel(p[:d], float(p[d]),
+                                       device=self.device) for p in row]
+                for row in params]
 
     def eval_fold_grid_arrays(self, X, y, masks, grid, X_val, y_val, spec,
                               cand_idx=None) -> np.ndarray:

@@ -15,9 +15,8 @@ regression pool LinearRegression, RandomForestRegressor, GBTRegressor and
 GLM (gaussian and poisson at reg_param 0.001/0.01/0.1). The opt-in pools
 (``model_types_to_use`` picks from default + opt-in) hold NaiveBayes, DT
 and XGBoost (binary), the softmax XGBoost (multiclass) and DT and XGBoost
-(regression). The JAX package's multiclass opt-in MLP is not ported: asked
-for by name, it raises (``UNPORTED_FAMILIES``). The order matters: the
-first candidate wins a tie.
+(regression) and the MLP at hidden layers (10,) and (32, 16)
+(multiclass). The order matters: the first candidate wins a tie.
 """
 from __future__ import annotations
 
@@ -27,11 +26,7 @@ from .base import Predictor
 
 __all__ = ["default_binary_models", "default_binary_extra_models",
            "default_multiclass_models", "default_multiclass_extra_models",
-           "default_regression_models", "default_regression_extra_models",
-           "UNPORTED_FAMILIES"]
-
-#: family name -> the JAX module it waits for
-UNPORTED_FAMILIES = {"MultilayerPerceptronClassifier": "models/mlp.py"}
+           "default_regression_models", "default_regression_extra_models"]
 
 #: DefaultSelectorParams.Regularization
 _REG = (0.001, 0.01, 0.1, 0.2)
@@ -114,13 +109,16 @@ def default_multiclass_models(device="cuda"
 
 def default_multiclass_extra_models(device="cuda"
                                     ) -> List[Tuple[Predictor, List[Dict]]]:
-    """The multiclass opt-in families: the softmax XGBoost (9 points); the
-    JAX package's MLP is in ``UNPORTED_FAMILIES``."""
+    """The multiclass opt-in families: the softmax XGBoost (9 points) and
+    the MLP (2)."""
+    from .mlp import MultilayerPerceptronClassifier
     from .trees import XGBoostClassifier
     return [
         (XGBoostClassifier(num_round=_GBT_ROUNDS, device=device),
          [{"max_depth": d, "min_child_weight": m}
           for d in _DEPTH for m in _MIN_CHILD]),
+        (MultilayerPerceptronClassifier(device=device),
+         [{"hidden_layers": h} for h in ((10,), (32, 16))]),
     ]
 
 

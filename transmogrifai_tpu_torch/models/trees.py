@@ -10,8 +10,19 @@ squared objectives (``_gbt_body``) and on the K-class softmax
 per-tree stratified feature pools (``_forest_trees``: K-class one-hot or
 [w, wy, wyy] statistics), traversal, the estimators and their models
 (with the XGBoost facades), and the fold x grid searches that fit every
-(fold, grid point) candidate and score it with the on-device metric.
+(fold, grid point) candidate and either score it with the on-device
+metric (``eval_fold_grid_arrays``) or return it as a model
+(``fit_fold_grid_arrays``, the validator's host-metric path): one
+search function a family (``_forest_fold_grid``, ``_gbt_fold_grid``) with
+two sinks (``_FoldGridSink``). ``batch_predict_raw`` scores the fitted
+models of a fold in one stacked traversal per static shape.
+``TX_TREE_EDGES=fold`` takes each fold's bin edges from its train rows
+(``_fold_edge_recurse``).
 GBTClassifier stays binary, as in the JAX package.
+
+Trees grow at their own static depth, so the JAX package's
+``_trim_tree_arrays`` (which cuts a ``TX_TREE_DEPTH=mask`` group's
+depth-cap trees back to a candidate's depth) has no counterpart here.
 
 Where the JAX package jit-compiles and vmaps, the port runs eagerly:
 
@@ -26,7 +37,9 @@ Where the JAX package jit-compiles and vmaps, the port runs eagerly:
   pool and draws shared by every candidate of its static group; only the
   (folds, grid) metric matrix reaches the host.
 
-Numbers: float32 on CUDA, float64 on the CPU (``utils/device.py``). Random
+Numbers: float32 on CUDA, float64 on the CPU (``utils/device.py``); a
+float64 tree on a card (the smoke's witness) adds its histograms, totals
+and leaf sums in row order as the CPU does (``index_add_rows``). Random
 draws (feature pools, bootstrap weights, node feature subsets, the GBT
 row subsample) come from a draws provider (``models/draws.py``); with one
 that replays the JAX package's key chain, trees equal the JAX package's
@@ -34,6 +47,7 @@ exactly in float64. At the GBT default ``subsample=1.0`` nothing is drawn.
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +59,8 @@ from ..utils.device import resolve_device, working_dtype
 from .base import (ClassifierModel, Predictor, RegressionModel,
                    check_fold_classes, num_classes, subset_grid)
 from .draws import TorchDraws
-from .hist_kernel import HistPlan, compact_ids, level_hist, padded_stride
+from .hist_kernel import (HistPlan, compact_ids, index_add_rows, level_hist,
+                          padded_stride)
 
 __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
            "GBTClassifier", "GBTClassifierModel",
@@ -53,7 +68,7 @@ __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor",
            "GBTRegressorModel", "RandomForestClassifier",
            "RandomForestRegressor", "TreeEnsembleClassifierModel",
            "TreeEnsembleRegressorModel", "XGBoostClassifier",
-           "XGBoostRegressor", "clear_design_cache"]
+           "XGBoostRegressor", "batch_predict_raw", "clear_design_cache"]
 
 #: matrix element count (rows x features) from which a design on CUDA
 #: is binned on the card (f32 sorts) instead of by the exact f64 host
@@ -96,15 +111,20 @@ class _PackedDesign:
                  "has_prev", "packed_thr", "col_thr", "not_a_split", "widths",
                  "n", "d", "total_bins", "device", "dtype", "_plans")
 
-    def __init__(self, X, max_bins: int, device: torch.device):
+    def __init__(self, X, max_bins: int, device: torch.device,
+                 edge_rows: Optional[np.ndarray] = None):
+        """``edge_rows`` restricts the quantile edges to those rows (a
+        fold's train rows under ``TX_TREE_EDGES=fold``) while every row of
+        ``X`` is binned: held-out rows never move where a split can fall."""
         n, d = X.shape
-        if device.type == "cuda" and n * d >= _DEVICE_BIN_MIN_ELEMS:
+        e_rows = n if edge_rows is None else len(edge_rows)
+        if device.type == "cuda" and e_rows * d >= _DEVICE_BIN_MIN_ELEMS:
             thr_parts, widths, binned = self._bin_device(
                 torch.as_tensor(X, dtype=torch.float32, device=device),
-                max_bins)
+                max_bins, edge_rows)
         else:
             thr_parts, widths, binned = self._bin_host(_to_numpy(X),
-                                                       max_bins)
+                                                       max_bins, edge_rows)
             binned = torch.as_tensor(binned, device=device)
         widths = np.asarray(widths, dtype=np.int64)
         self.ids, self.offsets = compact_ids(binned, widths)
@@ -143,12 +163,14 @@ class _PackedDesign:
         return plan
 
     @staticmethod
-    def _bin_host(X: np.ndarray, max_bins: int):
+    def _bin_host(X: np.ndarray, max_bins: int,
+                  edge_rows: Optional[np.ndarray] = None):
         """Exact f64 per-feature binning (the reference semantics)."""
         X = np.asarray(X, dtype=np.float64)
+        E = X if edge_rows is None else X[np.asarray(edge_rows)]
         binned_cols, thr_parts, widths = [], [], []
         for f in range(X.shape[1]):
-            col = X[:, f]
+            col = E[:, f]
             uniq = np.unique(col)
             if uniq.size <= 2:
                 edges = uniq[:1]                     # one edge, two bins
@@ -170,14 +192,17 @@ class _PackedDesign:
         return thr_parts, widths, np.stack(binned_cols, axis=1)
 
     @staticmethod
-    def _bin_device(Xd: torch.Tensor, max_bins: int):
+    def _bin_device(Xd: torch.Tensor, max_bins: int,
+                    edge_rows: Optional[np.ndarray] = None):
         """f32 binning on Xd's device: one column sort with unique counts,
         one quantile-interpolation gather, one ``searchsorted`` — the
         width/edge/dedup semantics of _bin_host, with only (d,)-shaped
         metadata crossing to the host."""
         Xd = Xd.to(torch.float32)
-        m, d = Xd.shape
-        s = torch.sort(Xd, dim=0).values
+        Ed = Xd if edge_rows is None else Xd[torch.as_tensor(
+            np.asarray(edge_rows), device=Xd.device)]
+        m, d = Ed.shape
+        s = torch.sort(Ed, dim=0).values
         uniq = (1 + (s[1:] != s[:-1]).sum(0)).cpu().numpy()
         widths = np.where(
             uniq <= 2, 2,
@@ -236,14 +261,19 @@ class _DesignCache:
         self.size = size
         self._entries: "OrderedDict[tuple, tuple]" = OrderedDict()
 
-    def get(self, X, max_bins: int, device: torch.device) -> _PackedDesign:
-        key = (id(X), tuple(X.shape), max_bins, str(device))
+    def get(self, X, max_bins: int, device: torch.device,
+            edge_rows: Optional[np.ndarray] = None) -> _PackedDesign:
+        """The design of ``X`` whose edges come from ``edge_rows`` (all
+        rows for None): the rows join the key, so one fold's design is
+        never served to another fold."""
+        key = (id(X), tuple(X.shape), max_bins, str(device),
+               None if edge_rows is None else id(edge_rows))
         hit = self._entries.get(key)
-        if hit is not None and hit[0] is X:
+        if hit is not None and hit[0] is X and hit[1] is edge_rows:
             self._entries.move_to_end(key)
-            return hit[1]
-        design = _PackedDesign(X, max_bins, device)
-        self._entries[key] = (X, design)
+            return hit[2]
+        design = _PackedDesign(X, max_bins, device, edge_rows)
+        self._entries[key] = (X, edge_rows, design)
         while len(self._entries) > self.size:
             self._entries.popitem(last=False)
         return design
@@ -260,8 +290,16 @@ def clear_design_cache() -> None:
     _DESIGNS.clear()
 
 
-def _design_args(X, max_bins: int, device: torch.device) -> _PackedDesign:
-    return _DESIGNS.get(X, max_bins, device)
+def _design_args(X, max_bins: int, device: torch.device,
+                 edge_rows: Optional[np.ndarray] = None) -> _PackedDesign:
+    return _DESIGNS.get(X, max_bins, device, edge_rows)
+
+
+def _fold_edges_mode() -> bool:
+    """Whether the fold x grid searches take each fold's bin edges from
+    its train rows only (``TX_TREE_EDGES=fold``) instead of the whole
+    prepared matrix (``"matrix"``, the default, as in the JAX package)."""
+    return os.environ.get("TX_TREE_EDGES", "matrix") == "fold"
 
 
 # ---------------------------------------------------------------------------
@@ -446,13 +484,14 @@ def _grow_tree(design, stats: torch.Tensor, *, depth: int, gain_fn,
         if identity:
             # identity slots include empty nodes: count rows per slot
             # (an extra ones column) and keep empty slots from splitting
-            aug = torch.zeros((C, S + 1), dtype=stats.dtype, device=dev
-                              ).index_add_(0, slot_l, aug_rows)
+            aug = index_add_rows(torch.zeros((C, S + 1), dtype=stats.dtype,
+                                             device=dev), slot_l, aug_rows)
             total = aug[:, None, :-1]
             nonempty = aug[:, -1] > 0
         else:
-            total = torch.zeros((C, S), dtype=stats.dtype, device=dev
-                                ).index_add_(0, slot_l, stats)[:, None, :]
+            total = index_add_rows(
+                torch.zeros((C, S), dtype=stats.dtype, device=dev), slot_l,
+                stats)[:, None, :]
         gain = gain_fn(left, total - left, total)
         gain = torch.where(design.not_a_split[None, :], -torch.inf, gain)
         if subset:
@@ -491,8 +530,9 @@ def _grow_tree(design, stats: torch.Tensor, *, depth: int, gain_fn,
         go_right = (design.row_bins(bfeat[slot_l]) > best_r[slot_l]
                     ).to(torch.int32)
         node = 2 * node + go_right                 # within-level index
-    leaf_stats = torch.zeros((2 ** depth, S), dtype=stats.dtype, device=dev
-                             ).index_add_(0, node.long(), stats)
+    leaf_stats = index_add_rows(
+        torch.zeros((2 ** depth, S), dtype=stats.dtype, device=dev),
+        node.long(), stats)
     return feat_heap[:H], thr_heap[:H], leaf_stats, node
 
 
@@ -740,6 +780,12 @@ class GBTClassifierModel(_TreeArrays, ClassifierModel):
                          self.depth)
         return torch.stack([-m, m], dim=1)
 
+    @staticmethod
+    def raw_from_margin(m: np.ndarray) -> np.ndarray:
+        """The raw pair of host margins (``batch_predict_raw``'s layout of
+        this model, the one ``raw_arrays`` makes)."""
+        return np.stack([-m, m], axis=1)
+
     def raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
         p = 1.0 / (1.0 + np.exp(-raw[:, 1]))
         return np.stack([1 - p, p], axis=1)
@@ -822,47 +868,162 @@ def _candidate_groups(est, grid, skey: Sequence[str]
     return list(groups.values())
 
 
-def _gbt_fold_grid(est, X, y, masks, grid, X_val, y_val, spec,
-                   objective: str = "logistic",
-                   num_classes: int = 0) -> np.ndarray:
-    """(F, G) validation metrics of every (fold, grid point) candidate:
-    each a masked fit on the whole prepared matrix (mask = the fold's
-    train rows, bin edges from the whole matrix as in the JAX search),
-    then the on-device metric on the fold's validation rows: the sigmoid
-    pair of the margins (``objective`` "logistic"), the values
-    ("squared"), or the softmax of the K class margins ("softmax", with
-    ``num_classes``). Fold-major within each static group; only the
-    matrix reaches the host."""
-    from ..evaluators.device_metrics import binary_from_sigmoid, metric_fn
+class _FoldGridSink:
+    """Where a fold x grid search's candidates go, in one of two modes.
+
+    With ``eval_ctx`` = (X_val (F, nv, d), y_val (F, nv), spec) each
+    candidate's scores on its fold's validation rows feed the on-device
+    metric (``score``) and only the (F, G) matrix reaches the host. With
+    None each candidate's fitted model is kept (``keep``) and the result
+    is the (F, G) list of lists of models."""
+
+    def __init__(self, eval_ctx, F: int, G: int, device: torch.device,
+                 dtype: torch.dtype):
+        self.scoring = eval_ctx is not None
+        if not self.scoring:
+            self.models = [[None] * G for _ in range(F)]
+            return
+        from ..evaluators.device_metrics import metric_fn
+        X_val, y_val, spec = eval_ctx
+        self.spec = spec
+        self.mfn = metric_fn(*spec)
+        self.Xv = torch.as_tensor(X_val, dtype=dtype, device=device)
+        self.yv = torch.as_tensor(np.asarray(y_val), dtype=dtype,
+                                  device=device)
+        self.mm = torch.full((F, G), torch.nan, dtype=dtype, device=device)
+
+    def score(self, f: int, gi: int, scores) -> None:
+        self.mm[f, gi] = self.mfn(self.yv[f], scores)
+
+    def keep(self, f: int, gi: int, model) -> None:
+        self.models[f][gi] = model
+
+    def result(self):
+        if self.scoring:
+            return self.mm.cpu().numpy().astype(np.float64)
+        return self.models
+
+
+def _fold_edge_recurse(search, est, X, y, masks, grid, eval_ctx, **kw):
+    """``TX_TREE_EDGES=fold``: one single-fold call of ``search`` per
+    fold, each binning with edges from that fold's train rows only; the
+    same (F, G) matrix or per-fold model lists the fold-major call
+    returns. One design per fold, so no validation row moves a split's
+    threshold."""
+    outs = []
+    for f in range(masks.shape[0]):
+        rows = np.nonzero(masks[f] > 0)[0]
+        sub = None if eval_ctx is None else (
+            eval_ctx[0][f:f + 1], eval_ctx[1][f:f + 1], eval_ctx[2])
+        outs.append(search(est, X, y, masks[f:f + 1], grid, eval_ctx=sub,
+                           edge_rows=rows, **kw))
+    if eval_ctx is not None:
+        return np.concatenate(outs, axis=0)
+    return [o[0] for o in outs]
+
+
+def _gbt_fold_grid(est, X, y, masks, grid, objective: str = "logistic",
+                   num_classes: int = 0, eval_ctx=None, edge_rows=None):
+    """Every (fold, grid point) booster candidate: a masked fit on the
+    whole prepared matrix (mask = the fold's train rows, bin edges from
+    the whole matrix, or from ``edge_rows`` under ``TX_TREE_EDGES=fold``,
+    as in the JAX search), fold-major within each static group. With
+    ``eval_ctx`` (see _FoldGridSink) the on-device metric of each
+    candidate on its fold's validation rows: the sigmoid pair of the
+    margins (``objective`` "logistic"), the values ("squared"), or the
+    softmax of the K class margins ("softmax", with ``num_classes``), and
+    the (F, G) matrix out; without, the (F, G) fitted models."""
+    from ..evaluators.device_metrics import binary_from_sigmoid
+    masks = np.asarray(masks, dtype=np.float64)
+    if edge_rows is None and _fold_edges_mode():
+        return _fold_edge_recurse(_gbt_fold_grid, est, X, y, masks, grid,
+                                  eval_ctx, objective=objective,
+                                  num_classes=num_classes)
     grid = _check_grid(grid, _GBT_TRACED + _GBT_STATIC, "GBT")
     dev, dtype = est.device, working_dtype(est.device)
-    masks = np.asarray(masks, dtype=np.float64)
-    F = masks.shape[0]
-    mfn = metric_fn(*spec)
+    F, d = masks.shape[0], X.shape[1]
+    sink = _FoldGridSink(eval_ctx, F, len(grid), dev, dtype)
     y_t = torch.as_tensor(np.asarray(y), dtype=dtype, device=dev)
     masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
-    Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
-    yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
-    mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
     for members in _candidate_groups(est, grid, _GBT_SKEY):
-        design = _design_args(X, members[0][1].max_bins, dev)
+        design = _design_args(X, members[0][1].max_bins, dev, edge_rows)
         for f in range(F):
             for gi, cand in members:
+                depth = cand.max_depth
                 if objective == "softmax":
                     fit = _gbt_softmax_body(design, y_t, masks_t[f],
                                             num_classes=num_classes,
                                             **cand._fit_kwargs())
-                    scores = ref_math.softmax(_softmax_margins(
-                        Xv[f], *fit, cand.max_depth), dim=1)
-                else:
-                    fit = _gbt_body(design, y_t, masks_t[f],
-                                    objective=objective,
-                                    **cand._fit_kwargs())
-                    scores = _gbt_margins(Xv[f], *fit, cand.max_depth)
-                    if objective == "logistic":
-                        scores = binary_from_sigmoid(scores)
-                mm[f, gi] = mfn(yv[f], scores)
-    return mm.cpu().numpy().astype(np.float64)
+                    if sink.scoring:
+                        sink.score(f, gi, ref_math.softmax(_softmax_margins(
+                            sink.Xv[f], *fit, depth), dim=1))
+                    else:
+                        sink.keep(f, gi, GBTMulticlassClassifierModel(
+                            *fit[:3], depth=depth, base=fit[3],
+                            n_features=d, device=dev))
+                    continue
+                fit = _gbt_body(design, y_t, masks_t[f], objective=objective,
+                                **cand._fit_kwargs())
+                if not sink.scoring:
+                    model_cls = (GBTClassifierModel if objective == "logistic"
+                                 else GBTRegressorModel)
+                    sink.keep(f, gi, model_cls(
+                        *fit[:3], depth=depth, base=float(fit[3]),
+                        n_features=d, device=dev))
+                    continue
+                scores = _gbt_margins(sink.Xv[f], *fit, depth)
+                if objective == "logistic":
+                    scores = binary_from_sigmoid(scores)
+                sink.score(f, gi, scores)
+    return sink.result()
+
+
+def batch_predict_raw(models, X) -> dict:
+    """Raw predictions of every forest, decision-tree and binary or
+    regression booster model in ``models`` (others are skipped) on ``X``:
+    the models grouped by static shape (kind, depth, heap and leaf
+    shapes, device), each group one stacked traversal on its device, the
+    trees of a model summed in tree order as its own ``raw_arrays`` sums
+    them. Returns {index in models: raw numpy array} in each model's own
+    ``predict_raw`` / ``predict_values`` layout, for its
+    ``prediction_from_raw``."""
+    groups: Dict[tuple, list] = {}
+    for i, m in enumerate(models):
+        if isinstance(m, _EnsembleModel):
+            kind = "forest"
+        elif isinstance(m, (GBTClassifierModel, GBTRegressorModel)):
+            kind = "gbt"
+        else:
+            continue
+        key = (kind, m.depth, tuple(m.feats.shape), tuple(m.leaves.shape),
+               m.device, m.dtype)
+        groups.setdefault(key, []).append(i)
+    out: dict = {}
+    for (kind, depth, _, lshape, dev, dtype), idxs in groups.items():
+        Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+        feats = torch.stack([models[i].feats for i in idxs])
+        thrs = torch.stack([models[i].thrs for i in idxs])
+        C, T, H = feats.shape
+        leaf = _predict_leaves(Xt, feats.reshape(C * T, H),
+                               thrs.reshape(C * T, H), depth)   # (C*T, n)
+        leaves = torch.stack([models[i].leaves for i in idxs]).reshape(
+            C * T, *lshape[1:])
+        rows = torch.arange(C * T, device=dev)[:, None]
+        vals = leaves[rows, leaf]
+        total = torch.cumsum(vals.reshape(C, T, *vals.shape[1:]), dim=1)[:, -1]
+        if kind == "forest":
+            raw = total / T
+        else:
+            bases = torch.tensor([models[i].base for i in idxs], dtype=dtype,
+                                 device=dev)
+            raw = bases[:, None] + total
+        raw = raw.cpu().numpy().astype(np.float64)
+        for j, i in enumerate(idxs):
+            r = raw[j]
+            if isinstance(models[i], GBTClassifierModel):
+                r = models[i].raw_from_margin(r)
+            out[i] = r
+    return out
 
 
 class _BoosterBase(Predictor):
@@ -931,7 +1092,17 @@ class GBTClassifier(_BoosterBase):
             raise NotImplementedError(
                 "the GBT search requires binary labels {0, 1}")
         return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
-                              X_val, y_val, spec)
+                              eval_ctx=(X_val, y_val, spec))
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate fitted by the search's
+        masked fits, (F, G) models out (see _gbt_fold_grid). Labels
+        outside {0, 1} raise NotImplementedError, so the validator fits
+        candidate by candidate instead."""
+        if np.setdiff1d(np.unique(y), [0.0, 1.0]).size:
+            raise NotImplementedError(
+                "the GBT search requires binary labels {0, 1}")
+        return _gbt_fold_grid(self, X, y, masks, grid)
 
     def fit_arrays(self, X, y) -> GBTClassifierModel:
         _check_binary(y)
@@ -952,7 +1123,11 @@ class GBTRegressor(_BoosterBase):
             raise NotImplementedError(
                 "GBT-regressor device eval needs a regression metric")
         return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
-                              X_val, y_val, spec, objective="squared")
+                              "squared", eval_ctx=(X_val, y_val, spec))
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """(F, G) fitted models of the search (see _gbt_fold_grid)."""
+        return _gbt_fold_grid(self, X, y, masks, grid, "squared")
 
     def fit_arrays(self, X, y) -> GBTRegressorModel:
         return self._fit_boosted(X, y)
@@ -1008,7 +1183,19 @@ class XGBoostClassifier(GBTClassifier):
         self._check_classes(y, k)
         check_fold_classes(y, masks)
         return _gbt_fold_grid(self, X, y, masks, subset_grid(grid, cand_idx),
-                              X_val, y_val, spec, objective="softmax",
+                              "softmax", num_classes=k,
+                              eval_ctx=(X_val, y_val, spec))
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Binary labels: the GBT search's models. K > 2 classes: the
+        softmax booster's (F, G) models."""
+        k = num_classes(y)
+        if k <= 2:
+            return GBTClassifier.fit_fold_grid_arrays(self, X, y, masks,
+                                                      grid)
+        self._check_classes(y, k)
+        check_fold_classes(y, masks)
+        return _gbt_fold_grid(self, X, y, masks, grid, "softmax",
                               num_classes=k)
 
     def fit_arrays(self, X, y):
@@ -1296,12 +1483,12 @@ _FOREST_STATIC = ("max_depth", "num_trees", "max_bins", "impurity",
                   "feature_subset_strategy", "seed")
 
 
-def _forest_setup(est, X, y, device: torch.device):
+def _forest_setup(est, X, y, device: torch.device, edge_rows=None):
     """(design, labels, pool or None, max_features, draws) of a static
     group: the one-hot labels of a classifier (K from all of ``y``) or the
     label of a regressor; per-node subsets (and so pools) only with
-    bootstrap."""
-    design = _design_args(X, est.max_bins, device)
+    bootstrap. ``edge_rows``: see _PackedDesign."""
+    design = _design_args(X, est.max_bins, device, edge_rows)
     if est.kind == "cls":
         labels = _on(np.eye(num_classes(y))[np.asarray(y).astype(np.int64)],
                      design.dtype, device)
@@ -1319,50 +1506,66 @@ def _forest_setup(est, X, y, device: torch.device):
     return design, labels, pool, mf, draws
 
 
-def _forest_fold_grid(est, X, y, masks, grid, X_val, y_val,
-                      spec) -> np.ndarray:
-    """(F, G) validation metrics of every (fold, grid point) forest
-    candidate: masked fits on the whole prepared matrix, grown tree by
-    tree for every lane of a static group at once, each lane's leaf values
-    on its fold's validation rows summed as its trees come; then the mean
-    over trees (votes to the binary pair or the class probabilities, or
-    the regression values) and the on-device metric. Only the matrix
-    reaches the host."""
-    from ..evaluators.device_metrics import (binary_from_votes, metric_fn,
-                                             vote_probability)
+def _forest_fold_grid(est, X, y, masks, grid, eval_ctx=None,
+                      edge_rows=None):
+    """Every (fold, grid point) forest candidate: masked fits on the whole
+    prepared matrix (bin edges as in _gbt_fold_grid), grown tree by tree
+    for every lane of a static group at once. With ``eval_ctx`` (see
+    _FoldGridSink) each lane's leaf values on its fold's validation rows
+    are summed as its trees come, then the mean over trees (votes to the
+    binary pair or the class probabilities, or the regression values)
+    feeds the on-device metric and the (F, G) matrix comes out; without,
+    each lane's trees make its model, (F, G) models out."""
+    from ..evaluators.device_metrics import binary_from_votes, \
+        vote_probability
+    masks = np.asarray(masks, dtype=np.float64)
+    if edge_rows is None and _fold_edges_mode():
+        return _fold_edge_recurse(_forest_fold_grid, est, X, y, masks, grid,
+                                  eval_ctx)
     grid = _check_grid(grid, _FOREST_TRACED + _FOREST_STATIC, "forest")
     dev, dtype = est.device, working_dtype(est.device)
-    masks = np.asarray(masks, dtype=np.float64)
     F = masks.shape[0]
-    mfn = metric_fn(*spec)
-    score = {"binary": binary_from_votes, "multiclass": vote_probability,
-             "regression": lambda v: v}[spec[0]]
+    sink = _FoldGridSink(eval_ctx, F, len(grid), dev, dtype)
     masks_t = torch.as_tensor(masks, dtype=dtype, device=dev)
-    Xv = torch.as_tensor(X_val, dtype=dtype, device=dev)
-    yv = torch.as_tensor(np.asarray(y_val), dtype=dtype, device=dev)
-    mm = torch.full((F, len(grid)), torch.nan, dtype=dtype, device=dev)
+    model_cls = (TreeEnsembleClassifierModel if est.kind == "cls"
+                 else TreeEnsembleRegressorModel)
     for members in _candidate_groups(est, grid, _FOREST_STATIC):
         cand0 = members[0][1]
-        design, labels, pool, mf, draws = _forest_setup(cand0, X, y, dev)
+        design, labels, pool, mf, draws = _forest_setup(cand0, X, y, dev,
+                                                        edge_rows)
         lanes = [(masks_t[f], float(c.min_instances_per_node),
                   float(c.min_info_gain), float(c.subsampling_rate))
                  for f in range(F) for _, c in members]
         votes: List[Optional[torch.Tensor]] = [None] * len(lanes)
+        trees: List[list] = [[] for _ in lanes]
         depth = cand0.max_depth
         for _, i, feat, thr, leaf in _forest_trees(
                 design, labels, lanes, draws, kind=cand0.kind, depth=depth,
                 num_trees=cand0.num_trees,
                 impurity=cand0.impurity,
                 bootstrap=cand0.bootstrap, max_features=mf, pool=pool):
+            if not sink.scoring:
+                trees[i].append((feat, thr, leaf))
+                continue
             f = i // len(members)
-            v = leaf[_predict_leaves(Xv[f], feat[None], thr[None], depth)[0]]
+            v = leaf[_predict_leaves(sink.Xv[f], feat[None], thr[None],
+                                     depth)[0]]
             votes[i] = v if votes[i] is None else votes[i] + v
-        for i, v in enumerate(votes):
+        for i in range(len(lanes)):
             f, j = divmod(i, len(members))
+            gi = members[j][0]
+            if not sink.scoring:
+                feats, thrs, leaves = (torch.stack(a) for a in zip(*trees[i]))
+                sink.keep(f, gi, model_cls(feats, thrs, leaves, depth=depth,
+                                           n_features=X.shape[1],
+                                           device=dev))
+                continue
             # the mean as XLA computes it: times the reciprocal of T
-            mm[f, members[j][0]] = mfn(
-                yv[f], score(v * (1.0 / cand0.num_trees)))
-    return mm.cpu().numpy().astype(np.float64)
+            mean = votes[i] * (1.0 / cand0.num_trees)
+            sink.score(f, gi, {"binary": binary_from_votes,
+                               "multiclass": vote_probability,
+                               "regression": lambda v: v}[sink.spec[0]](mean))
+    return sink.result()
 
 
 class _ForestBase(Predictor):
@@ -1410,8 +1613,13 @@ class _ForestClassifierBase(_ForestBase):
                 "forest-classifier device eval needs a classification "
                 "metric")
         return _forest_fold_grid(self, X, y, masks,
-                                 subset_grid(grid, cand_idx), X_val, y_val,
-                                 spec)
+                                 subset_grid(grid, cand_idx),
+                                 eval_ctx=(X_val, y_val, spec))
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """Every (fold, grid point) candidate fitted by the search's
+        masked fits, (F, G) models out (see _forest_fold_grid)."""
+        return _forest_fold_grid(self, X, y, masks, grid)
 
 
 class _ForestRegressorBase(_ForestBase):
@@ -1427,8 +1635,12 @@ class _ForestRegressorBase(_ForestBase):
             raise NotImplementedError(
                 "forest-regressor device eval needs a regression metric")
         return _forest_fold_grid(self, X, y, masks,
-                                 subset_grid(grid, cand_idx), X_val, y_val,
-                                 spec)
+                                 subset_grid(grid, cand_idx),
+                                 eval_ctx=(X_val, y_val, spec))
+
+    def fit_fold_grid_arrays(self, X, y, masks, grid):
+        """(F, G) fitted models of the search (see _forest_fold_grid)."""
+        return _forest_fold_grid(self, X, y, masks, grid)
 
 
 class DecisionTreeClassifier(_ForestClassifierBase):

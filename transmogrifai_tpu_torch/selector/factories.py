@@ -8,8 +8,9 @@ F1, RMSE), its default splitter (``DataBalancer``, ``DataCutter``,
 ``DataSplitter``) and its default and opt-in pools
 (``models/registry.py``); ``with_cross_validation`` (exact or racing) and
 ``with_train_validation_split``. ``model_types_to_use`` picks among the
-default and opt-in families; a family the port does not have yet (the
-MLP) raises an error that names it instead of being dropped silently.
+default and opt-in families of the problem type, as in the JAX package:
+a name outside them (the MLP in a binary selector) is dropped, and a
+filter that leaves no family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ from ..evaluators import (BinaryClassificationEvaluator, Evaluator,
 from ..models import registry
 from ..models.base import Predictor
 from ..utils.device import resolve_device
-from ..utils.ported import not_ported
 from .selector import ModelSelector
 from .splitters import DataBalancer, DataCutter, DataSplitter, Splitter
 from .validator import CrossValidation, TrainValidationSplit
@@ -36,14 +36,10 @@ def _names(model_types_to_use) -> set:
 
 def _filter_models(models, opt_in_models, model_types_to_use):
     """No filter: ``models``; with ``model_types_to_use``, the families of
-    ``models`` + ``opt_in_models`` it names, in pool order. Raises by name
-    for a family that is not ported."""
+    ``models`` + ``opt_in_models`` it names, in pool order."""
     if model_types_to_use is None:
         return list(models)
     allowed = _names(model_types_to_use)
-    for name in sorted(allowed & set(registry.UNPORTED_FAMILIES)):
-        raise not_ported(f"model family {name}",
-                         registry.UNPORTED_FAMILIES[name])
     pool = list(models) + list(opt_in_models)
     kept = [(est, grid) for est, grid in pool
             if type(est).__name__ in allowed]

@@ -319,8 +319,8 @@ class RacingCrossValidation(CrossValidation):
                 continue
             if fold_data is None:
                 fold_data = self._fold_data(X, y)
-            host_results[fi] = self._family_host_results(est, grid,
-                                                         fold_data)
+            host_results[fi] = self._family_host_results(est, grid, X, y,
+                                                         masks, fold_data)
         # assemble results in the exact path's family/grid order
         results: List[ValidationResult] = []
         rank_pool: List[ValidationResult] = []

@@ -5,11 +5,17 @@ Counterpart of ``transmogrifai_tpu/selector/validator.py``
 (``CrossValidation``, ``TrainValidationSplit``: ``_assignments``,
 ``_build_fold_arrays``, ``_try_device_eval``, ``_results_from_matrix``,
 ``validate_prepared``, ``_pick_best``, ``ValidationResult``,
-``BestEstimator``, ``family_profile``). Each family evaluates its whole
-fold x grid on its device and returns one (folds, grid) metric matrix
-(``cand_idx`` narrows it to a candidate subset, as racing rungs ask); a
-family or metric without that path is validated candidate by candidate
-(``fit_arrays``, ``predict_arrays``, the evaluator on the host).
+``BestEstimator``, ``family_profile``, ``_use_batched_kernel``,
+``_batched_fold_raw``, ``_family_host_results``). Each family evaluates
+its whole fold x grid on its device and returns one (folds, grid) metric
+matrix (``cand_idx`` narrows it to a candidate subset, as racing rungs
+ask). Under an evaluator without a device metric (the log loss, a
+user's own ``metric_from``) a family takes the host path: its
+``fit_fold_grid_arrays`` fits every candidate as the device search
+does (masked, on the whole matrix), the tree models of a fold score in
+one stacked traversal (``models/trees.batch_predict_raw``), and the
+evaluator runs on the host; a family without that batch, or whose batch
+rejects the data, is fitted candidate by candidate on each fold's rows.
 Workflow-level CV hands ``validate_prepared`` one matrix per fold, each
 searched on its own device. Multi-fidelity racing is
 ``selector/racing.py``. The reference's journal, retries, deadlines,
@@ -119,6 +125,19 @@ class BestEstimator:
     results: List[ValidationResult] = field(default_factory=list)
 
 
+def _batched_fold_raw(fitted_fold_models, X_val) -> dict:
+    """Raw predictions of every tree model of one fold in one stacked
+    traversal per static shape (``models/trees.batch_predict_raw``);
+    ``{}`` when the batch is not implemented, so each model predicts on
+    its own. Any other error propagates: a failing kernel is a fault, not
+    a reason to take a slower path."""
+    from ..models.trees import batch_predict_raw
+    try:
+        return batch_predict_raw(fitted_fold_models, X_val)
+    except NotImplementedError:
+        return {}
+
+
 class _ValidatorBase:
     """What k-fold CV and the single split share: folds, the device
     search, the host path and the winner's pick."""
@@ -175,6 +194,11 @@ class _ValidatorBase:
                 for tr, va in self._splits(y)]
 
     # -- evaluation --------------------------------------------------------
+    def _use_batched_kernel(self, estimator) -> bool:
+        """Whether the host path hands this family's grid to its batched
+        fold x grid fit: it must have one."""
+        return hasattr(estimator, "fit_fold_grid_arrays")
+
     def _try_device_eval(self, estimator, grid, X, y, masks, X_val_st,
                          y_val_st, spec, cand_idx=None
                          ) -> Optional[np.ndarray]:
@@ -215,32 +239,88 @@ class _ValidatorBase:
                 metric_values=[float(v) for v in mm[:, gi]])
             for gi, params in enumerate(grid)]
 
-    def _family_host_results(self, estimator, grid, fold_data
+    def _batched_fits(self, estimator, grid, X, y, masks):
+        """The family's (F, G) models from ``fit_fold_grid_arrays``, or
+        None when it has none, its grid is not batchable
+        (NotImplementedError) or the data breaks its preconditions
+        (FamilyPreconditionError: the per-candidate fits then score it
+        NaN fold by fold)."""
+        if not self._use_batched_kernel(estimator):
+            return None
+        try:
+            return estimator.fit_fold_grid_arrays(X, y, masks, grid)
+        except NotImplementedError:
+            return None
+        except FamilyPreconditionError as e:
+            _log.warning("batched fit of %s rejected the data: %s",
+                         type(estimator).__name__, e)
+            return None
+
+    def _family_host_results(self, estimator, grid, X, y, masks, fold_data
                              ) -> List[ValidationResult]:
-        """One family validated candidate by candidate: each grid point's
-        ``fit_arrays`` on a fold's train rows, ``predict_arrays`` on its
-        validation rows and the evaluator's metric. A candidate whose
-        fit rejects the data scores NaN on that fold."""
-        results: List[ValidationResult] = []
-        for gi, params in enumerate(grid):
-            candidate = estimator.with_params(**params)
-            res = ValidationResult(
-                model_name=type(estimator).__name__,
-                model_uid=estimator.uid, grid_index=gi,
-                params=dict(params))
-            for X_tr, y_tr, X_val, y_val in fold_data:
-                try:
-                    model = candidate.fit_arrays(X_tr, y_tr)
-                    metrics = self.evaluator.evaluate_arrays(
-                        y_val, model.predict_arrays(X_val))
-                    res.metric_values.append(
-                        self.evaluator.metric_from(metrics))
-                except (ValueError, FloatingPointError) as e:
-                    _log.warning("candidate %s%s failed on a fold: %s",
-                                 res.model_name, params, e)
-                    res.metric_values.append(float("nan"))
-            results.append(res)
-        return results
+        """One family validated with the evaluator on the host: the
+        batched fold x grid fit (``fit_fold_grid_arrays`` on the whole
+        matrix ``X`` under the fold ``masks``; ``masks`` None fits each
+        fold of ``fold_data`` alone, one mask over its rows), the tree
+        models of a fold scored in one batch, the others by their own
+        ``predict_arrays``; without a batched fit, each grid point's
+        ``fit_arrays`` on a fold's train rows. A candidate whose fit or
+        prediction rejects the data scores NaN on that fold."""
+        t0, b0 = time.perf_counter(), _build.build_seconds()
+        try:
+            if masks is not None:
+                fitted = self._batched_fits(estimator, grid, X, y, masks)
+            else:
+                fitted = []
+                for X_tr, y_tr, _, _ in fold_data:
+                    fold = self._batched_fits(estimator, grid, X_tr, y_tr,
+                                              np.ones((1, len(y_tr))))
+                    if fold is None:
+                        fitted = None
+                        break
+                    fitted.append(fold[0])
+            fold_raw = ([_batched_fold_raw(fitted[f], fold_data[f][2])
+                         for f in range(len(fold_data))]
+                        if fitted is not None else None)
+            return [self._candidate_result(estimator, gi, params, fold_data,
+                                           fitted, fold_raw)
+                    for gi, params in enumerate(grid)]
+        finally:
+            rec = _FAMILY_PROFILE.setdefault(
+                type(estimator).__name__,
+                {"seconds": 0.0, "compile": 0.0, "calls": 0})
+            rec["seconds"] += time.perf_counter() - t0
+            rec["compile"] += _build.build_seconds() - b0
+            rec["calls"] += 1
+
+    def _candidate_result(self, estimator, gi: int, params, fold_data,
+                          fitted, fold_raw) -> ValidationResult:
+        """Grid point ``gi``'s metric on every fold: its batched model
+        (scored from ``fold_raw`` where the batch has it) or, without
+        ``fitted``, a fit on the fold's train rows."""
+        candidate = (None if fitted is not None
+                     else estimator.with_params(**params))
+        res = ValidationResult(
+            model_name=type(estimator).__name__,
+            model_uid=estimator.uid, grid_index=gi, params=dict(params))
+        for f, (X_tr, y_tr, X_val, y_val) in enumerate(fold_data):
+            try:
+                if fitted is not None:
+                    model = fitted[f][gi]
+                    raw = fold_raw[f].get(gi)
+                    pred = (model.prediction_from_raw(raw)
+                            if raw is not None
+                            else model.predict_arrays(X_val))
+                else:
+                    pred = candidate.fit_arrays(X_tr, y_tr).predict_arrays(
+                        X_val)
+                metrics = self.evaluator.evaluate_arrays(y_val, pred)
+                res.metric_values.append(self.evaluator.metric_from(metrics))
+            except (ValueError, FloatingPointError) as e:
+                _log.warning("candidate %s%s failed on a fold: %s",
+                             res.model_name, params, e)
+                res.metric_values.append(float("nan"))
+        return res
 
     def validate(self, models: Sequence[Tuple[Predictor, Sequence[Dict]]],
                  X, y: np.ndarray) -> BestEstimator:
@@ -257,8 +337,8 @@ class _ValidatorBase:
                 continue
             if fold_data is None:
                 fold_data = self._fold_data(X, y)
-            results.extend(self._family_host_results(estimator, grid,
-                                                     fold_data))
+            results.extend(self._family_host_results(estimator, grid, X, y,
+                                                     masks, fold_data))
         return self._pick_best(models, results)
 
     def validate_prepared(self,
@@ -283,7 +363,8 @@ class _ValidatorBase:
                                  ) -> List[ValidationResult]:
         """One family's results over pre-materialized folds: the device
         search one fold at a time (fold matrices may differ in shape, so
-        they cannot stack into one call), else the host path."""
+        they cannot stack into one call), else the host path with one
+        single-mask batched fit a fold."""
         if spec is not None:
             rows = []
             for X_tr, y_tr, X_val, y_val in folds:
@@ -297,7 +378,8 @@ class _ValidatorBase:
                 if rows:
                     return self._results_from_matrix(estimator, grid,
                                                      np.stack(rows))
-        return self._family_host_results(estimator, grid, folds)
+        return self._family_host_results(estimator, grid, None, None, None,
+                                         folds)
 
     def _pick_best(self, models, results: List[ValidationResult],
                    rank_pool: Optional[List[ValidationResult]] = None

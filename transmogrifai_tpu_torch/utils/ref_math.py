@@ -12,11 +12,13 @@ ulp in the boosting gradients moves tied split gains, then trees, then
 the validation metric (about 3e-4 of AuPR). XLA's ``log`` is the C
 library's, which ``torch.log`` misses on about two values in ten thousand.
 
-On a CUDA tensor these functions are the plain torch ops: the card
-computes in float32 and is held to the CPU by a tolerance, not bit for
-bit. On the CPU every float64 tensor goes through the emulation below,
-a few hundred elementwise ops a call: the boosting loop's tensors are
-small there, and it is the parity path.
+Every float64 tensor goes through the emulation below, a few hundred
+elementwise ops a call: the boosting loop's tensors are small there, and
+it is the parity path. That holds on a card too (the float64 tree
+witness, which must reproduce the CPU's trees); there :func:`xla_sum`
+adds on the host, since the card's scans associate otherwise. Tensors of
+any other dtype (the card's float32) take the plain torch ops and are
+held to the CPU by a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -106,7 +108,7 @@ def _exp_parts(x):
 
 
 def _emulated(x: torch.Tensor) -> bool:
-    return x.device.type == "cpu" and x.dtype == torch.float64
+    return x.dtype == torch.float64
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -142,7 +144,7 @@ def exp(x: torch.Tensor) -> torch.Tensor:
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``jax.nn.softmax``: exp of the max-shifted values over their sum,
-    with :func:`exp` (XLA's CPU exp on float64 CPU tensors)."""
+    with :func:`exp` (XLA's CPU exp on float64 tensors)."""
     e = exp(x - torch.amax(x, dim=dim, keepdim=True))
     return e / torch.sum(e, dim=dim, keepdim=True)
 
@@ -152,9 +154,12 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     up to 32 elements in order; more are padded with zeros to a multiple
     of 32 (half the padding before, the larger half after), added 32 at a
     time in order, and the window sums reduced the same way. Other
-    tensors: ``torch.sum``."""
+    tensors: ``torch.sum``. A float64 tensor off the CPU is added on the
+    host (one scalar comes back)."""
     if not _emulated(x):
         return torch.sum(x)
+    if x.device.type != "cpu":
+        return xla_sum(x.cpu()).to(x.device)
     n = x.shape[0]
     if n <= _WINDOW:
         return torch.cumsum(x, 0)[-1] if n else x.new_zeros(())
@@ -164,11 +169,12 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
-    """The C library's ``log`` elementwise on a float64 CPU tensor (the
+    """The C library's ``log`` elementwise on a float64 tensor (the
     JAX package's CPU ``log``; a Python loop, for the few values of a
     boosting base margin), else ``torch.log``."""
     if not _emulated(x):
         return torch.log(x)
     flat = [math.log(v) if v > 0 else (-math.inf if v == 0 else math.nan)
             for v in x.reshape(-1).tolist()]
-    return torch.tensor(flat, dtype=x.dtype).reshape(x.shape)
+    return torch.tensor(flat, dtype=x.dtype, device=x.device).reshape(
+        x.shape)
