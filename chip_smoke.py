@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows N]
 [--out FILE] [--k1-only |
 --workflow-only [--agree-witness-rows N] | --validate-only |
 --problems-only | --families-only | --text-only | --readers-only |
---models-only [--per-candidate]]
+--models-only [--per-candidate] | --runtime-only]
 
 Phases (any failure exits non-zero; ``--k1-only`` stops after phase 3,
 ``--workflow-only`` runs phases 1, 2, 8, 8a-8c, 9 and 9b-9d, or with
@@ -16,9 +16,10 @@ the float64 one checked), ``--validate-only`` phases 1, 2 and 9b-9d, 9b
 with its own exact search, ``--problems-only`` phases 1, 2 and 9e-9h,
 ``--families-only`` phases 1, 2, 9i and 9j, ``--text-only`` phases 1, 2,
 9k and 9l, ``--readers-only`` phases 1, 2 and 9m-9o, ``--models-only``
-phases 1, 2 and 9p-9r; in the whole smoke the card-against-CPU phases 6,
-9, 9d, 9h, 9j, 9l and 9r run after phase 10, the last timed phase, in a
-worker process each (9h as three), so that no path is timed beside
+phases 1, 2 and 9p-9r, ``--runtime-only`` phases 1, 2 and 11a-11c; in
+the whole smoke the card-against-CPU phases 6, 9, 9d, 9h, 9j, 9l and 9r
+and the runtime's 11a and 11c run after phase 11b, the last timed phase,
+in a worker process each (9h as three), so that no path is timed beside
 them):
   1. device: card name and count, torch and CUDA versions, power limit;
   2. build: compile K1 from ``transmogrifai_tpu_torch/csrc/level_hist.cu``;
@@ -281,7 +282,37 @@ them):
      depth-12 group cut to 5 trees, the searches on their own training
      rows: device busy and idle share, top device ops (read from the
      windows' raw events; the first also through ``prof.events()``,
-     which must agree), host syncs of the fits' tree loops.
+     which must agree), host syncs of the fits' tree loops;
+ 11a. [resume] the Titanic DAG at full width (RESUME_ROWS records, the
+     default pool with its forests at PATH_TREES, 3-fold CV, a journal
+     under a temporary ``checkpoint_dir``): run A uninterrupted, run B
+     killed by ``family:GBTClassifier:dispatch:1=kill`` and resumed with
+     ``train(resume_from=...)``, then the same raced and killed at
+     ``rung:1:boundary``; seconds, journal lines, bytes and fsync
+     seconds, K1 launches by family and C, journal hits; fails unless the
+     resume dispatches no journaled entry (no K1 launch for a journaled
+     family), replays the journal bit for bit, picks run A's winner and
+     stays within AGREE_TOL of run A (RESUME_GBT_TOL for a recomputed
+     GBT point);
+ 11b. [heal] a 5,000-record Titanic model served with the lifecycle and
+     the drift sentinel: a shifted stream for tenant ``a`` degrades its
+     sentinel, the retrain runs on the card (K1 counted), the canary
+     passes and the entry swaps, then ``lifecycle:titanic:postswap:1=
+     preempt`` rolls it back; requests dropped (0), ``plan_compiles()``
+     at and after the swap (flat), the retrain's seconds, served p50 /
+     p99 before, during and after the retrain; tenant ``b`` keeps its
+     entry object and answers;
+ 11c. [quarantine] in its own process: the Titanic search with the
+     allocator limited around it (``set_per_process_memory_fraction``,
+     from each family's measured peak) so that RF meets a real CUDA
+     out-of-memory: ``train()`` completes with the survivors, RF is named
+     (transient, its retry spent), K1 then matches its plain version,
+     and an OOM at every family raises one AllFamiliesFailedError naming
+     all four. Their seconds together are logged against
+     RUNTIME_PHASES_BUDGET_S, reported, not enforced.
+Every phase but [quarantine] runs under ``forbid_quarantines``: a family
+quarantined there (an OOM, a CUDA error the runtime classed transient or
+family-scoped) fails the run at the end of its phase.
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA card; imports no JAX.
 """
@@ -5458,17 +5489,749 @@ def phase_models(device, agree: bool = True,
 # the card-against-CPU phases, after the timed ones
 # ---------------------------------------------------------------------------
 
+#: records of [resume]: the Titanic DAG at full width (~587 columns).
+#: Its searches are host-bound, so fewer records save little: on an H100
+#: (``--runtime-only --resume-rows``, one host) [resume] took 51.3 s at
+#: 10,000 records, 54.0 at 25,000 and 62.3 at 50,000, the three runtime
+#: phases 85.2, 78.2 and 100.0 s against RUNTIME_PHASES_BUDGET_S
+RESUME_ROWS = 25_000
+#: the largest gap a GBT point recomputed after the kill may keep to run
+#: A's metric. Its float32 gradient histograms add in K1's atomic order,
+#: so near-tie splits fall otherwise than in run A at any depth: on an
+#: H100 the largest gap of a run was 2.78e-3 to 5.50e-3 in ten runs at
+#: 10,000 to 50,000 records (5.50e-3 at depth 6, min_child_weight 1,
+#: 10,000 records; 5.45e-3 at 50,000), 1.8 times under this limit. The
+#: other families keep AGREE_TOL (their gap 0 in every run)
+RESUME_GBT_TOL = 1e-2
+#: records of [quarantine]'s Titanic matrix
+QUARANTINE_ROWS = 20_000
+#: records the [heal] model trains on
+HEAL_ROWS = 5_000
+#: pause between [heal]'s traffic ticks while it waits on the lifecycle
+#: (each tick 32 requests of the shifted tenant and 8 of the other)
+HEAL_TICK_S = 0.02
+#: [quarantine]'s allocator limit must leave the linear families this
+#: many bytes above their measured need, and lie this far under RF's
+QUARANTINE_MARGIN = 32 << 20
+#: [resume], [quarantine] and [heal] together (seconds, reported beside
+#: their total, not enforced)
+RUNTIME_PHASES_BUDGET_S = 90
+
+
+def _titanic_train(device, records, selector, resume_from=None,
+                   listener=None):
+    """The Titanic DAG (``titanic.build_features``) trained with
+    ``selector`` on ``records``, no holdout scored: (model, seconds, the
+    prepared vector feature)."""
+    from transmogrifai_tpu_torch.workflow import Workflow
+    survived, features = titanic.build_features()
+    pred = selector.set_input(survived, features).get_output()
+    wf = (Workflow(device=device).set_result_features(survived, pred)
+          .set_input_records(records))
+    if listener is not None:
+        wf = wf.with_listener(listener)
+    t0 = time.perf_counter()
+    model = wf.train(resume_from=resume_from)
+    return model, time.perf_counter() - t0, features
+
+
+def _selected(model):
+    return next(s for s in model.stages()
+                if type(s).__name__ == "SelectedModel")
+
+
+@contextlib.contextmanager
+def journal_timer(rec: dict):
+    """Time every journal line's write and fsync (``SearchJournal.
+    _write_line``) into ``rec``: lines and seconds."""
+    from transmogrifai_tpu_torch.runtime.journal import SearchJournal
+    real = SearchJournal._write_line
+    rec.setdefault("lines", 0)
+    rec.setdefault("fsync_s", 0.0)
+
+    def timed(self, line):
+        t0 = time.perf_counter()
+        real(self, line)
+        rec["fsync_s"] += time.perf_counter() - t0
+        rec["lines"] += 1
+    SearchJournal._write_line = timed
+    try:
+        yield rec
+    finally:
+        SearchJournal._write_line = real
+
+
+def _resume_case(dev, records, validation: str, kill: str,
+                 tag: str = "resume") -> dict:
+    """Run A (uninterrupted, journaled) and run B (killed by the fault
+    plan ``kill``, then ``train(resume_from=...)``) of the Titanic DAG
+    over the default pool (forests at PATH_TREES) under 3-fold CV,
+    ``validation`` exact or racing. Fails unless the resumed run
+    dispatches no journaled (family, rung) entry (so its journaled
+    families launch K1 zero times), replays the journal bit for bit,
+    picks run A's winner, races no candidate to another last rung than
+    run A's where either is a journaled rung, and stays within AGREE_TOL
+    of run A's metrics (RESUME_GBT_TOL at a recomputed GBT point)."""
+    import tempfile
+    from transmogrifai_tpu_torch.runtime import (FaultInjector, KillPoint,
+                                                 read_journal, telemetry)
+    from transmogrifai_tpu_torch.runtime.journal import JOURNAL_NAME
+
+    def selector(ckpt, families):
+        sel = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, seed=42, stratify=True, models=path_pool(dev),
+            device=dev, validation=validation)
+        sel.checkpoint_dir = ckpt
+        for est, _ in sel.models:
+            time_family(est, families)
+        return sel
+
+    def k1_by(families):
+        """K1 launches by family and by C of ``time_family`` records."""
+        by_c = collections.Counter()
+        for rec in families.values():
+            by_c.update(rec["k1_launches_by_c"])
+        return ({f: rec["k1_launches"] for f, rec in families.items()},
+                dict(sorted(by_c.items())))
+
+    def reset():
+        telemetry.reset()
+        clear_design_cache()
+        level_hist.launches = 0
+        level_hist.launches_by_c.clear()
+
+    out = {"validation": validation, "kill": kill}
+    with tempfile.TemporaryDirectory() as dir_a, \
+            tempfile.TemporaryDirectory() as dir_b:
+        reset()
+        fams_a: dict = {}
+        jrec: dict = {}
+        with journal_timer(jrec):
+            model_a, out["run_a_s"], _ = _titanic_train(
+                dev, records, selector(dir_a, fams_a))
+        out["journal_bytes"] = os.path.getsize(
+            os.path.join(dir_a, JOURNAL_NAME))
+        out["journal_lines"] = jrec["lines"]
+        out["journal_fsync_s"] = jrec["fsync_s"]
+        out["run_a_k1_by_family"], out["run_a_k1_by_c"] = k1_by(fams_a)
+        sum_a = _selected(model_a).summary
+        reset()
+        t0 = time.perf_counter()
+        try:
+            with FaultInjector.plan(kill):
+                _titanic_train(dev, records, selector(dir_b, {}))
+        except KillPoint:
+            pass
+        else:
+            raise AssertionError(f"[{tag}] {kill} did not kill run B")
+        out["run_b_killed_s"] = time.perf_counter() - t0
+        info = read_journal(dir_b)
+        journaled = {(e["family"], e["rung"]): e for e in info["entries"]}
+        out["journaled"] = sorted("/".join(k) for k in journaled)
+        out["resume_saved_fold_fits"] = info["resumeSavedFoldFits"]
+        reset()
+        fams_r: dict = {}
+        sel_r = selector(None, fams_r)
+        model_r, out["run_b_resume_s"], _ = _titanic_train(
+            dev, records, sel_r, resume_from=dir_b)
+        dispatched = {(k, r) for k, r, _, _ in telemetry.dispatch_log()}
+        counters = telemetry.counters()
+    out["journal_hits"] = counters.get("journal_hits", 0)
+    out["dispatched_on_resume"] = sorted("/".join(k) for k in dispatched)
+    out["resume_k1_by_family"], out["resume_k1_by_c"] = k1_by(fams_r)
+    sum_r = _selected(model_r).summary
+    out["winner"] = [sum_r.best_model_name, sum_r.best_model_params]
+    # a family recomputed after the kill meets K1's float atomics anew:
+    # GBT's float32 gradient sums then break near ties otherwise than in
+    # run A (RESUME_GBT_TOL); every other family keeps AGREE_TOL
+    res_a = {(r.model_name, r.grid_index): r for r in
+             sum_a.validation_results}
+    rungs_of = collections.defaultdict(set)
+    for key, rung in journaled:
+        rungs_of[key.partition(":")[2]].add(rung)
+    gap, worst, other, over, parted = 0.0, None, 0.0, [], []
+    for r in sum_r.validation_results:
+        ref = res_a[(r.model_name, r.grid_index)]
+        if len(r.metric_values) != len(ref.metric_values):
+            # raced to another rung than in run A: a recomputed near tie
+            # may prune otherwise past the journaled rungs, never at one
+            parted.append((r.model_name, r.grid_index, ref.rung, r.rung))
+            continue
+        g = float(np.max(np.abs(np.subtract(r.metric_values,
+                                            ref.metric_values))))
+        if g > gap:
+            gap, worst = g, f"{r.model_name}{r.params}"
+        gbt = r.model_name == "GBTClassifier"
+        if not gbt:
+            other = max(other, g)
+        if g > (RESUME_GBT_TOL if gbt else AGREE_TOL):
+            over.append((r.model_name, r.params, g))
+    out["max_metric_gap_vs_run_a"] = gap
+    out["max_metric_gap_at"] = worst
+    out["max_metric_gap_vs_run_a_not_gbt"] = other
+    out["parted_from_run_a"] = [f"{n}[{gi}] rung {ra} -> {rr}"
+                                for n, gi, ra, rr in parted]
+    log(f"[{tag}] {validation}: run A {out['run_a_s']:.2f} s (journal "
+        f"{out['journal_lines']} lines, {out['journal_bytes']} bytes, "
+        f"{out['journal_fsync_s'] * 1e3:.1f} ms writing and fsyncing), K1 "
+        f"{json.dumps(out['run_a_k1_by_family'])} by C "
+        f"{json.dumps(out['run_a_k1_by_c'])}; run B killed by {kill} "
+        f"after {out['run_b_killed_s']:.2f} s with {out['journaled']} "
+        f"journaled ({out['resume_saved_fold_fits']} fold fits); resumed in "
+        f"{out['run_b_resume_s']:.2f} s, journal hits {out['journal_hits']}"
+        f", dispatched {out['dispatched_on_resume']}, K1 "
+        f"{json.dumps(out['resume_k1_by_family'])} by C "
+        f"{json.dumps(out['resume_k1_by_c'])}; winner {out['winner']} (run "
+        f"A {sum_a.best_model_name} {sum_a.best_model_params}); largest "
+        f"metric gap to run A {gap:.3g} at {worst}, {other:.3g} outside "
+        f"GBT; {len(parted)} candidates raced to another rung "
+        f"{out['parted_from_run_a']}")
+    at_journaled = [p for p in parted if validation == "exact" or
+                    {f"rung{p[2]}", f"rung{p[3]}"} & rungs_of[p[0]]]
+    if at_journaled:
+        raise AssertionError(f"[{tag}] candidates parted from run A at a "
+                             f"journaled rung: {at_journaled}")
+    if not journaled or out["journal_hits"] < len(journaled):
+        raise AssertionError(f"[{tag}] resume replayed "
+                             f"{out['journal_hits']} of {len(journaled)} "
+                             f"journaled entries")
+    if dispatched & set(journaled) or not dispatched:
+        raise AssertionError(f"[{tag}] resume dispatched "
+                             f"{sorted(dispatched)} against the journaled "
+                             f"{sorted(journaled)}")
+    if validation == "exact":
+        done = {key.partition(":")[2] for key, _ in journaled}
+        if done & set(fams_r):
+            raise AssertionError(f"[{tag}] journaled families {sorted(done)}"
+                                 f" dispatched on resume: {fams_r}")
+    else:
+        rung0 = sel_r.validator.rung_profile[0]
+        if rung0["familySeconds"] or any(r == "rung0" for _, r in
+                                         dispatched):
+            raise AssertionError(f"[{tag}] rung 0 dispatched on resume: "
+                                 f"{rung0}")
+    if dev.type == "cuda" and not any(
+            out["resume_k1_by_family"].values()):
+        raise AssertionError(f"[{tag}] the resumed search launched no K1")
+    # replayed entries equal the journal bit for bit: an exact family's
+    # results, and a raced candidate's where it was pruned at that rung
+    by_name = {(r.model_name, r.grid_index): r for r in
+               sum_r.validation_results}
+    for (key, rung), e in journaled.items():
+        name = key.partition(":")[2]
+        for gi, row in zip(e["cands"], e["metrics"]):
+            r = by_name[(name, gi)]
+            replayed = (rung in ("exact", "exact-host")
+                        or f"rung{r.pruned_at}" == rung)
+            if replayed and r.metric_values != list(row):
+                raise AssertionError(
+                    f"[{tag}] {name}[{gi}] replayed {r.metric_values} "
+                    f"against the journal's {row}")
+    if (sum_r.best_model_name, sum_r.best_model_params) != \
+            (sum_a.best_model_name, sum_a.best_model_params):
+        raise AssertionError(f"[{tag}] resumed winner {out['winner']} is "
+                             f"not run A's {sum_a.best_model_name} "
+                             f"{sum_a.best_model_params}")
+    if over:
+        raise AssertionError(f"[{tag}] resumed metrics off run A's beyond "
+                             f"their tolerance: {over}")
+    return out
+
+
+def phase_resume(device, rows: int = RESUME_ROWS) -> dict:
+    """[resume]: kill-and-resume of the Titanic search at ``rows`` records
+    under exact CV (killed at GBTClassifier's dispatch) and under racing
+    (killed at the rung 1 boundary)."""
+    dev = resolve_device(device)
+    train, _ = titanic.stratified_split(
+        titanic.synthetic_titanic(rows, seed=42))
+    t0 = time.perf_counter()
+    out = {"rows": rows, "train_rows": len(train),
+           "exact": _resume_case(dev, train, "exact",
+                                 "family:GBTClassifier:dispatch:1=kill"),
+           "racing": _resume_case(dev, train, "racing",
+                                  "rung:1:boundary:1=kill")}
+    out["seconds"] = time.perf_counter() - t0
+    launches = sum(sum(out[v][k].values()) for v in ("exact", "racing")
+                   for k in ("run_a_k1_by_family", "resume_k1_by_family"))
+    out["k1_launches"] = launches
+    return out
+
+
+def _peak_memory(est, peaks: dict) -> None:
+    """Wrap ``est``'s device search to record the bytes allocated when it
+    starts and the peak of the call above them. A tree family starts
+    from an empty design cache, so its peak holds its own binning."""
+    search = est.eval_fold_grid_arrays
+
+    def measured(*args, **kwargs):
+        if type(est).__name__ in TREE_FAMILIES:
+            clear_design_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = search(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks[type(est).__name__] = {
+            "base": base, "peak": torch.cuda.max_memory_allocated() - base}
+        return out
+    est.eval_fold_grid_arrays = measured
+
+
+def _start_memory(est, seen: dict) -> None:
+    """Wrap ``est``'s device search to record the bytes allocated when
+    each call starts (after a family before it was quarantined, what it
+    left behind shows here)."""
+    search = est.eval_fold_grid_arrays
+
+    def measured(*args, **kwargs):
+        torch.cuda.synchronize()
+        seen.setdefault(type(est).__name__, []).append(
+            torch.cuda.memory_allocated())
+        return search(*args, **kwargs)
+    est.eval_fold_grid_arrays = measured
+
+
+def phase_quarantine(device, rows: int = QUARANTINE_ROWS) -> dict:
+    """[quarantine], in a process of its own: the Titanic search over the
+    default pool (forests at PATH_TREES) once unlimited, measuring the
+    device memory each family needs above the search's entry at its peak,
+    then again with the allocator limited
+    (``torch.cuda.set_per_process_memory_fraction``, set around the
+    search) to the midpoint of the linear families' need and RF's, so
+    that RF meets a real ``torch.cuda.OutOfMemoryError`` (GBT, whose peak
+    is the same binning, too): ``train()`` completes with the survivors,
+    the summary names RF (kind transient, its retry spent), every family
+    starts from the bytes the first did (nothing of a quarantined one
+    stays on the card), K1 then matches its plain version on the same
+    matrix, and an injected OOM at every family raises one
+    AllFamiliesFailedError naming all four."""
+    import gc
+    from transmogrifai_tpu_torch.runtime import RetryPolicy
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    train, _ = titanic.stratified_split(
+        titanic.synthetic_titanic(rows, seed=7))
+
+    def selector(attempts):
+        sel = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, seed=42, stratify=True, models=path_pool(dev),
+            device=dev)
+        sel.retry_policy = RetryPolicy(max_attempts=attempts,
+                                       base_delay=0.05)
+        return sel
+
+    peaks: dict = {}
+    sel = selector(2)
+    for est, _ in sel.models:
+        _peak_memory(est, peaks)
+    real_ref = sel.fit_columns
+    entry: dict = {}
+
+    def at_entry(cols):
+        torch.cuda.synchronize()
+        entry["allocated"] = torch.cuda.memory_allocated()
+        return real_ref(cols)
+    sel.fit_columns = at_entry
+    model, ref_s, _ = _titanic_train(dev, train, sel)
+    ref = _selected(model).summary
+    # each family's need: the bytes above the search's entry at its peak
+    # (the fold arrays and a tree family's own binning included: the
+    # binning is both tree families' peak, 545 MB at 15,000 rows on an
+    # H100, so GBT does not fit where RF does not either)
+    need = {f: p["base"] + p["peak"] - entry["allocated"]
+            for f, p in peaks.items()}
+    lin = max(need[f] for f in LINEAR_FAMILIES)
+    rf = need["RandomForestClassifier"]
+    if rf < lin + 2 * QUARANTINE_MARGIN:
+        raise AssertionError(f"[quarantine] RF's need {rf} bytes is not "
+                             f"clear of the linear families' {lin}: no "
+                             f"limit fails RF and fits them")
+    headroom = (lin + rf) // 2
+    del model
+    clear_design_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    limit: dict = {}
+    sel2 = selector(2)
+    for est, _ in sel2.models:
+        _start_memory(est, limit.setdefault("allocated_at_start", {}))
+    real_fit = sel2.fit_columns
+
+    def limited(cols):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        limit["reserved_at_search"] = torch.cuda.memory_reserved(dev)
+        limit["bytes"] = limit["reserved_at_search"] + headroom
+        torch.cuda.set_per_process_memory_fraction(limit["bytes"] / total,
+                                                   dev)
+        try:
+            return real_fit(cols)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    sel2.fit_columns = limited
+    model2, lim_s, vector = _titanic_train(dev, train, sel2)
+    summ = _selected(model2).summary
+    q = {r["family"]: r for r in summ.quarantined}
+    X = model2.train_dataset[vector.name].data
+    y = np.asarray(model2.train_dataset["survived"].data, dtype=np.float64)
+    k1 = phase_k1_inputs(dev, matrix_k1_inputs(dev, X, y, "quarantine"),
+                         "quarantine", seed=17)
+    del X
+    all_failed = all_families_fail(dev, train, selector(1))
+    out = {"rows": rows, "train_rows": len(train),
+           "peaks": peaks, "need": need, "limit": limit,
+           "headroom": headroom,
+           "reference_s": ref_s, "reference_winner": ref.best_model_name,
+           "limited_s": lim_s, "quarantined": summ.quarantined,
+           "winner": [summ.best_model_name, summ.best_model_params],
+           "k1": k1, "all_failed": all_failed,
+           "seconds": time.perf_counter() - t0}
+    log(f"[quarantine] {len(train)} train rows; bytes each family needs "
+        f"above the search's entry: " + ", ".join(f"{f} {n}" for f, n in
+                                                  need.items())
+        + f"; limit {limit.get('bytes')} bytes ({headroom} above the "
+        f"{limit.get('reserved_at_search')} reserved at the search; "
+        f"allocated at each call's start "
+        f"{json.dumps(limit.get('allocated_at_start'))}); "
+        f"unlimited train {ref_s:.2f} s (winner {ref.best_model_name}), "
+        f"limited {lim_s:.2f} s: quarantined "
+        + json.dumps(summ.quarantined)
+        + f"; winner {summ.best_model_name}; K1 after the OOM: "
+        + ", ".join(f"{c['case']} err {c['max_abs_err']:.3g}"
+                    for c in k1["cases"])
+        + f"; every family OOM: AllFamiliesFailedError {all_failed}")
+    rec = q.get("RandomForestClassifier")
+    if rec is None or rec["kind"] != "transient" or rec["retries"] != 1 \
+            or rec["errorType"] != "OutOfMemoryError":
+        raise AssertionError(f"[quarantine] RF was not quarantined by a "
+                             f"real OOM after its retry: {summ.quarantined}")
+    if set(q) & set(LINEAR_FAMILIES):
+        raise AssertionError(f"[quarantine] a linear family did not fit: "
+                             f"{summ.quarantined}")
+    # nothing of a quarantined family stays on the card: every family
+    # starts from the bytes the first one started from
+    starts = limit["allocated_at_start"]
+    first = starts["LogisticRegression"][0]
+    left = {f: max(v) - first for f, v in starts.items()}
+    if any(b > 0 for b in left.values()):
+        raise AssertionError(f"[quarantine] a family started above the "
+                             f"first one's {first} bytes: {left}")
+    if summ.best_model_name in q:
+        raise AssertionError(f"[quarantine] quarantined winner "
+                             f"{summ.best_model_name}")
+    return out
+
+
+def all_families_fail(device, records, selector) -> list:
+    """The Titanic DAG trained with ``selector`` under an injected OOM at
+    every family's every dispatch: the families the one
+    AllFamiliesFailedError names, which must be all of the pool's."""
+    from transmogrifai_tpu_torch.runtime import (AllFamiliesFailedError,
+                                                 FaultInjector)
+    pool = sorted(type(est).__name__ for est, _ in selector.models)
+    try:
+        with FaultInjector.plan("family:*:dispatch:*=oom"):
+            _titanic_train(device, records, selector)
+    except AllFamiliesFailedError as e:
+        named = sorted(r.family for r in e.records)
+    else:
+        raise AssertionError("[quarantine] every family failed and train() "
+                             "raised no AllFamiliesFailedError")
+    if named != pool:
+        raise AssertionError(f"[quarantine] AllFamiliesFailedError named "
+                             f"{named}, not {pool}")
+    return named
+
+
+def heal_models(device, num_trees: int = 5, num_rounds: int = 20):
+    """[heal]'s pool: LogisticRegression (its default grid), RF at
+    ``num_trees`` trees and GBT at ``num_rounds`` rounds on 4-point
+    grids."""
+    return small_models(device, num_rounds=num_rounds, num_trees=num_trees,
+                        families=("LogisticRegression",
+                                  "RandomForestClassifier", "GBTClassifier"))
+
+
+def shifted(records):
+    """``records`` under covariate shift: every age 100 years older, every
+    passenger male (the labels kept)."""
+    return [dict(r, age=(r["age"] or 30.0) + 100.0, sex="male")
+            for r in records]
+
+
+def phase_heal(device, rows: int = HEAL_ROWS, models=heal_models) -> dict:
+    """[heal]: a Titanic model trained on ``rows`` records with a
+    BinaryClassificationModelSelector over ``models(device)``, served with
+    the lifecycle and the drift sentinel. Tenant ``a`` receives a
+    covariate-shifted stream until its sentinel degrades; the background
+    retrain (a ``register_refit`` factory of the same DAG over the base
+    records and the labeled ring) runs on the device and launches K1, the
+    canary passes and the entry swaps; then a
+    ``lifecycle:titanic:postswap:1=preempt`` fault rolls it back. Tenant
+    ``b`` keeps its original entry object and its answers throughout,
+    and every answer carries the served model's result names. Requests
+    dropped (must be 0), ``plan_compiles()`` at and after the swap
+    (flat), the retrain's seconds and served p50 / p99 before, during and
+    after the retrain."""
+    from transmogrifai_tpu_torch.runtime import FaultInjector, telemetry
+    from transmogrifai_tpu_torch.serving import (
+        DriftThresholds, LifecycleConfig, ServeConfig, plan_compiles,
+        serve_in_process)
+    from transmogrifai_tpu_torch.workflow import Workflow
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    records = titanic.synthetic_titanic(rows, seed=21)
+    train, holdout = titanic.stratified_split(records)
+
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, seed=42, stratify=True, device=dev, models=models(dev))
+    survived, features = titanic.build_features()
+    prediction = sel.set_input(survived, features).get_output()
+
+    def workflow():
+        # the same unfitted DAG each time: a candidate answers under the
+        # served model's result names
+        return Workflow(device=dev).set_result_features(survived,
+                                                        prediction)
+
+    model = workflow().set_input_records(train).train()
+    train_s = time.perf_counter() - t0
+    pred = model.result_features[1].name
+    telemetry.reset()
+    config = ServeConfig(
+        max_wait_ms=5.0, max_batch=64, sentinel=True,
+        # the fresh sentinel's fingerprints come from the ring: at 256 rows
+        # the sparse cabin column alone read 0.53 against the same stream
+        # on an H100, so the ring and the first report are larger
+        drift_thresholds=DriftThresholds(warn=0.2, degrade=0.5,
+                                         min_rows=512),
+        lifecycle=LifecycleConfig(
+            retrain_budget_seconds=300.0, canary_rows=1024,
+            metric_slack=0.05, watch_batches=1_000_000,
+            cooldown_seconds=3600.0))
+    server, client = serve_in_process({"titanic": model}, config,
+                                      device=dev)
+    server.register_refit("titanic", workflow_factory=workflow,
+                          base_records=train)
+    lat = {"before": [], "during": [], "after": []}
+    sent = [0]
+    answered = [0]
+
+    def stage():
+        c = telemetry.counters()
+        if not c.get("lifecycle_detect"):
+            return "before"
+        return "during" if not c.get("lifecycle_swaps") else "after"
+
+    def tick(batch_a, batch_b=()):
+        when = stage()
+        done = {}
+        futs = []
+        for tenant, batch in (("a", batch_a), ("b", batch_b)):
+            for r in batch:
+                f = client.submit(dict(r), model="titanic", tenant=tenant)
+                i = len(futs)
+                f.add_done_callback(
+                    lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+                futs.append((f, time.perf_counter()))
+        sent[0] += len(futs)
+        rows_out = []
+        for i, (f, t_sub) in enumerate(futs):
+            row = f.result(timeout=120.0)
+            if pred not in row:
+                raise AssertionError(f"[heal] a request failed: {row}")
+            answered[0] += 1
+            lat[when].append((done.get(i, time.perf_counter()) - t_sub)
+                             * 1e3)
+            rows_out.append(row)
+        return rows_out[len(batch_a):]
+
+    def wait(counter, feed, limit_s=600.0):
+        t_w = time.monotonic()
+        while not telemetry.counters().get(counter):
+            c = telemetry.counters()
+            failed = [k for k in ("lifecycle_retrain_failures",
+                                  "lifecycle_canary_fail",
+                                  "lifecycle_swap_failures") if c.get(k)]
+            if failed or time.monotonic() - t_w > limit_s:
+                raise AssertionError(
+                    f"[heal] {counter} never came ({failed}): "
+                    f"{server.metrics_snapshot()['lifecycle']}")
+            feed()
+            time.sleep(HEAL_TICK_S)
+
+    def stream(rows, n):
+        """The next ``n`` of ``rows``, cycling: a stream of distinct
+        records, as the sentinel expects of live traffic."""
+        pos = [0]
+
+        def take():
+            k = pos[0]
+            pos[0] += n
+            return [rows[(k + i) % len(rows)] for i in range(n)]
+        return take
+
+    try:
+        entry0 = server.plans.get("titanic")
+        server.prewarm(buckets=[b for b in entry0.plan.buckets()
+                                if b <= config.max_batch])
+        control = holdout[:16]
+        base_b = tick((), control)
+        # before the shift only tenant b is served (at the same 40
+        # requests a tick): tenant a's ring then holds shifted rows alone
+        # when its sentinel degrades, and so do the fingerprints its
+        # candidate's sentinel is built from
+        warm_b = stream(holdout, 40)
+        for _ in range(8):
+            tick((), warm_b())
+        live_b = stream(holdout, 8)
+        drifted = stream(shifted(holdout), 32)
+
+        def drift():
+            tick(drifted(), live_b())
+
+        level_hist.launches = 0
+        level_hist.launches_by_c.clear()
+        t_drift = time.perf_counter()
+        wait("lifecycle_detect", drift)
+        t_detect = time.perf_counter()
+        wait("lifecycle_swaps", drift)
+        t_swap = time.perf_counter()
+        k1_launches = level_hist.launches
+        k1_by_c = dict(sorted(level_hist.launches_by_c.items()))
+        compiles_at_swap = plan_compiles()
+        for _ in range(10):
+            drift()
+        compiles_after = plan_compiles()
+        swapped = server.plans.entry_for("titanic", "a")
+        rows_b = tick((), control)
+        same_b = all(r0[pred] == r1[pred] for r0, r1 in zip(base_b, rows_b))
+        entry_b_kept = server.plans.entry_for("titanic", "b") is entry0
+        mark = telemetry.events_mark()
+        with FaultInjector.plan("lifecycle:titanic:postswap:1=preempt"):
+            wait("lifecycle_rollbacks", drift, limit_s=60.0)
+        rolled = [e for e in telemetry.events_since(mark)
+                  if e["event"] == "lifecycle"
+                  and e.get("phase") == "rollback"]
+        restored = server.plans.entry_for("titanic", "a") is entry0
+        drift()
+        snap = server.metrics_snapshot()
+        history = list(server.lifecycle.history)
+    finally:
+        server.stop()
+    retrain = next((h for h in history if h["phase"] == "retrain_end"), {})
+    out = {"rows": rows, "train_s": train_s,
+           "requests": sent[0], "answered": answered[0],
+           "requests_dropped": sent[0] - answered[0],
+           "failed_batches": snap["failed_batches"],
+           "plan_compiles_at_swap": compiles_at_swap,
+           "plan_compiles_after": compiles_after,
+           "retrain_s": retrain.get("seconds"),
+           "retrain_rows": retrain.get("rows"),
+           "detect_after_s": t_detect - t_drift,
+           "swap_after_detect_s": t_swap - t_detect,
+           "k1_launches": k1_launches, "k1_launches_by_c": k1_by_c,
+           "tenant_b_entry_kept": entry_b_kept,
+           "tenant_b_answers_equal": same_b,
+           "swapped_generation": getattr(swapped.model,
+                                         "trained_generation", None),
+           "rollback": rolled[0] if rolled else None,
+           "restored_original": restored,
+           "phases": [h["phase"] for h in history],
+           "seconds": time.perf_counter() - t0}
+    for when, ms in lat.items():
+        out[f"ms_p50_{when}"] = float(np.percentile(ms, 50)) if ms else None
+        out[f"ms_p99_{when}"] = float(np.percentile(ms, 99)) if ms else None
+        out[f"requests_{when}"] = len(ms)
+    log(f"[heal] model trained on {len(train)} records in {train_s:.2f} s; "
+        f"sentinel degraded {out['detect_after_s']:.2f} s into the shifted "
+        f"stream, swapped {out['swap_after_detect_s']:.2f} s later (retrain "
+        f"{out['retrain_s']} s on {out['retrain_rows']} rows, K1 "
+        f"{k1_launches} launches by C {json.dumps(k1_by_c)}); "
+        f"plan_compiles at the swap {compiles_at_swap}, after "
+        f"{compiles_after}; rollback {json.dumps(out['rollback'])}; "
+        f"requests {sent[0]}, dropped {out['requests_dropped']}, failed "
+        f"batches {out['failed_batches']}; tenant b's entry kept "
+        f"{entry_b_kept}, answers equal {same_b}; served ms p50 / p99: "
+        + ", ".join(f"{w} {out[f'ms_p50_{w}']:.3f} / "
+                    f"{out[f'ms_p99_{w}']:.3f} ({out[f'requests_{w}']})"
+                    for w in lat if lat[w])
+        + f"; phases {out['phases']}")
+    if out["requests_dropped"] or out["failed_batches"]:
+        raise AssertionError(f"[heal] requests dropped: {out}")
+    if compiles_after != compiles_at_swap:
+        raise AssertionError(f"[heal] {compiles_after - compiles_at_swap} "
+                             f"compiles after the prewarmed swap")
+    if not (entry_b_kept and same_b):
+        raise AssertionError("[heal] tenant b lost its original entry or "
+                             "its answers changed")
+    if not restored or not rolled or not rolled[0].get("restored") \
+            or "InjectedPreemption" not in rolled[0].get("reason", ""):
+        raise AssertionError(f"[heal] no rollback to the original entry: "
+                             f"{rolled}")
+    if out["phases"] != ["detect", "retrain_start", "retrain_end",
+                         "canary_pass", "swap", "rollback"]:
+        raise AssertionError(f"[heal] lifecycle phases {out['phases']}")
+    if dev.type == "cuda" and k1_launches == 0:
+        raise AssertionError("[heal] the retrain launched no K1")
+    return out
+
+
+def _spawned(name: str, device):
+    """``name`` (a phase of this module) in a spawned process of its own."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        return pool.apply(_agree_phase, (name, device))
+
+
+def runtime_budget(out: dict, in_worker: bool = False) -> dict:
+    """The seconds of [resume], [heal] and [quarantine] in ``out``
+    against RUNTIME_PHASES_BUDGET_S, logged and recorded. ``in_worker``:
+    [resume] and [quarantine] ran in the AgreeWorker, beside the
+    card-against-CPU processes on the same card and host, and their
+    seconds say so (``--runtime-only`` times them alone)."""
+    total = sum(out[k]["seconds"] for k in ("resume", "heal", "quarantine"))
+    out["seconds"] = total
+    out["within_budget"] = total <= RUNTIME_PHASES_BUDGET_S
+    out["resume_quarantine_in_worker"] = in_worker
+    log(f"[runtime] [resume] {out['resume']['seconds']:.1f} s, [heal] "
+        f"{out['heal']['seconds']:.1f} s, [quarantine] "
+        f"{out['quarantine']['seconds']:.1f} s: {total:.1f} s against the "
+        f"{RUNTIME_PHASES_BUDGET_S} s budget ("
+        + ("within" if out["within_budget"] else "over")
+        + (", [resume] and [quarantine] under contention in the worker"
+           if in_worker else "") + ")")
+    return out
+
+
+def phase_runtime(device, resume_rows: int = RESUME_ROWS) -> dict:
+    """``--runtime-only``: [resume], [heal], then [quarantine] in a
+    spawned process, against their budget."""
+    out = {"resume": phase_resume(device, resume_rows)}
+    out["heal"] = phase_heal(device)
+    out["quarantine"] = _spawned("phase_quarantine", device)
+    return runtime_budget(out)
+
+
 #: the card-against-CPU phases of the whole smoke, [problems-agree] as its
 #: three searches ("name:part"), longest first by their CPU halves on the
 #: host of one H100 (in one run: phase 6 111.9 s, [validate-agree]
 #: 106.1, [wf-agree] 90.0, Boston 71.9, Iris 69.5). They run after the
 #: last timed phase, one process each while the host has cores for it,
-#: so no path is timed while one of them loads the host or the card
-AGREE_PHASES = ("phase_card_vs_cpu", "phase_validate_agree",
+#: so no path is timed while one of them loads the host or the card;
+#: [resume] (its checks count dispatches, not seconds: it took 96.2 s
+#: at 10,000 records timed alone in the whole smoke on an H100, where
+#: ``--runtime-only`` takes 51.3 s) and [quarantine] (which limits its
+#: own process's allocator) join them, so their seconds there are read
+#: under contention
+AGREE_PHASES = ("phase_card_vs_cpu", "phase_resume", "phase_validate_agree",
                 "phase_workflow_agree", "phase_problems_agree:boston",
                 "phase_problems_agree:iris", "phase_families_agree",
                 "phase_models_agree", "phase_text_agree",
-                f"phase_problems_agree:k{WIDE_K}")
+                f"phase_problems_agree:k{WIDE_K}", "phase_quarantine")
 
 
 def _agree_worker_init(threads: int) -> None:
@@ -5476,13 +6239,17 @@ def _agree_worker_init(threads: int) -> None:
 
 
 def _agree_phase(name: str, device):
-    """``name`` (one of AGREE_PHASES) at its whole-smoke arguments."""
-    if name == "phase_card_vs_cpu":
-        return phase_card_vs_cpu(device, CARD_VS_CPU_ROWS, COLS)
-    name, _, part = name.partition(":")
-    if part:
-        return globals()[name](device, parts=(part,))
-    return globals()[name](device)
+    """``name`` (one of AGREE_PHASES) at its whole-smoke arguments, under
+    ``forbid_quarantines`` unless it is [quarantine]."""
+    if name == "phase_quarantine":
+        return phase_quarantine(device)
+    with forbid_quarantines(name):
+        if name == "phase_card_vs_cpu":
+            return phase_card_vs_cpu(device, CARD_VS_CPU_ROWS, COLS)
+        name, _, part = name.partition(":")
+        if part:
+            return globals()[name](device, parts=(part,))
+        return globals()[name](device)
 
 
 class AgreeWorker:
@@ -5509,6 +6276,43 @@ class AgreeWorker:
         self.pool.join()
 
 
+#: the family quarantines of this process's phases, recorded by
+#: ``forbid_quarantines``
+QUARANTINES: list = []
+
+
+def check_no_quarantines(where: str) -> None:
+    """Fail if a family was quarantined since the last check."""
+    if QUARANTINES:
+        found = list(QUARANTINES)
+        QUARANTINES.clear()
+        raise AssertionError(f"[{where}] families quarantined outside "
+                             f"[quarantine]: {found}")
+
+
+@contextlib.contextmanager
+def forbid_quarantines(where: str = "smoke"):
+    """Record every family quarantine made inside the block (a search's
+    and the lifecycle's) and fail on leaving it, as at each of ``Laps``'s
+    laps, if there was one. The runtime carries a search on with the
+    families that are left; the smoke must stop instead, since a family
+    that fails on the card (a CUDA out-of-memory, a cuBLAS error) is a
+    fault of the path. Every phase but [quarantine] runs under it."""
+    from transmogrifai_tpu_torch.runtime.context import RuntimeContext
+    real = RuntimeContext.quarantine
+
+    def recorded(self, family, reason, kind, *args, **kwargs):
+        QUARANTINES.append(f"{family} ({kind}): {reason}")
+        return real(self, family, reason, kind, *args, **kwargs)
+    QUARANTINES.clear()
+    RuntimeContext.quarantine = recorded
+    try:
+        yield
+    finally:
+        RuntimeContext.quarantine = real
+    check_no_quarantines(where)
+
+
 def write_out(path, result: dict) -> None:
     """Every measurement as JSON at ``path``, when one is given."""
     if not path:
@@ -5530,11 +6334,13 @@ class Laps:
         now = time.perf_counter()
         self.seconds[name] = round(now - self._t, 1)
         self._t = now
+        check_no_quarantines(name)
 
     def log(self) -> None:
         log(f"[phase-seconds] {json.dumps(self.seconds)}")
 
 
+@forbid_quarantines()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -5586,6 +6392,12 @@ def main(argv=None) -> int:
                     help="with --models-only: time the host path once more "
                          "candidate by candidate, the loop its batched fits "
                          "replace")
+    ap.add_argument("--runtime-only", action="store_true",
+                    help="run only the build and the fault-tolerant "
+                         "runtime phases ([resume], [heal], [quarantine] "
+                         "in a spawned process) and print their JSON last")
+    ap.add_argument("--resume-rows", type=int, default=RESUME_ROWS,
+                    help="with --runtime-only: records of [resume]")
     ap.add_argument("--agree-witness-rows", type=int, default=None,
                     help="with --workflow-only: run only [wf-agree] at "
                          "this many records with the linear families' "
@@ -5601,6 +6413,15 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     laps("device+build")
+    if args.runtime_only:
+        rt = phase_runtime(device, args.resume_rows)
+        laps("11 runtime")
+        write_out(args.out, {"device": info, "runtime": rt})
+        laps.log()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(info["smi"])
+        print(json.dumps({"runtime": rt}, default=str))
+        return 0
     if args.text_only:
         txt = phase_text_all(device, args.text_rows)
         laps("9k-9l text")
@@ -5785,6 +6606,10 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
         search_slice(device, X_s, y_s))
     clear_design_cache()
     laps("10 profiles")
+    # self-healing serving under live traffic, timed alone; the runtime's
+    # [resume] and [quarantine] run in the worker below
+    runtime = {"heal": phase_heal(device)}
+    laps("11b heal")
     # the card-against-CPU phases, after the last timed phase
     torch.cuda.empty_cache()
     worker = AgreeWorker(device)
@@ -5799,16 +6624,20 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
         fam["agree"] = worker.result("phase_families_agree")
         txt["agree"] = worker.result("phase_text_agree")
         mod["agree"] = worker.result("phase_models_agree")
+        runtime["resume"] = worker.result("phase_resume")
+        runtime["quarantine"] = worker.result("phase_quarantine")
     finally:
         worker.close()
-    laps("6, 9, 9d, 9h, 9j, 9l, 9r agree")
+    laps("6, 9, 9d, 9h, 9j, 9l, 9r agree, 11a resume, 11c quarantine")
+    runtime_budget(runtime, in_worker=True)
     validate, wf_cv = checks["validate"], checks["workflow_cv"]
     fam_run = fam["families"]
     cases = k1["cases"] + k1["extra"] + k1["forest"]["cases"] + [
         validate["rung_k1_case"]] + problems["k1"]["cases"] + \
         fam_run["k1"]["cases"] + txt["text"]["k1"]["cases"] + \
         ie["quickstart"]["k1"]["cases"] + ie["readers"]["k1"]["cases"] + \
-        mod["host_metric"]["k1"]["cases"]
+        mod["host_metric"]["k1"]["cases"] + \
+        runtime["quarantine"]["k1"]["cases"]
     worst = max(k1["cases"], key=lambda c: c["C"])
     entry = {"name": "level_hist", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": main_run["k1_launches"],
@@ -5873,6 +6702,14 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
     entry["launches_fold_edges"] = hm["fold_edges"]["k1_launches"]
     entry["launches_fold_edges_by_c"] = hm["fold_edges"]["k1_launches_by_c"]
     entry["launches_mlp"] = mod["mlp"]["k1_launches"]
+    res = runtime["resume"]
+    entry["launches_resume"] = res["k1_launches"]
+    for v in ("exact", "racing"):
+        entry[f"launches_resume_{v}_by_family"] = {
+            "run_a": res[v]["run_a_k1_by_family"],
+            "resumed": res[v]["resume_k1_by_family"]}
+    entry["launches_heal"] = runtime["heal"]["k1_launches"]
+    entry["launches_heal_by_c"] = runtime["heal"]["k1_launches_by_c"]
     for tag in ("iris", "boston"):
         run = problems[tag]
         entry[f"launches_{tag}"] = run["k1_launches"]
@@ -5888,7 +6725,7 @@ def _whole_smoke(args, device, info: dict, laps: "Laps", t_start: float,
                          "workflow_agree": wf_agree, **checks,
                          "problems": problems, "families": fam,
                          "text": txt, "ingest_explain": ie,
-                         "models": mod,
+                         "models": mod, "runtime": runtime,
                          "profile": prof,
                          "phase_seconds": laps.seconds,
                          "seconds": time.perf_counter() - t_start})

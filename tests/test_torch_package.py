@@ -144,6 +144,26 @@ def _cpu_server(**config):
     return ServingServer(ServeConfig(**config), device="cpu")
 
 
+def _resumed_workflow():
+    """A tiny selector workflow trained with ``resume_from``: the search
+    journals into a temporary directory."""
+    import tempfile
+    label = FeatureBuilder.real_nn("label").extract(
+        lambda r: r["label"]).as_response()
+    sel = ModelSelector(
+        models=[(LogisticRegression(device="cpu"), [{}])],
+        validator=BinaryClassificationModelSelector.with_cross_validation(
+            device="cpu").validator, device="cpu")
+    pred = sel.set_input(label, transmogrify([_feature(Real, "x")])
+                         ).get_output()
+    rng = np.random.default_rng(0)
+    records = [{"x": float(v), "label": float(v > 0)}
+               for v in rng.normal(size=40)]
+    with tempfile.TemporaryDirectory() as ckpt:
+        return (Workflow(device="cpu").set_result_features(pred)
+                .set_input_records(records).train(resume_from=ckpt))
+
+
 def _load_filtered_model():
     """Load a saved model whose document carries raw feature filter
     results (the JAX package writes them when its filter ran)."""
@@ -161,16 +181,10 @@ def _load_filtered_model():
 UNPORTED = [
     (lambda: ScoringPlan(_cpu_model(), lattice=[8, 24]),
      "tuning/lattice.py"),
-    (lambda: Workflow(device="cpu").train(resume_from="ckpt"),
-     "runtime/journal.py"),
     (lambda: Workflow(device="cpu").train(validate="warn"), "lint/"),
     (lambda: Workflow(device="cpu").train(validate="strict"), "lint/"),
     (lambda: _cpu_server(admission_control=object()),
      "serving/admission.py"),
-    (lambda: _cpu_server(lifecycle=object()),
-     "serving/lifecycle.py"),
-    (lambda: _cpu_server().register_refit("m"),
-     "serving/lifecycle.py"),
     (lambda: _cpu_server(coalesce_policy="predicted_cost"),
      "tuning/policy.py"),
     (lambda: ScoringPlan(_cpu_model()).attach_artifacts({}),
@@ -180,14 +194,13 @@ UNPORTED = [
     (lambda: serving.ReplicaManager, "serving/fleet.py"),
     (lambda: serving.FleetRouter, "serving/router.py"),
     (lambda: serving.AdmissionController, "serving/admission.py"),
-    (lambda: serving.ModelLifecycle, "serving/lifecycle.py"),
 ]
 
 
 #: the numbers the PORTED entries take in the test ids, which UNPORTED and
 #: PORTED number in one sequence
-_PORTED_AT = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 17, 18, 19, 20,
-              21, 32)
+_PORTED_AT = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 17, 18, 19,
+              20, 21, 23, 24, 32, 33)
 _UNPORTED_IDS = [m + f"-{i}" for i, (_, m) in zip(
     (i for i in range(len(UNPORTED) + len(_PORTED_AT))
      if i not in _PORTED_AT), UNPORTED)]
@@ -227,6 +240,7 @@ PORTED = [
         RawFeatureFilter()), "checkers/raw_feature_filter.py"),
     (lambda: Workflow(device="cpu").set_reader(
         DataReaders.Simple.custom([{"x": 1.0}])), "readers/data_readers.py"),
+    (lambda: _resumed_workflow(), "runtime/journal.py"),
     (lambda: BinaryClassificationModelSelector.with_cross_validation(
         validation="racing", device="cpu").validator, "selector/racing.py"),
     (lambda: ScoreFunction(_cpu_model(), guardrails=True).score_batch(
@@ -236,7 +250,12 @@ PORTED = [
     (lambda: _cpu_server(), "serving/sentinel.py"),
     (lambda: ScoringPlan(_cpu_model()).with_guardrails(),
      "serving/sentinel.py"),
+    (lambda: _cpu_server(lifecycle=serving.LifecycleConfig()),
+     "serving/lifecycle.py"),
+    (lambda: _cpu_server(lifecycle=serving.LifecycleConfig())
+     .register_refit("m"), "serving/lifecycle.py"),
     (lambda: serving.DriftSentinel, "serving/sentinel.py"),
+    (lambda: serving.ModelLifecycle, "serving/lifecycle.py"),
     (lambda: BinaryClassificationModelSelector.with_train_validation_split(
         device="cpu").validator, "selector/validator.py"),
 ]
@@ -255,7 +274,10 @@ def test_ported_options_run(entry, module):
     validators are the ported classes, a save with raw feature filter
     results loads them; the default guardrails (with the drift sentinel)
     serve a batch, a default ``ServeConfig()`` server and guarded plan
-    stand up, and ``serving.DriftSentinel`` is the ported class."""
+    stand up, and ``serving.DriftSentinel`` is the ported class; a
+    workflow trains with ``resume_from``, a server with a
+    ``LifecycleConfig`` has its manager and takes ``register_refit``, and
+    ``serving.ModelLifecycle`` is the ported class."""
     from transmogrifai_tpu_torch.checkers import RawFeatureFilterResults
     from transmogrifai_tpu_torch.selector import (RacingCrossValidation,
                                                   TrainValidationSplit)
@@ -275,8 +297,14 @@ def test_ported_options_run(entry, module):
                   lambda o: isinstance(o, RacingCrossValidation),
               "selector/validator.py":
                   lambda o: isinstance(o, TrainValidationSplit)}
+    from transmogrifai_tpu_torch.serving.lifecycle import ModelLifecycle
     from transmogrifai_tpu_torch.serving.sentinel import DriftSentinel
-    if module == "checkers/raw_feature_filter.py":
+    if module == "runtime/journal.py":
+        assert isinstance(out, WorkflowModel)
+    elif module == "serving/lifecycle.py":
+        assert out is ModelLifecycle or isinstance(
+            out.lifecycle, ModelLifecycle)
+    elif module == "checkers/raw_feature_filter.py":
         assert isinstance(out, (Workflow, RawFeatureFilterResults))
     elif module == "serving/sentinel.py":
         if isinstance(out, list):
@@ -322,7 +350,9 @@ def test_sources_import_no_jax():
             "readers/data_readers.py", "readers/joined.py",
             "readers/streaming.py", "insights/__init__.py",
             "insights/corr.py", "insights/loco.py",
-            "insights/model_insights.py", "examples/dataprep.py"} <= names
+            "insights/model_insights.py", "examples/dataprep.py",
+            "runtime/faults.py", "runtime/journal.py", "runtime/context.py",
+            "runtime/refit.py", "serving/lifecycle.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -462,11 +492,24 @@ WAITING = {
                  "RunResult": "workflow/runner.py",
                  "RunType": "workflow/runner.py",
                  "WorkflowRunner": "workflow/runner.py"},
+    "serving": {
+        **dict.fromkeys(("AdmissionConfig", "AdmissionController",
+                         "ServeShed"), "serving/admission.py"),
+        **dict.fromkeys(("TcpServingClient", "ServingUnavailable"),
+                        "serving/client.py"),
+        **dict.fromkeys(("ServingStateSnapshot", "StateManager",
+                         "SNAPSHOT_SCHEMA"), "serving/state.py"),
+        **dict.fromkeys(("ReplicaManager", "ReplicaSpec",
+                         "wait_port_ready"), "serving/fleet.py"),
+        **dict.fromkeys(("FleetRouter", "RouterConfig", "ReplicaHandle",
+                         "BackendUnavailable", "merge_admission"),
+                        "serving/router.py")},
 }
 
 
 @pytest.mark.parametrize("subpackage", ["selector", "readers", "insights",
-                                        "features", "workflow", "models"])
+                                        "features", "workflow", "models",
+                                        "runtime", "serving"])
 def test_public_names_match_jax(subpackage):
     """Every name of the JAX subpackage's ``__all__`` is in the port's
     ``__all__`` and importable there, but the ones WAITING lists, whose

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -25,6 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: held around a library's first-use build and load: whichever thread
+#: gets there first builds, the others wait for its library
+_load_lock = threading.Lock()
 #: seconds spent in nvcc by this process
 _build_seconds = 0.0
 
@@ -78,9 +82,15 @@ def build_seconds() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (by
+    one thread; a search's deadline worker and the serving lifecycle's
+    retrain may reach it together)."""
     lib = _libs.get(name)
     if lib is None:
-        build(name)
-        lib = _libs[name] = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build(name)
+                lib = _libs[name] = ctypes.CDLL(
+                    str(_target(CSRC / f"{name}.cu")))
     return lib

@@ -105,6 +105,15 @@ class Predictor(BinaryEstimator):
     def fit_arrays(self, X, y: np.ndarray) -> "PredictionModel":
         raise NotImplementedError
 
+    def fit_arrays_guarded(self, X, y: np.ndarray) -> "PredictionModel":
+        """``fit_arrays`` behind the fault-injection site ``family:<class>:
+        fit`` (``runtime/faults.py``): the validator's candidate-by-
+        candidate path fits through here, so a host fit can be failed on
+        purpose like a device dispatch. Free when no plan is active."""
+        from ..runtime.faults import maybe_inject
+        maybe_inject("family", type(self).__name__, "fit")
+        return self.fit_arrays(X, y)
+
     def with_params(self, **params) -> "Predictor":
         """A copy with constructor parameters overridden (the grid-point
         expansion primitive)."""

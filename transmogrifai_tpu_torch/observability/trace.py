@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["SCHEMA_VERSION", "configure", "configure_from_env",
            "enabled", "trace_path", "span", "add_span", "add_event",
-           "new_request_id", "spans", "reset", "flush"]
+           "current_ref", "new_request_id", "spans", "reset", "flush"]
 
 #: bump when the JSONL span record shape changes; the header line and
 #: every span record carry it so readers can refuse foreign files
@@ -224,6 +224,19 @@ def add_span(name: str, start: float, end: float,
         rec["events"] = list(events)
     _emit(rec)
     return rec["sid"]
+
+
+def current_ref() -> Optional[Tuple[str, int]]:
+    """(trace_id, span_id) of the innermost open span on this thread or
+    task, or None: capture it before handing work to another thread and
+    pass it there as ``span(parent=...)``."""
+    if not _ENABLED:
+        return None
+    stack = _STACK.get()
+    if not stack:
+        return None
+    top = stack[-1]
+    return (top["trace"], top["sid"])
 
 
 def add_event(name: str, **fields) -> None:

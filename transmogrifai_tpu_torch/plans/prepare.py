@@ -19,10 +19,14 @@ Execution model:
    device pass through; host columns go through the stage's
    ``encode_input_column`` and are copied up once. Its output column keeps
    the tensor, with the metadata of a zero-row run of the stage's numpy
-   path.
+   path. The transform runs behind the runtime retry policy (a transient
+   error retries with backoff), with the drill site
+   ``prepare:device:dispatch`` (``runtime/faults.py``).
 4. Any other stage runs its host ``transform_columns``, and ``coverage``
    records it with the reason. A kernel that raises propagates: it is
-   never demoted to the host path.
+   never demoted to the host path. The one demotion is a drill: an
+   injected ``prepare:<Stage>:compile`` fault sends the stage to its host
+   transform with the fault as its reason, as in the JAX plan.
 5. An attached listener (``utils/listener.py``) receives every fit and
    transform with its seconds and row count, as from the JAX plan; a
    device transform's seconds end in a synchronize.
@@ -42,6 +46,8 @@ from .. import _build
 from ..features.columns import Dataset, FeatureColumn, host_column
 from ..features.feature import Feature, topo_layers
 from ..features.generator import FeatureGeneratorStage
+from ..runtime.faults import maybe_inject
+from ..runtime.retry import RetryPolicy
 from ..stages.base import Estimator, PipelineStage, Transformer
 from ..types import Prediction
 from ..utils.device import resolve_device, working_dtype
@@ -90,6 +96,7 @@ class PreparePlan:
         self.host_transform_seconds = 0.0
         #: bytes of host columns copied up to the device
         self.bytes_to_device = 0
+        self._retry = RetryPolicy.from_env()
 
     # -- public ------------------------------------------------------------
     def execute(self, ds: Dataset,
@@ -183,11 +190,19 @@ class PreparePlan:
                                      lambda n: self._proto[n])
         label = f"{type(stage).__name__}({out_name})"
         if not reason:
+            # drill site: an injected compile fault demotes the stage to
+            # its host transform with the recorded reason
+            try:
+                maybe_inject("prepare", type(stage).__name__, "compile")
+            except Exception as e:
+                reason = (f"injected compile fault: {type(e).__name__}: "
+                          f"{e}")
+        if not reason:
             self._proto = probe_stage(stage, self._proto, out_name)
             t0, b0 = time.perf_counter(), _build.build_seconds()
             arrays = [self._device_input(stage, i, ds[n], n)
                       for i, n in enumerate(in_names)]
-            out = stage.transform_arrays(arrays)
+            out = self._dispatch(stage, arrays)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             wall = time.perf_counter() - t0
@@ -214,6 +229,17 @@ class PreparePlan:
         self._producer[out_name] = "host"
         self.coverage.fallback.append((label, reason))
         return ds.with_column(out_name, col)
+
+    def _dispatch(self, stage: Transformer, arrays) -> torch.Tensor:
+        """One stage's device transform behind the runtime retry policy
+        (a transient error backs off and retries; others propagate, and
+        the selector's quarantine sits above), with the drill site
+        ``prepare:device:dispatch``."""
+        def attempt():
+            maybe_inject("prepare", "device", "dispatch")
+            return stage.transform_arrays(arrays)
+
+        return self._retry.call(attempt, description="prepare-dispatch")
 
     def _device_input(self, stage: Transformer, i: int, col: FeatureColumn,
                       name: str) -> torch.Tensor:

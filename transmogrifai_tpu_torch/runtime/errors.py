@@ -1,14 +1,18 @@
-"""Error taxonomy and classifier for the scoring plan's dispatch.
+"""Error taxonomy and classifier of the fault-tolerant runtime.
 
-Counterpart of ``classify_error`` in ``transmogrifai_tpu/runtime/
-errors.py``. Every exception crossing a dispatch boundary is sorted into
-one of three kinds:
+Counterpart of ``transmogrifai_tpu/runtime/errors.py`` (``classify_error``,
+``QuarantineRecord``, ``AllFamiliesFailedError``). Every exception
+crossing a family dispatch, a compile or a serving dispatch boundary is
+sorted into one of three kinds:
 
 - ``"transient"``: worth retrying with backoff (``runtime/retry.py``);
-  the serving guard then trips its breaker and serves the host columnar
-  path;
-- ``"family"``: deterministic backend failures: retrying is futile, the
-  breaker still routes the batch to the host;
+  a family whose retries run out is quarantined, and the serving guard
+  trips its breaker and serves the host columnar path;
+- ``"family"``: deterministic failures of one family or program
+  (a precondition the data breaks, an injected family fault, a backend
+  rejection): retrying is futile, the family is quarantined at once and
+  the search goes on with the survivors; the breaker still routes a
+  serving batch to the host;
 - ``"bug"``: everything else, which must propagate.
 
 The JAX classifier matches ``XlaRuntimeError`` type names and the
@@ -40,14 +44,18 @@ any other ``RuntimeError("CUDA error: ...")``   family (e.g. an invalid
 cuDNN or NCCL
 ``ConnectionError``, ``TimeoutError``,       transient
 ``InterruptedError``, ``BrokenPipeError``
-``MemoryError``, ``FloatingPointError``      family
+``MemoryError``, ``FloatingPointError``,     family
+``FamilyPreconditionError``, an injected
+family fault (``runtime/faults.py``)
 anything else, a capture error outside a     bug
 plan (``operation not permitted when
 stream is capturing``) included
 ===========================================  ==============================
 
 So on the card only a transient or family error reaches the guarded
-path's host fallback (``serving/guard.fall_back_to_host``).
+path's host fallback (``serving/guard.fall_back_to_host``) or a search's
+quarantine ledger: a sticky CUDA error leaves the context dead and is
+never quarantined.
 
 The JAX package's status-name patterns (``RESOURCE_EXHAUSTED``,
 ``DEADLINE_EXCEEDED``, ``INVALID_ARGUMENT``, ...) are kept as well, so a
@@ -57,8 +65,11 @@ classifies alike in both packages.
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
+from typing import List, Optional
 
-__all__ = ["classify_error", "TRANSIENT", "FAMILY", "BUG"]
+__all__ = ["classify_error", "QuarantineRecord", "AllFamiliesFailedError",
+           "TRANSIENT", "FAMILY", "BUG"]
 
 TRANSIENT = "transient"
 FAMILY = "family"
@@ -88,7 +99,8 @@ _TRANSIENT_RE = re.compile(
 #: data and will again
 _FAMILY_RE = re.compile(
     r"CUDA error:|CUBLAS_STATUS|cuDNN error|NCCL error"
-    r"|INTERNAL|INVALID_ARGUMENT|FAILED_PRECONDITION|UNIMPLEMENTED",
+    r"|INTERNAL|INVALID_ARGUMENT|FAILED_PRECONDITION|UNIMPLEMENTED"
+    r"|injected family fault",
     re.IGNORECASE)
 
 _TRANSIENT_TYPES = (ConnectionError, TimeoutError, InterruptedError,
@@ -108,8 +120,60 @@ def classify_error(exc: BaseException) -> str:
         return BUG
     if _TRANSIENT_RE.search(msg):
         return TRANSIENT
-    if isinstance(exc, (MemoryError, FloatingPointError)):
+    from ..models.base import FamilyPreconditionError
+    if isinstance(exc, (MemoryError, FloatingPointError,
+                        FamilyPreconditionError)):
         return FAMILY
     if _FAMILY_RE.search(msg):
         return FAMILY
     return BUG
+
+
+@dataclass
+class QuarantineRecord:
+    """One family removed from a search, and why: surfaced in
+    ``ModelSelectorSummary.quarantined`` and ``model_insights()``, with
+    the JAX package's JSON keys."""
+    family: str
+    reason: str
+    #: "transient" | "family" | "deadline" | "metrics"
+    kind: str = FAMILY
+    error_type: str = ""
+    rung: Optional[int] = None
+    retries: int = 0
+
+    def to_json(self) -> dict:
+        out = {"family": self.family, "reason": self.reason,
+               "kind": self.kind, "errorType": self.error_type,
+               "retries": self.retries}
+        if self.rung is not None:
+            out["rung"] = self.rung
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "QuarantineRecord":
+        return cls(family=d.get("family", ""), reason=d.get("reason", ""),
+                   kind=d.get("kind", FAMILY),
+                   error_type=d.get("errorType", ""),
+                   rung=d.get("rung"), retries=d.get("retries", 0))
+
+    def __str__(self) -> str:
+        tag = f" at rung {self.rung}" if self.rung is not None else ""
+        return (f"{self.family}{tag}: [{self.kind}] {self.reason}"
+                + (f" (after {self.retries} retries)" if self.retries
+                   else ""))
+
+
+class AllFamiliesFailedError(RuntimeError):
+    """Every candidate family was quarantined (or produced no finite
+    metric): nothing is left to select. Raised once with the whole
+    quarantine ledger, so every family's reason is in one traceback."""
+
+    def __init__(self, records: List[QuarantineRecord],
+                 detail: str = ""):
+        self.records = list(records)
+        lines = "\n".join(f"  - {r}" for r in self.records) or "  (none)"
+        super().__init__(
+            f"all candidate families failed validation"
+            + (f" ({detail})" if detail else "")
+            + f"; quarantine ledger:\n{lines}")

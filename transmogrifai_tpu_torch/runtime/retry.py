@@ -1,8 +1,9 @@
 """RetryPolicy: exponential backoff with deterministic jitter for
 transient backend failures.
 
-The port's copy of ``transmogrifai_tpu/runtime/retry.py``. The scoring
-plan wraps each device dispatch in it: an error the classifier
+The port's copy of ``transmogrifai_tpu/runtime/retry.py``. A search
+wraps each family's dispatch in it, and the scoring and prepare plans
+each device dispatch: an error the classifier
 (``runtime/errors.py``) marks transient (a CUDA out-of-memory, a launch
 timeout) retries with exponentially growing, jittered delays; anything
 else propagates at once. The jitter is derived from (seed, description,
@@ -14,7 +15,7 @@ import logging
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 from . import telemetry
 from .errors import TRANSIENT, classify_error
@@ -64,21 +65,25 @@ class RetryPolicy:
             d *= 1.0 + self.jitter * (2.0 * h - 1.0)
         return max(0.0, d)
 
-    def call(self, fn: Callable, description: str = ""):
-        """Run ``fn()`` under the policy. The last transient error is
-        re-raised once attempts are exhausted, for the caller to
+    def call(self, fn: Callable, description: str = "",
+             classify: Callable = classify_error,
+             on_retry: Optional[Callable] = None):
+        """Run ``fn()`` under the policy. ``on_retry(attempt, exc)`` runs
+        before each backoff sleep. The last transient error is re-raised
+        once attempts are exhausted, for the caller's quarantine layer to
         record."""
         attempts = max(1, int(self.max_attempts))
         for attempt in range(attempts):
             try:
                 return fn()
             except Exception as e:
-                if classify_error(e) != TRANSIENT \
-                        or attempt == attempts - 1:
+                if classify(e) != TRANSIENT or attempt == attempts - 1:
                     raise
                 telemetry.count("retries")
                 telemetry.event("retry", target=description or "call",
                                 attempt=attempt + 1,
                                 error=f"{type(e).__name__}: {e}")
+                if on_retry is not None:
+                    on_retry(attempt, e)
                 time.sleep(self.delay_for(attempt, description))
         raise AssertionError("unreachable")  # pragma: no cover

@@ -1,11 +1,12 @@
-"""Process-wide telemetry: counters and an event stream.
+"""Process-wide telemetry: counters, the search dispatch log and an
+event stream.
 
-The port's copy of the counter and event half of
-``transmogrifai_tpu/runtime/telemetry.py``: module-level accumulators that
-the smoke and the tests read to prove serving behaviour (host-fallback
-batches, breaker short-circuits, quarantined rows, retries) rather than
-infer it from timing. The JAX package's search dispatch log is not
-ported with it.
+The port's copy of ``transmogrifai_tpu/runtime/telemetry.py``:
+module-level accumulators that the smoke and the tests read to prove
+runtime behaviour (zero re-dispatch of journaled work, retries,
+quarantines, host-fallback batches, breaker short-circuits, lifecycle
+transitions) rather than infer it from timing. ``WorkflowListener``
+snapshots the event stream into ``AppMetrics.fault_events``.
 """
 from __future__ import annotations
 
@@ -13,17 +14,21 @@ import logging
 import os
 import threading
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from ..observability import trace as _trace
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["count", "counters", "reset", "event", "events_mark",
-           "events_since", "events_dropped", "OVERFLOW_EVENT"]
+__all__ = ["count", "counters", "reset", "note_dispatch", "dispatch_log",
+           "event", "events_mark", "events_since", "events_dropped",
+           "OVERFLOW_EVENT"]
 
 _LOCK = threading.Lock()
 _COUNTERS: Dict[str, int] = {}
+#: every real family dispatch of this process: (family key, rung label,
+#: candidate indices, folds); journal replays never land here
+_DISPATCH_LOG: List[Tuple[str, str, Tuple[int, ...], int]] = []
 #: the event stream is a ring (``TX_TELEMETRY_EVENTS_CAP``, default
 #: 4096): overflow drops the oldest events, counts them
 #: (``telemetry_events_dropped``), and ``events_since`` marks the gap
@@ -51,15 +56,37 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """Snapshot of all counters."""
+    """Snapshot of all counters (``retries``, ``quarantines``,
+    ``journal_hits``, ``journal_replayed_entries``,
+    ``candidate_fold_dispatches``, ``family_dispatches``, the serving and
+    ``lifecycle_*`` counters, ...)."""
     with _LOCK:
         return dict(_COUNTERS)
 
 
+def note_dispatch(family: str, rung_label: str,
+                  cands: Tuple[int, ...], folds: int) -> None:
+    """Record one real family dispatch of ``len(cands) x folds``
+    candidate-fold evaluations."""
+    with _LOCK:
+        _DISPATCH_LOG.append((family, rung_label, tuple(cands),
+                              int(folds)))
+        _COUNTERS["family_dispatches"] = \
+            _COUNTERS.get("family_dispatches", 0) + 1
+        _COUNTERS["candidate_fold_dispatches"] = \
+            _COUNTERS.get("candidate_fold_dispatches", 0) \
+            + len(cands) * int(folds)
+
+
+def dispatch_log() -> List[Tuple[str, str, Tuple[int, ...], int]]:
+    with _LOCK:
+        return list(_DISPATCH_LOG)
+
+
 def event(event_name: str, **fields) -> None:
-    """Append one event (``retry``, ``serving_fallback``, ``breaker``,
-    ...) and log it. With tracing enabled the event also attaches to the
-    current span."""
+    """Append one event (``retry``, ``quarantine``, ``journal_resume``,
+    ``lifecycle``, ``serving_fallback``, ``breaker``, ...) and log it.
+    With tracing enabled the event also attaches to the current span."""
     global _EVENTS_BASE
     rec = {"event": event_name, **fields}
     with _LOCK:
@@ -107,5 +134,6 @@ def reset() -> None:
     global _EVENTS_BASE
     with _LOCK:
         _COUNTERS.clear()
+        _DISPATCH_LOG.clear()
         _EVENTS.clear()
         _EVENTS_BASE = 0

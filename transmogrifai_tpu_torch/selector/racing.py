@@ -24,25 +24,37 @@ full-CV one. Families without a device metric path leave the race and are
 validated at full fidelity candidate by candidate; their results join the
 final comparison.
 
+Each rung's family searches run behind the validator's runtime
+(``_dispatch_device_evals``), as in the JAX package: a rung's matrices are
+journaled under ``rung<r>``, a resume replays rungs ``0..r-1`` and
+dispatches only from rung ``r`` (the ``rung:<r>:boundary`` probe is the
+kill point between rungs), a quarantined family leaves the race with no
+results, and the families validated exactly after leaving the race are
+journaled under ``exact``.
+
 Left out: the mesh (one card: the JAX package's ``pad_cand_idx`` with one
-shard is the identity), the search journal, fault injection and
-quarantine (the port's exact ``CrossValidation`` has none either), and the
-``TuningPolicy``: with no ``eta`` or ``min_fidelity`` given, the schedule
-is the registry's static default (``tuning/registry.py``: eta 3,
-min_fidelity 1/eta**2), which is what the JAX package decides with a cold
-profile store or ``TX_TUNE=off``.
+shard is the identity) and the ``TuningPolicy``: with no ``eta`` or
+``min_fidelity`` given, the schedule is the registry's static default
+(``tuning/registry.py``: eta 3, min_fidelity 1/eta**2), which is what the
+JAX package decides with a cold profile store or ``TX_TUNE=off``.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..models.base import Predictor
+from ..observability import trace as _trace
+from ..runtime import telemetry as _telemetry
+from ..runtime.faults import maybe_inject
 from ..utils.device import take_rows
-from .validator import BestEstimator, CrossValidation, ValidationResult
+from .validator import (_QUARANTINED, BestEstimator, CrossValidation,
+                        ValidationResult, _guarded)
 
 __all__ = ["RacingCrossValidation", "search_compiles"]
 
@@ -222,19 +234,31 @@ class RacingCrossValidation(CrossValidation):
                 "budgetFullCvFoldFits": float(n_total * F),
                 "searchSeconds": round(time.perf_counter() - t0, 3)}
             return best
-        return self._validate_raced(models, X, y, masks, spec, X_val_st,
-                                    y_val_st, budgets, n_total, t0)
+        ctx = self._begin_runtime(models, X, y)
+        try:
+            return self._validate_raced(models, X, y, masks, spec,
+                                        X_val_st, y_val_st, budgets,
+                                        n_total, t0, ctx)
+        finally:
+            ctx.close_journal()
 
     def _validate_raced(self, models, X, y, masks, spec, X_val_st,
-                        y_val_st, budgets, n_total, t0) -> BestEstimator:
+                        y_val_st, budgets, n_total, t0, ctx
+                        ) -> BestEstimator:
         F = masks.shape[0]
+        device = X.device if isinstance(X, torch.Tensor) else None
         racers: Dict[Tuple[int, int], _Racer] = {
             (fi, gi): _Racer(fi, gi)
             for fi, (_, grid) in enumerate(models)
             for gi in range(len(grid))}
         host_fams: List[int] = []       # families validated exactly
+        quarantined_fams: set = set()   # families out of the search
         rung_rows: List[Dict] = []
         for r, b in enumerate(budgets):
+            # the rung-boundary kill point: every completed rung below is
+            # journaled, so a resume replays rungs 0..r-1 and dispatches
+            # from here on
+            maybe_inject("rung", str(r), "boundary")
             final = r == len(budgets) - 1
             folds_r, row_frac = self._fidelity(b, F)
             X_r, y_r = X, y
@@ -267,23 +291,52 @@ class RacingCrossValidation(CrossValidation):
             n_evaluated = 0
             t_rung = time.perf_counter()
             fam_seconds: Dict[str, float] = {}
+
+            def evaluate(est, grid, alive, X_r, y_r, rung_masks, Xv_r,
+                         yv_r, fam_seconds):
+                t_fam = time.perf_counter()
+                try:
+                    return self._try_device_eval(
+                        est, grid, X_r, y_r, rung_masks, Xv_r, yv_r, spec,
+                        cand_idx=np.asarray(alive, dtype=np.int64))
+                finally:
+                    name = type(est).__name__
+                    fam_seconds[name] = (fam_seconds.get(name, 0.0)
+                                         + time.perf_counter() - t_fam)
+
+            tasks = []
             for fi, alive in fam_idx:
                 est, grid = models[fi]
                 name = type(est).__name__
                 _RUNG_KEYS.add((name, folds_r, rung_masks.shape[1],
                                 len(alive), spec))
-                t_fam = time.perf_counter()
-                mm = self._try_device_eval(
-                    est, grid, X_r, y_r, rung_masks, Xv_r, yv_r, spec,
-                    cand_idx=np.asarray(alive, dtype=np.int64))
-                fam_seconds[name] = (fam_seconds.get(name, 0.0)
-                                     + time.perf_counter() - t_fam)
+                tasks.append((name, self._family_key(fi, est), tuple(alive),
+                              functools.partial(
+                                  evaluate, est, grid, alive, X_r, y_r,
+                                  rung_masks, Xv_r, yv_r, fam_seconds)))
+            with _trace.span("search.rung", rung=r, final=final,
+                             folds=folds_r, budget=round(float(b), 4),
+                             families=len(fam_idx),
+                             alive=sum(len(a) for _, a in fam_idx)):
+                mats = self._dispatch_device_evals(
+                    tasks, folds_r, ctx, rung=r, rung_label=f"rung{r}",
+                    device=device)
+            for (fi, alive), mm in zip(fam_idx, mats):
+                est, grid = models[fi]
+                if mm is _QUARANTINED:
+                    # out of this search: no results and no exact
+                    # fallback; the quarantine ledger says why
+                    quarantined_fams.add(fi)
+                    for gi in range(len(grid)):
+                        racers[(fi, gi)].alive = False
+                    continue
                 if mm is None:
                     # the family cannot race (no device path for these
                     # labels or this metric): validate it exactly at full
                     # fidelity through the ordinary paths instead
                     _log.info("family %s leaves the race at rung %d; "
-                              "validating it under exact full CV", name, r)
+                              "validating it under exact full CV",
+                              type(est).__name__, r)
                     host_fams.append(fi)
                     for gi in range(len(grid)):
                         racers[(fi, gi)].alive = False
@@ -307,24 +360,47 @@ class RacingCrossValidation(CrossValidation):
                 "rung": r, "rows": int(rung_masks.shape[1]),
                 "seconds": time.perf_counter() - t_rung,
                 "familySeconds": fam_seconds})
-        # exact validation for the families that left the race
+        # exact validation for the families that left the race, journaled
+        # under "exact"; a classified failure quarantines the family
         host_results: Dict[int, List[ValidationResult]] = {}
         fold_data = None
         for fi in host_fams:
             est, grid = models[fi]
-            mm = self._try_device_eval(est, grid, X, y, masks, X_val_st,
-                                       y_val_st, spec)
-            if mm is not None:
-                host_results[fi] = self._results_from_matrix(est, grid, mm)
+            key = self._family_key(fi, est)
+            cands = tuple(range(len(grid)))
+            cached = ctx.journal_lookup(key, "exact", cands)
+            if cached is not None:
+                host_results[fi] = self._results_from_journal(est, grid,
+                                                              cached)
                 continue
-            if fold_data is None:
-                fold_data = self._fold_data(X, y)
-            host_results[fi] = self._family_host_results(est, grid, X, y,
-                                                         masks, fold_data)
+
+            def evaluate_exact():
+                mm = self._try_device_eval(est, grid, X, y, masks, X_val_st,
+                                           y_val_st, spec)
+                if mm is not None:
+                    return self._results_from_matrix(est, grid, mm)
+                nonlocal fold_data
+                if fold_data is None:
+                    fold_data = self._fold_data(X, y)
+                return self._family_host_results(est, grid, X, y, masks,
+                                                 fold_data)
+
+            host_results[fi] = _guarded(ctx, type(est).__name__,
+                                        evaluate_exact)
+            if host_results[fi] is _QUARANTINED:
+                quarantined_fams.add(fi)
+                host_results[fi] = []
+                continue
+            _telemetry.note_dispatch(key, "exact", cands, F)
+            ctx.journal_record(
+                key, "exact", cands,
+                [res.metric_values for res in host_results[fi]], F)
         # assemble results in the exact path's family/grid order
         results: List[ValidationResult] = []
         rank_pool: List[ValidationResult] = []
         for fi, (est, grid) in enumerate(models):
+            if fi in quarantined_fams:
+                continue
             if fi in host_fams:
                 results.extend(host_results[fi])
                 # full-fidelity metrics: they compete with the finalists
@@ -343,7 +419,8 @@ class RacingCrossValidation(CrossValidation):
                 if rc.pruned_at is None and rc.rung is not None:
                     rank_pool.append(res)
         spent = sum(rc.budget for rc in racers.values()) \
-            + float(sum(len(models[fi][1]) for fi in host_fams)) * F
+            + float(sum(len(models[fi][1]) for fi in host_fams
+                        if fi not in quarantined_fams)) * F
         self.last_report = {
             "raced": True, "eta": self.eta,
             "minFidelity": self.min_fidelity, "rungs": rung_rows,
@@ -353,4 +430,5 @@ class RacingCrossValidation(CrossValidation):
             "budgetSpentFoldFits": round(spent, 3),
             "budgetFullCvFoldFits": float(n_total * F),
             "searchSeconds": round(time.perf_counter() - t0, 3)}
-        return self._pick_best(models, results, rank_pool=rank_pool)
+        return self._pick_best(models, results, rank_pool=rank_pool,
+                               ctx=ctx)

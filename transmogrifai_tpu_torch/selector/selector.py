@@ -6,8 +6,11 @@ Counterpart of ``transmogrifai_tpu/selector/selector.py``
 ``pretty``, ``models_x_folds``): prepare the data with the splitter
 (holdout reserve, balancing), validate every candidate (family x grid
 point) under cross-validation, racing or a train/validation split, refit
-the winner on the full prepared training set, and evaluate it on the
-training set and the holdout. Workflow-level CV presets the winner and
+the winner on the full prepared training set (behind the retry policy),
+and evaluate it on the training set and the holdout. The runtime's knobs
+(``checkpoint_dir``, ``retry_policy``, ``family_deadline``) pass to the
+validator for each search; the families it quarantined are named in
+``summary.quarantined``. Workflow-level CV presets the winner and
 the holdout split (``best_estimator``, ``preset_split``). As a workflow
 stage the selector receives the prepared feature matrix as the tensor the
 prepare plan computed on the device (``Predictor.fit_columns``) and
@@ -54,6 +57,11 @@ class ModelSelectorSummary:
     #: rung schedule, budgets, pruned counts); empty, and absent from the
     #: JSON, under exact validation
     racing: Dict = field(default_factory=dict)
+    #: quarantine ledger (``runtime/errors.QuarantineRecord.to_json``
+    #: rows): families removed from this search and why (a CUDA
+    #: out-of-memory, a family fault, poisoned metrics, a deadline);
+    #: empty, and absent from the JSON, on a fault-free search
+    quarantined: List[Dict] = field(default_factory=list)
     #: host seconds of each stage of ``fit_arrays`` (prepare, validate,
     #: refit, evaluate); each stage ends in a read-back from the device.
     #: Kept in memory only: ``to_json`` writes the JAX package's keys
@@ -88,6 +96,8 @@ class ModelSelectorSummary:
         }
         if self.racing:
             out["racing"] = self.racing
+        if self.quarantined:
+            out["quarantined"] = self.quarantined
         return out
 
     @classmethod
@@ -118,13 +128,14 @@ class ModelSelectorSummary:
             holdout_evaluation=metrics("holdoutEvaluation"),
             metric_larger_better=d.get("metricLargerBetter", True),
             racing=d.get("racing") or {},
+            quarantined=d.get("quarantined") or [],
         )
 
     def pretty(self) -> str:
         """Human summary (reference summaryPretty,
         OpWorkflowModel.scala:204): the winner, then every grid point's
         mean metric, best first; a raced candidate says where it was
-        pruned or that it is a finalist."""
+        pruned or that it is a finalist; then the quarantined families."""
         lines = [
             f"Selected model: {self.best_model_name} "
             f"({self.evaluation_metric}={self.best_validation_metric:.4f} "
@@ -147,6 +158,14 @@ class ModelSelectorSummary:
                           if r.pruned_at is not None else "  [finalist]")
             lines.append(f"  {r.model_name}[{r.grid_index}] "
                          f"{r.params} -> {r.mean_metric:.4f}{racing}")
+        if self.quarantined:
+            lines.append("Quarantined families (search degraded to "
+                         "survivors):")
+            for q in self.quarantined:
+                retries = (f" after {q.get('retries')} retries"
+                           if q.get("retries") else "")
+                lines.append(f"  {q.get('family')}: [{q.get('kind')}] "
+                             f"{q.get('reason')}{retries}")
         return "\n".join(lines)
 
 
@@ -205,6 +224,9 @@ class ModelSelector(Predictor):
                  problem_type: str = "", device="cuda",
                  validation: str = "exact", eta: Optional[int] = None,
                  min_fidelity: Optional[float] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 retry_policy=None,
+                 family_deadline: Optional[float] = None,
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
         if validation not in ("exact", "racing"):
@@ -233,6 +255,16 @@ class ModelSelector(Predictor):
         self.validator = validator
         self.splitter = splitter
         self.problem_type = problem_type
+        #: journal completed (family, candidates, rung) evaluations under
+        #: this directory, so an interrupted search resumes through
+        #: ``Workflow.train(resume_from=...)`` without dispatching them
+        self.checkpoint_dir = checkpoint_dir
+        #: RetryPolicy of transient dispatch failures (None: the
+        #: TX_RETRY_* environment defaults)
+        self.retry_policy = retry_policy
+        #: a family's search deadline in wall-clock seconds (None: off;
+        #: also TX_FAMILY_DEADLINE_S)
+        self.family_deadline = family_deadline
         #: winner found by workflow-level CV (reference findBestEstimator,
         #: ModelSelector.scala:113): when set, the fit skips validation
         #: and refits it on the full data; consumed by that fit
@@ -302,12 +334,30 @@ class ModelSelector(Predictor):
         if self.best_estimator is not None:
             best, self.best_estimator = self.best_estimator, None
         else:
+            # the runtime's knobs for this search: journal, retry, deadline
+            v = self.validator
+            if self.checkpoint_dir is not None:
+                v.checkpoint_dir = self.checkpoint_dir
+            if self.retry_policy is not None:
+                v.retry_policy = self.retry_policy
+            if self.family_deadline is not None:
+                v.family_deadline = self.family_deadline
             best = self.validator.validate(self.models, Xp, yp)
+        rt = getattr(self.validator, "last_runtime", None)
+        quarantined = ([r.to_json() for r in rt.quarantined]
+                       if rt is not None else [])
         t2 = time.perf_counter()
         timings["validate"] = t2 - t1
 
-        # 3. refit the winner on the full prepared training set
-        inner = best.estimator.fit_arrays(Xp, yp)
+        # 3. refit the winner on the full prepared training set, behind
+        # the retry policy: a transient error in the refit must not
+        # discard the (journaled) search
+        from ..runtime.retry import RetryPolicy
+        retry = (self.retry_policy
+                 or getattr(self.validator, "retry_policy", None)
+                 or RetryPolicy.from_env())
+        inner = retry.call(lambda: best.estimator.fit_arrays(Xp, yp),
+                           description=f"winner-refit:{best.name}")
         t3 = time.perf_counter()
         timings["refit"] = t3 - t2
 
@@ -324,6 +374,7 @@ class ModelSelector(Predictor):
             validation_type=type(self.validator).__name__,
             validation_parameters=self.validator.get_params(),
             racing=dict(getattr(self.validator, "last_report", {}) or {}),
+            quarantined=quarantined,
             data_prep_parameters=prep_params,
             data_prep_results=prep_results,
             evaluation_metric=evaluator.default_metric,

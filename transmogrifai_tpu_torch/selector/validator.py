@@ -18,12 +18,30 @@ evaluator runs on the host; a family without that batch, or whose batch
 rejects the data, is fitted candidate by candidate on each fold's rows.
 Workflow-level CV hands ``validate_prepared`` one matrix per fold, each
 searched on its own device. Multi-fidelity racing is
-``selector/racing.py``. The reference's journal, retries, deadlines,
-quarantine, mesh and concurrent family dispatch are not ported.
+``selector/racing.py``.
+
+The fault-tolerant runtime (``runtime/``) wraps every family's search, as
+in the JAX package (``_dispatch_device_evals``, ``_host_results_journaled``,
+``_pick_best``): a journaled (family, candidates, rung) evaluation replays
+from ``checkpoint_dir`` without dispatching; a transient error retries
+under ``retry_policy``; a family whose error persists, is family-scoped,
+or whose metric matrix is non-finite is quarantined (after a CUDA
+out-of-memory its memory is released before the next family runs) and
+the search goes on with the survivors; a classified bug, a sticky CUDA
+error among them, propagates; ``AllFamiliesFailedError`` names every
+family when none survives. Families run one after another, on the
+calling thread; with a ``family_deadline`` each runs on a worker thread
+of its own, abandoned (its results dropped) when it outlives the
+deadline. The JAX package's concurrent dispatch of all families and its
+mesh are not ported (one card).
 """
 from __future__ import annotations
 
+import contextvars
+import functools
+import gc
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -34,6 +52,11 @@ import torch
 from .. import _build
 from ..evaluators.base import Evaluator
 from ..models.base import FamilyPreconditionError, Predictor
+from ..observability import trace as _trace
+from ..runtime import telemetry as _telemetry
+from ..runtime.context import RuntimeContext
+from ..runtime.errors import AllFamiliesFailedError, BUG, classify_error
+from ..runtime.faults import maybe_inject
 from ..utils.device import take_rows
 from .splitters import stratified_split
 
@@ -68,6 +91,77 @@ def family_profile() -> List[dict]:
 
 def reset_family_profile() -> None:
     _FAMILY_PROFILE.clear()
+
+
+#: what a dispatch returns for a quarantined family, distinct from None
+#: (no device path: the host evaluation takes over)
+_QUARANTINED = object()
+
+
+#: what ``_on_deadline_thread`` returns when the thread outlived its
+#: deadline
+_ABANDONED = object()
+
+
+def _release_device_memory(oom: bool) -> None:
+    """After a CUDA out-of-memory (``oom``), free what the failed family
+    held and return the cached blocks to the card, so the next family does
+    not meet the same wall. Call it once the exception is gone: its
+    traceback holds the failed frames and their tensors. The tree designs
+    the search binned stay cached: the other tree families read them."""
+    if oom and torch.cuda.is_available():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _guarded(ctx: RuntimeContext, name: str, fn, fields=dict):
+    """``fn()`` behind the runtime: a classified bug propagates; any other
+    error quarantines family ``name`` in ``ctx`` (the record also gets
+    ``fields()``, read once the error is caught) and gives
+    ``_QUARANTINED``, after a CUDA out-of-memory once the card's memory
+    is released."""
+    try:
+        return fn()
+    except Exception as e:
+        kind = classify_error(e)
+        if kind == BUG:
+            raise
+        ctx.quarantine(name, f"{type(e).__name__}: {e}", kind=kind,
+                       error_type=type(e).__name__, **fields())
+        oom = isinstance(e, torch.cuda.OutOfMemoryError)
+    _release_device_memory(oom)
+    return _QUARANTINED
+
+
+def _on_deadline_thread(fn, deadline: float, device):
+    """``fn()`` on a daemon worker thread given ``deadline`` seconds: its
+    value, what it raised (raised again here), or ``_ABANDONED`` when the
+    thread outlived the deadline. The worker runs in a copy of the
+    caller's context (its spans nest under the caller's) with ``device``
+    as its current CUDA device. An abandoned thread may run on, but
+    nothing it returns or raises is read: the caller alone records
+    results, journal lines and quarantines."""
+    box: Dict[str, object] = {}
+    finished = threading.Event()
+
+    def work():
+        try:
+            if device is not None and device.type == "cuda":
+                torch.cuda.set_device(device)
+            box["value"] = fn()
+        except BaseException as e:          # KillPoint included
+            box["error"] = e
+        finally:
+            finished.set()
+
+    threading.Thread(target=contextvars.copy_context().run, args=(work,),
+                     daemon=True, name="tx-family-deadline").start()
+    if not finished.wait(deadline):
+        return _ABANDONED
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
 
 
 @dataclass
@@ -147,6 +241,164 @@ class _ValidatorBase:
         self.evaluator = evaluator
         self.seed = seed
         self.stratify = stratify
+        #: the runtime's knobs, set directly or through
+        #: ModelSelector(checkpoint_dir=..., ...): journal completed
+        #: family evaluations here and replay them on a resumed search
+        self.checkpoint_dir: Optional[str] = None
+        #: RetryPolicy of transient dispatch failures (None: the
+        #: TX_RETRY_* environment defaults)
+        self.retry_policy = None
+        #: wall-clock seconds a family's search may take before its
+        #: worker thread is abandoned and the family quarantined
+        self.family_deadline: Optional[float] = None
+        #: RuntimeContext of the last validate() call, whose quarantine
+        #: ledger the selector reads
+        self.last_runtime: Optional[RuntimeContext] = None
+
+    # -- fault-tolerant runtime --------------------------------------------
+    @staticmethod
+    def _family_key(fi: int, estimator) -> str:
+        """Journal and dispatch identity of one family in this pool: the
+        pool index tells two instances of a class apart."""
+        return f"{fi}:{type(estimator).__name__}"
+
+    def _begin_runtime(self, models, X, y) -> RuntimeContext:
+        """This search's RuntimeContext (quarantine ledger, retry and, with
+        a ``checkpoint_dir``, the journal keyed by the search fingerprint:
+        pool, splits, seed and data, the matrix copied to the host once
+        for it)."""
+        ctx = RuntimeContext(retry=self.retry_policy,
+                             family_deadline=self.family_deadline)
+        if self.checkpoint_dir and X is not None:
+            from ..runtime.journal import search_fingerprint
+            params = dict(self.get_params(),
+                          validationType=type(self).__name__)
+            # the header's record of the devices searched on: one card
+            ctx.open_journal(self.checkpoint_dir,
+                             search_fingerprint(models, params, X, y),
+                             topology={"devices": 1, "mesh": None})
+        self.last_runtime = ctx
+        return ctx
+
+    def _results_from_journal(self, estimator, grid, metric_rows
+                              ) -> List["ValidationResult"]:
+        """ValidationResults rebuilt from journaled per-candidate fold
+        vectors, bit for bit (JSON doubles round-trip through repr)."""
+        return [
+            ValidationResult(
+                model_name=type(estimator).__name__,
+                model_uid=estimator.uid, grid_index=gi,
+                params=dict(params),
+                metric_values=[float(v) for v in metric_rows[gi]])
+            for gi, params in enumerate(grid)]
+
+    def _dispatch_device_evals(self, tasks, folds: int,
+                               ctx: RuntimeContext,
+                               rung: Optional[int] = None,
+                               rung_label: str = "exact", device=None):
+        """Run each family's device-search thunk behind the runtime, in
+        order. ``tasks`` is [(family name, family key, candidate indices,
+        thunk)]; returns per task an (F, G) metric matrix, None (no
+        device path: the host evaluation takes over) or ``_QUARANTINED``.
+
+        - a journaled (family, candidates, rung) evaluation replays
+          without dispatching anything;
+        - transient errors (a CUDA out-of-memory, a preemption) retry
+          under ``ctx.retry``; an error that persists or is family-scoped
+          quarantines the family, and a classified bug propagates;
+        - a matrix at least ``ctx.nan_quarantine_fraction`` non-finite
+          quarantines the family;
+        - with ``ctx.family_deadline``, each family runs on a worker
+          thread (on ``device``) that is abandoned, its family
+          quarantined and its results kept out of the journal, when it
+          outlives the deadline."""
+        deadline = ctx.family_deadline
+
+        def run_task(name, key, cands, thunk):
+            with _trace.span("search.family", family=name,
+                             rung=rung_label, cands=len(cands),
+                             folds=folds):
+                return run_task_traced(name, key, cands, thunk)
+
+        def run_task_traced(name, key, cands, thunk):
+            cached = ctx.journal_lookup(key, rung_label, cands)
+            if cached is not None:
+                # the journal stores per-candidate fold vectors; the
+                # dispatch contract is (folds, candidates)
+                _trace.add_event("journal.replay", family=name,
+                                 rung=rung_label, cands=len(cands))
+                return np.asarray(cached, dtype=np.float64).T
+
+            def attempt():
+                maybe_inject("family", name, "dispatch")
+                return thunk()
+
+            retries = [0]
+
+            def dispatch():
+                return ctx.retry.call(
+                    attempt, description=f"dispatch:{name}",
+                    on_retry=lambda a, e: retries.__setitem__(0, a + 1))
+
+            if deadline is not None:
+                dispatch = functools.partial(_on_deadline_thread, dispatch,
+                                             deadline, device)
+            mm = _guarded(ctx, name, dispatch,
+                          lambda: {"rung": rung, "retries": retries[0]})
+            if mm is _ABANDONED:
+                # its results stay out of the search and the journal
+                ctx.quarantine(
+                    name, f"family dispatch exceeded the {deadline:g}s "
+                          f"deadline (backend hung or wedged); thread "
+                          f"abandoned", kind="deadline", rung=rung)
+                return _QUARANTINED
+            if mm is _QUARANTINED or mm is None:
+                return mm
+            if maybe_inject("family", name, "metric") == "nan":
+                mm = np.full_like(np.asarray(mm, dtype=np.float64), np.nan)
+            arr = np.asarray(mm, dtype=np.float64)
+            if arr.size:
+                bad = 1.0 - float(np.mean(np.isfinite(arr)))
+                if bad >= ctx.nan_quarantine_fraction:
+                    ctx.quarantine(
+                        name, f"{bad:.0%} of device metrics non-finite",
+                        kind="metrics", rung=rung)
+                    return _QUARANTINED
+            _telemetry.note_dispatch(key, rung_label, tuple(cands), folds)
+            ctx.journal_record(key, rung_label, cands, arr.T.tolist(),
+                               folds)
+            return arr
+
+        return [run_task(*t) for t in tasks]
+
+    def _host_results_journaled(self, fi, estimator, grid, X, y, masks,
+                                fold_data, ctx: RuntimeContext,
+                                label: str = "exact-host"
+                                ) -> List["ValidationResult"]:
+        """One family's host evaluation behind the runtime: journal replay
+        first, quarantine on a classified failure, a journal record on
+        success. The label ``"exact-host"`` keeps host metric vectors from
+        ever replaying into the device-matrix path."""
+        key = self._family_key(fi, estimator)
+        cands = tuple(range(len(grid)))
+        cached = ctx.journal_lookup(key, label, cands)
+        if cached is not None:
+            _trace.add_event("journal.replay",
+                             family=type(estimator).__name__,
+                             rung=label, cands=len(cands))
+            return self._results_from_journal(estimator, grid, cached)
+        with _trace.span("search.family", family=type(estimator).__name__,
+                         rung=label, path="host", cands=len(cands),
+                         folds=len(fold_data)):
+            host = _guarded(ctx, type(estimator).__name__,
+                            lambda: self._family_host_results(
+                                estimator, grid, X, y, masks, fold_data))
+        if host is _QUARANTINED:
+            return []
+        _telemetry.note_dispatch(key, label, cands, len(fold_data))
+        ctx.journal_record(key, label, cands,
+                           [r.metric_values for r in host], len(fold_data))
+        return host
 
     # -- split construction ------------------------------------------------
     def _splits(self, y: np.ndarray
@@ -312,8 +564,8 @@ class _ValidatorBase:
                             if raw is not None
                             else model.predict_arrays(X_val))
                 else:
-                    pred = candidate.fit_arrays(X_tr, y_tr).predict_arrays(
-                        X_val)
+                    pred = candidate.fit_arrays_guarded(
+                        X_tr, y_tr).predict_arrays(X_val)
                 metrics = self.evaluator.evaluate_arrays(y_val, pred)
                 res.metric_values.append(self.evaluator.metric_from(metrics))
             except (ValueError, FloatingPointError) as e:
@@ -322,24 +574,46 @@ class _ValidatorBase:
                 res.metric_values.append(float("nan"))
         return res
 
+    def _device_matrices(self, models, X, y, masks, X_val_st, y_val_st,
+                         spec, ctx: RuntimeContext):
+        """Per-family (F, G) device metric matrices behind the runtime
+        (None entries take the host path; ``_QUARANTINED`` ones are out
+        of the search)."""
+        tasks = [
+            (type(est).__name__, self._family_key(fi, est),
+             tuple(range(len(grid))),
+             (lambda e=est, g=grid: self._try_device_eval(
+                 e, g, X, y, masks, X_val_st, y_val_st, spec)))
+            for fi, (est, grid) in enumerate(models)]
+        return self._dispatch_device_evals(
+            tasks, int(masks.shape[0]), ctx,
+            device=X.device if isinstance(X, torch.Tensor) else None)
+
     def validate(self, models: Sequence[Tuple[Predictor, Sequence[Dict]]],
                  X, y: np.ndarray) -> BestEstimator:
         models = [(est, list(grid) or [{}]) for est, grid in models]
-        masks, spec, X_val_st, y_val_st = self._build_fold_arrays(X, y)
-        results: List[ValidationResult] = []
-        fold_data = None
-        for estimator, grid in models:
-            mm = self._try_device_eval(estimator, grid, X, y, masks,
-                                       X_val_st, y_val_st, spec)
-            if mm is not None:
-                results.extend(self._results_from_matrix(estimator, grid,
-                                                         mm))
-                continue
-            if fold_data is None:
-                fold_data = self._fold_data(X, y)
-            results.extend(self._family_host_results(estimator, grid, X, y,
-                                                     masks, fold_data))
-        return self._pick_best(models, results)
+        ctx = self._begin_runtime(models, X, y)
+        try:
+            masks, spec, X_val_st, y_val_st = self._build_fold_arrays(X, y)
+            results: List[ValidationResult] = []
+            device_mm = self._device_matrices(models, X, y, masks, X_val_st,
+                                              y_val_st, spec, ctx)
+            fold_data = None
+            for fi, ((estimator, grid), mm) in enumerate(
+                    zip(models, device_mm)):
+                if mm is _QUARANTINED:
+                    continue
+                if mm is not None:
+                    results.extend(self._results_from_matrix(estimator,
+                                                             grid, mm))
+                    continue
+                if fold_data is None:
+                    fold_data = self._fold_data(X, y)
+                results.extend(self._host_results_journaled(
+                    fi, estimator, grid, X, y, masks, fold_data, ctx))
+        finally:
+            ctx.close_journal()
+        return self._pick_best(models, results, ctx=ctx)
 
     def validate_prepared(self,
                           models: Sequence[Tuple[Predictor, Sequence[Dict]]],
@@ -350,14 +624,21 @@ class _ValidatorBase:
         fold's train rows, so the feature matrices may differ across
         folds, even in width. ``folds`` is [(X_tr, y_tr, X_val, y_val),
         ...], each matrix numpy or a tensor on its device; each fold is
-        one device search per family."""
+        one device search per family. A family whose evaluation raises a
+        classified transient or family error is quarantined, as on the
+        array path; nothing is journaled here (the fold matrices differ
+        by refit segment, so no fingerprint keys a resume)."""
         spec = self.evaluator.device_metric_spec()
         models = [(est, list(grid) or [{}]) for est, grid in models]
+        ctx = self._begin_runtime(models, None, None)
         results: List[ValidationResult] = []
         for estimator, grid in models:
-            results.extend(self._prepared_family_results(
-                estimator, grid, folds, spec))
-        return self._pick_best(models, results)
+            fam = _guarded(ctx, type(estimator).__name__,
+                           lambda: self._prepared_family_results(
+                               estimator, grid, folds, spec))
+            if fam is not _QUARANTINED:
+                results.extend(fam)
+        return self._pick_best(models, results, ctx=ctx)
 
     def _prepared_family_results(self, estimator, grid, folds, spec
                                  ) -> List[ValidationResult]:
@@ -382,17 +663,23 @@ class _ValidatorBase:
                                          folds)
 
     def _pick_best(self, models, results: List[ValidationResult],
-                   rank_pool: Optional[List[ValidationResult]] = None
-                   ) -> BestEstimator:
+                   rank_pool: Optional[List[ValidationResult]] = None,
+                   ctx: Optional[RuntimeContext] = None) -> BestEstimator:
         """Winner by mean metric among ``rank_pool`` (default: all
         results); the first candidate wins a tie. Racing passes only its
         full-fidelity finalists (a pruned candidate's low-fidelity mean is
         not comparable to a full-CV one), while every record still lands
-        in ``BestEstimator.results``."""
+        in ``BestEstimator.results``. With nothing finite left after
+        quarantines, one AllFamiliesFailedError names every family."""
         sign = 1.0 if self.evaluator.is_larger_better else -1.0
         pool = results if rank_pool is None else rank_pool
         finite = [r for r in pool if np.isfinite(r.mean_metric)]
         if not finite:
+            if ctx is not None and ctx.quarantined:
+                raise AllFamiliesFailedError(
+                    ctx.quarantined,
+                    detail="no family produced a finite validation "
+                           "metric")
             raise ValueError(
                 "all validation metrics are non-finite; cannot select a "
                 "model (check for degenerate folds — e.g. a fold with a "

@@ -2,8 +2,10 @@
 ``transmogrifai_tpu/serving/``): the fitted workflow DAG frozen into
 shape-bucketed device programs, one captured CUDA graph per row bucket on
 the card (``plan.py``), the serving guardrails (``guard.py``), the online
-drift sentinel (``sentinel.py``) and the asyncio micro-batching serving
-loop that coalesces live requests into those buckets (``server.py``).
+drift sentinel (``sentinel.py``), the asyncio micro-batching serving
+loop that coalesces live requests into those buckets (``server.py``) and
+the self-healing lifecycle that retrains a drifted model in the
+background and hot-swaps it (``lifecycle.py``).
 
 The JAX package's other serving modules are not ported yet; importing one
 of their names from here raises ``NotImplementedError`` naming the JAX
@@ -12,6 +14,7 @@ module.
 from .guard import (AdmissionPolicy, BreakerOpenError, CircuitBreaker,
                     GuardedScoreResult, GuardReason, OutputGuard,
                     SchemaGuard, ServingGuard)
+from .lifecycle import LifecycleConfig, ModelLifecycle
 from .plan import (EncodedScoreBatch, PlanCompileError, PlanCoverage,
                    ScoringPlan, bucket_for, plan_compiles)
 from .sentinel import (DriftSentinel, DriftThresholds, FeatureFingerprint,
@@ -32,7 +35,7 @@ __all__ = ["ScoringPlan", "EncodedScoreBatch", "PlanCoverage",
            "DriftSentinel", "DriftThresholds", "FeatureFingerprint",
            "FingerprintSchemaError", "compute_fingerprints",
            "load_fingerprint_doc", "load_fingerprints",
-           "save_fingerprints"]
+           "save_fingerprints", "LifecycleConfig", "ModelLifecycle"]
 
 #: the JAX package's serving exports that wait for their module's port
 _UNPORTED = {
@@ -40,8 +43,6 @@ _UNPORTED = {
                     "serving/admission.py"),
     **dict.fromkeys(("TcpServingClient", "ServingUnavailable"),
                     "serving/client.py"),
-    **dict.fromkeys(("LifecycleConfig", "ModelLifecycle"),
-                    "serving/lifecycle.py"),
     **dict.fromkeys(("ServingStateSnapshot", "StateManager",
                      "SNAPSHOT_SCHEMA"), "serving/state.py"),
     **dict.fromkeys(("ReplicaManager", "ReplicaSpec", "wait_port_ready"),

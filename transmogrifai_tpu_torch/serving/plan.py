@@ -14,7 +14,12 @@ plan:
    ``coverage``. A stage whose kernel fails when the plan first runs it,
    or when a bucket's graph is captured, raises :class:`PlanCompileError`
    naming the stage: the port demotes no stage to the host in its place
-   (the JAX package's demotion loop is not ported).
+   (the JAX package's demotion loop is not ported), but for the drill
+   ``plan:<Stage>:compile`` (``runtime/faults.py``), whose injected fault
+   sends the stage to the host with the fault as its reason, as there.
+   The other drill sites are the bucket dispatch (``plan:device:dispatch``,
+   inside the retry policy) and ``serving:output:guard`` (a ``nan`` fault
+   poisons the first valid row of a guarded batch).
 2. **Buckets batch shapes.** Batches pad up to power-of-two row buckets
    with a validity mask; batches beyond the largest bucket are chunked.
 3. **Captures one CUDA graph per bucket on the card.** At a bucket's
@@ -66,6 +71,7 @@ from ..plans.common import (DEFAULT_MAX_BUCKET, DEFAULT_MIN_BUCKET,
                             pad_rows as _pad_rows, plan_seq, record_compile,
                             record_rows)
 from ..runtime import telemetry as _telemetry
+from ..runtime.faults import maybe_inject
 from ..runtime.retry import RetryPolicy
 from ..stages.base import Transformer
 from ..types import Prediction
@@ -301,6 +307,12 @@ class ScoringPlan:
             in_names = tuple(f.name for f in stage.input_features)
             reason = lowering_reason(stage, in_names, producer,
                                      lambda n: self._proto_cols[n])
+            if not reason:
+                try:
+                    maybe_inject("plan", type(stage).__name__, "compile")
+                except Exception as e:
+                    reason = (f"injected compile fault: "
+                              f"{type(e).__name__}: {e}")
             label = f"{type(stage).__name__}({out_name})"
             if not reason:
                 phase = "device"
@@ -599,6 +611,11 @@ class ScoringPlan:
                 raise
             used_fallback = True
             scored = self.score_host_columnar(ds)
+        # drill site: poison one output row, so the output guard's
+        # invalidate path can be driven
+        if maybe_inject("serving", "output", "guard") == "nan":
+            scored = _poison_first_valid_row(scored, self._result_names,
+                                             qmask)
         result = self.resolve_guarded(
             scored, quarantined, qmask,
             self.guard.output if self.guard is not None else None,
@@ -753,6 +770,7 @@ class ScoringPlan:
         abandoned (its thread orphaned; a replay cannot be killed) and
         surfaces as DEADLINE_EXCEEDED for the breaker."""
         def attempt():
+            maybe_inject("plan", "device", "dispatch")
             return self._run_bucket(bucket, inputs, mask)
 
         deadline = (self.guard.deadline_seconds
@@ -831,3 +849,31 @@ class ScoringPlan:
     def attach_artifacts(self, execs, manifest=None):
         raise not_ported("ScoringPlan.attach_artifacts, the AOT plan "
                          "artifacts", "artifacts/")
+
+
+def _poison_first_valid_row(scored: Dataset, result_names, qmask
+                            ) -> Dataset:
+    """The ``serving:output:guard:N=nan`` drill: NaN the first
+    non-quarantined row's prediction (inf a numeric output), so the output
+    guard's invalidate-with-reason path runs end to end."""
+    valid = np.flatnonzero(~qmask)
+    if valid.size == 0:
+        return scored
+    row = int(valid[0])
+    for name in result_names:
+        if name not in scored:
+            continue
+        col = scored[name]
+        if isinstance(col, PredictionColumn):
+            data = col.data.copy()
+            data[row] = np.nan
+            scored = scored.with_column(name, PredictionColumn(
+                ftype=col.ftype, data=data, metadata=col.metadata,
+                probability=col.probability,
+                raw_prediction=col.raw_prediction))
+        elif col.kind == "numeric":
+            data = np.asarray(col.data, dtype=np.float64).copy()
+            data[row] = np.inf
+            scored = scored.with_column(name, FeatureColumn(
+                ftype=col.ftype, data=data, metadata=col.metadata))
+    return scored

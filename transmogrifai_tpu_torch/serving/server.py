@@ -34,10 +34,14 @@ on an event loop of the caller's, or on a background thread through
 :meth:`ServingServer.start_background` and :class:`ServingClient`
 (``serve_in_process``). Each tenant has its own drift sentinel
 (``sentinel.py``) over the batches it scores, reported in
-``metrics_snapshot()``. Not ported, and raising by name: overload admission
-(``admission_control``), the self-healing lifecycle (``lifecycle``,
-``register_refit``), the predicted-cost coalescer, the state snapshots,
-the AOT artifacts and the TCP front end (``cli/serve.py``).
+``metrics_snapshot()``. With ``ServeConfig.lifecycle`` a
+:class:`~.lifecycle.ModelLifecycle` retrains a drifted tenant's model in
+the background and hot-swaps it between batches
+(:meth:`PlanCache.swap_entry`, :meth:`PlanCache.rollback`;
+``register_refit`` says how to retrain a model). Not ported, and raising
+by name: overload admission (``admission_control``), the predicted-cost
+coalescer, the state snapshots, the AOT artifacts and the TCP front end
+(``cli/serve.py``).
 """
 from __future__ import annotations
 
@@ -114,7 +118,9 @@ class ServeConfig:
     breaker_failures: int = 3
     breaker_cooldown_seconds: float = 30.0
     breaker_factory: Optional[Callable[[], CircuitBreaker]] = None
-    #: the self-healing lifecycle: not ported, must be None
+    #: the self-healing lifecycle (``serving/lifecycle.LifecycleConfig``);
+    #: None (the default) builds no manager: the loop is the one without
+    #: drift-triggered retraining
     lifecycle: Any = None
     #: overload admission control: not ported, must be None
     admission_control: Any = None
@@ -126,9 +132,6 @@ class ServeConfig:
 def _check_ported(config: ServeConfig) -> None:
     """Raise by name for each option of ``config`` whose JAX module the
     port does not have yet."""
-    if config.lifecycle is not None:
-        raise not_ported("ServeConfig.lifecycle, the self-healing "
-                         "lifecycle", "serving/lifecycle.py")
     if config.admission_control is not None:
         raise not_ported("ServeConfig.admission_control, overload "
                          "admission", "serving/admission.py")
@@ -186,13 +189,24 @@ class _TenantGuards:
                 model, thresholds=config.drift_thresholds)
 
 
+#: pinned when a tenant swap had no previous override (a rollback must
+#: remove the override, not restore a None entry)
+_NO_OVERRIDE = object()
+
+
 class PlanCache:
     """LRU of compiled ScoringPlans keyed by (model name, bucket range):
     one process serves several models. Eviction drops the plan (and its
     captured graphs) but keeps the loader, so an evicted model reloads and
     recompiles on next use; hits, misses and evictions are counted. A
     saved model directory loads on ``device``; an in-memory model keeps
-    its own device, which must be ``device``."""
+    its own device, which must be ``device``.
+
+    Hot swaps go through :meth:`swap_entry` and :meth:`rollback` only: the
+    replacement is one dict assignment, atomic between batches (a batch
+    that holds the old entry finishes on it, the next resolves the new
+    one), and the previous entry stays pinned until :meth:`commit` or
+    :meth:`rollback`."""
 
     def __init__(self, budget: int = 4, device="cuda"):
         if budget < 1:
@@ -203,6 +217,11 @@ class PlanCache:
         self._loaders: Dict[str, Any] = {}
         self._entries: "collections.OrderedDict[Tuple, _CacheEntry]" = \
             collections.OrderedDict()
+        #: (name, tenant) -> swapped-in entry (tenant-scoped hot swaps;
+        #: resolution: the override, then the shared LRU entry)
+        self._overrides: Dict[Tuple[str, str], _CacheEntry] = {}
+        #: the previous entry of each swap scope, until commit or rollback
+        self._pinned: Dict[Tuple[str, Optional[str]], Any] = {}
         self.evictions = 0
         self.hits = 0
         self.misses = 0
@@ -257,6 +276,79 @@ class PlanCache:
     def resident_entries(self) -> List[Tuple[Tuple, _CacheEntry]]:
         """Resident (key, entry) pairs, least recently used first."""
         return list(self._entries.items())
+
+    # -- hot swap ----------------------------------------------------------
+    def entry_for(self, name: str, tenant: str,
+                  buckets: Tuple[Optional[int], Optional[int]] = (None,
+                                                                  None)
+                  ) -> _CacheEntry:
+        """Tenant-aware resolution: a tenant-scoped swapped-in entry wins;
+        every other tenant resolves the shared LRU entry, which a
+        ``tenant``-policy swap leaves untouched."""
+        override = self._overrides.get((name, tenant))
+        if override is not None:
+            self.hits += 1
+            _telemetry.count("serve_plan_cache_hits")
+            return override
+        return self.get(name, buckets)
+
+    def swap_entry(self, name: str, new_entry: _CacheEntry,
+                   tenant: Optional[str] = None,
+                   buckets: Tuple[Optional[int], Optional[int]] = (None,
+                                                                   None)
+                   ) -> None:
+        """Replace the live entry of ``name`` in one dict assignment
+        (batches holding the old entry finish on it; the next
+        ``entry_for`` resolves ``new_entry``), pinning the previous entry
+        until :meth:`commit` or :meth:`rollback`. ``tenant=None`` swaps
+        the shared entry for every tenant, a tenant name only that
+        tenant's resolution."""
+        if name not in self._loaders:
+            raise ServeRejected(f"unknown model {name!r}; registered: "
+                                f"{self.names()}")
+        if tenant is not None:
+            self._pinned[(name, tenant)] = self._overrides.get(
+                (name, tenant), _NO_OVERRIDE)
+            self._overrides[(name, tenant)] = new_entry
+        else:
+            key = (name, buckets)
+            self._pinned[(name, None)] = self._entries.get(key)
+            self._entries[key] = new_entry
+        _telemetry.count("serve_plan_swaps")
+        _telemetry.event("serve_plan_swapped", model=name,
+                         tenant=tenant or "*")
+
+    def rollback(self, name: str, tenant: Optional[str] = None,
+                 buckets: Tuple[Optional[int], Optional[int]] = (None,
+                                                                 None)
+                 ) -> bool:
+        """Restore the entry pinned by the last :meth:`swap_entry` of this
+        scope at once; False when nothing is pinned (committed, or never
+        swapped)."""
+        pin = (name, tenant)
+        if pin not in self._pinned:
+            return False
+        prev = self._pinned.pop(pin)
+        key = (name, buckets)
+        if tenant is not None:
+            if prev is _NO_OVERRIDE:
+                self._overrides.pop((name, tenant), None)
+            else:
+                self._overrides[(name, tenant)] = prev
+        elif prev is not None:
+            self._entries[key] = prev
+        else:
+            self._entries.pop(key, None)
+        return True
+
+    def commit(self, name: str, tenant: Optional[str] = None) -> None:
+        """Unpin the previous entry after a healthy watch window: the swap
+        is permanent and the old plan (its graphs) may be released."""
+        self._pinned.pop((name, tenant), None)
+
+    def swapped_entries(self) -> Dict[Tuple[str, str], _CacheEntry]:
+        """Live tenant-scoped overrides."""
+        return dict(self._overrides)
 
 
 class _Lane:
@@ -350,6 +442,17 @@ class ServingServer:
         self._draining = False
         self._inflight = 0
         self._drain_event: Optional[asyncio.Event] = None
+        #: the bucket range the plan cache compiles plans at (the plans'
+        #: defaults); a lifecycle candidate's plan is built at it too
+        self.plan_buckets: Tuple[Optional[int], Optional[int]] = (None,
+                                                                   None)
+        #: the self-healing lifecycle manager: None unless
+        #: ``config.lifecycle`` is an enabled LifecycleConfig
+        self.lifecycle = None
+        lc = self.config.lifecycle
+        if lc is not None and getattr(lc, "enabled", False):
+            from .lifecycle import ModelLifecycle
+            self.lifecycle = ModelLifecycle(self, lc)
 
     # -- registry ----------------------------------------------------------
     def add_model(self, name: str, model_or_dir: Any,
@@ -362,9 +465,26 @@ class ServingServer:
             self._default_model = name
         return self
 
-    def register_refit(self, name: str, *args, **kwargs):
-        raise not_ported("ServingServer.register_refit, drift-triggered "
-                         "retraining", "serving/lifecycle.py")
+    def register_refit(self, name: str, workflow_factory=None,
+                       base_records: Optional[List[dict]] = None,
+                       checkpoint_dir: Optional[str] = None,
+                       save_dir: Optional[str] = None) -> "ServingServer":
+        """How to retrain ``name`` when its sentinel degrades:
+        ``workflow_factory`` returns a fresh unfitted workflow (the exact
+        estimators and hyperparameters); without one the workflow is
+        rebuilt from the fitted model (``runtime/refit.py``). Requires an
+        enabled ``ServeConfig.lifecycle``."""
+        if self.lifecycle is None:
+            raise ValueError(
+                "register_refit requires an enabled "
+                "ServeConfig.lifecycle (serving/lifecycle."
+                "LifecycleConfig)")
+        from ..runtime.refit import RefitSpec
+        self.lifecycle.register(name, RefitSpec(
+            workflow_factory=workflow_factory,
+            base_records=base_records, checkpoint_dir=checkpoint_dir,
+            save_dir=save_dir))
+        return self
 
     def prewarm(self, names: Optional[List[str]] = None,
                 buckets: Optional[Sequence[int]] = None
@@ -538,7 +658,8 @@ class ServingServer:
         an evicted model), schema admission with per-row quarantine
         reasons, raw-Dataset boxing, and bucket encoding and padding."""
         marks = {"encode_t0": time.monotonic()}
-        entry = self.plans.get(lane.model_name)
+        entry = self.plans.entry_for(lane.model_name, lane.tenant,
+                                     self.plan_buckets)
         guards = entry.guards.get(lane.tenant)
         if guards is None:
             guards = entry.guards[lane.tenant] = _TenantGuards(
@@ -708,6 +829,10 @@ class ServingServer:
             scored, prep.quarantined, prep.qmask, prep.guards.output,
             used_fallback, prep.guards.breaker, raw=prep.ds,
             sentinel=prep.guards.sentinel)
+        if self.lifecycle is not None:
+            # ring feed, drift poll and post-swap watch (lifecycle.py);
+            # a dict lookup when idle
+            self.lifecycle.note_batch(prep)
         rows = result.boxed_rows(prep.entry.result_names)
         if used_fallback:
             for row in rows:
@@ -804,6 +929,8 @@ class ServingServer:
         self._encode_pool.shutdown(wait=False)
         self._device_pool.shutdown(wait=False)
         self._fallback_pool.shutdown(wait=False)
+        if self.lifecycle is not None:
+            self.lifecycle.shutdown()
 
     # -- introspection -----------------------------------------------------
     def describe(self) -> dict:
@@ -851,13 +978,17 @@ class ServingServer:
         counters, per-tenant latency quantiles, per-lane queue depth,
         plan-cache hits and evictions, per-tenant breaker state, the
         compile count, each tenant's drift state (per-feature JS against
-        the warn and degrade thresholds, rows observed) and the serving
-        slice of the process telemetry. The blocks of modules the port
-        does not have (admission, lifecycle, AOT artifacts) report them
-        off."""
+        the warn and degrade thresholds, rows observed), the lifecycle's
+        states, watch windows, ring sizes, quarantined lanes and history
+        (None without one) and the serving slice of the process
+        telemetry. The blocks of modules the port does not have
+        (admission, AOT artifacts) report them off."""
         entries = self.plans.resident_entries()
+        live = [(name, entry) for (name, _buckets), entry in entries]
+        live += [(name, entry) for (name, _tenant), entry
+                 in self.plans.swapped_entries().items()]
         breakers, sentinels = {}, {}
-        for (name, _buckets), entry in entries:
+        for name, entry in live:
             for tenant, guards in list(entry.guards.items()):
                 lane = f"{name}/{tenant}"
                 if guards.breaker is not None:
@@ -879,7 +1010,8 @@ class ServingServer:
                     }
         serving_counters = {
             k: v for k, v in _telemetry.counters().items()
-            if k.startswith(("serve_", "serving_", "breaker_", "drift_"))}
+            if k.startswith(("serve_", "serving_", "breaker_", "drift_",
+                             "lifecycle_"))}
         lanes = sorted(self._lanes.items())
         return {
             "schema": METRICS_SCHEMA_VERSION,
@@ -909,7 +1041,8 @@ class ServingServer:
             "aot": {name: None for (name, _b), _e in entries},
             "breakers": breakers,
             "sentinels": sentinels,
-            "lifecycle": None,
+            "lifecycle": (self.lifecycle.snapshot()
+                          if self.lifecycle is not None else None),
             "counters": serving_counters,
             "trace": {"enabled": _trace.enabled(),
                       "path": _trace.trace_path()},

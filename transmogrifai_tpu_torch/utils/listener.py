@@ -4,10 +4,9 @@ The port's copy of ``transmogrifai_tpu/utils/listener.py`` (reference
 OpSparkListener, utils/src/main/scala/com/salesforce/op/utils/spark/
 OpSparkListener.scala:56,136,164): the prepare plan reports each stage's
 fit/transform wall time and row count to an attached listener;
-``AppMetrics`` aggregates per run.
-
-``AppMetrics.fault_events`` stays empty: the fault runtime that fills it
-in the JAX package (``runtime/``) is not ported.
+``AppMetrics`` aggregates per run, and ``AppMetrics.fault_events`` holds
+the runtime's events of the run (retries, quarantines, journal resumes:
+``runtime/telemetry.py``).
 """
 from __future__ import annotations
 
@@ -59,8 +58,10 @@ class AppMetrics:
     start_time: float = field(default_factory=time.time)
     end_time: Optional[float] = None
     stage_metrics: List[StageMetric] = field(default_factory=list)
-    #: fault-runtime events of the run; always empty in the port (no
-    #: ``runtime/``), and then absent from the JSON
+    #: fault-runtime events observed during this run (retries,
+    #: quarantines, journal resumes, plan fallbacks: runtime/
+    #: telemetry.py); empty, and absent from the JSON, on a fault-free
+    #: run
     fault_events: List[Dict] = field(default_factory=list)
 
     @property
@@ -110,6 +111,9 @@ class WorkflowListener:
         self.collect_stage_metrics = collect_stage_metrics
         self.metrics = AppMetrics(app_name=app_name)
         self._end_handlers: List[Callable[[AppMetrics], None]] = []
+        # fault-runtime events after this mark belong to this run
+        from ..runtime import telemetry as _rt
+        self._fault_mark = _rt.events_mark()
 
     def on_stage_completed(self, stage, phase: str, seconds: float,
                            n_rows: int,
@@ -130,6 +134,9 @@ class WorkflowListener:
 
     def on_application_end(self) -> None:
         self.metrics.end_time = time.time()
+        # the runtime's events of this run, beside its stage profile
+        from ..runtime import telemetry as _rt
+        self.metrics.fault_events = _rt.events_since(self._fault_mark)
         for fn in self._end_handlers:
             try:
                 fn(self.metrics)

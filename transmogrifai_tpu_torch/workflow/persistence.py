@@ -46,8 +46,9 @@ writes them, and a saved or loaded model remembers its directory
 (``model_dir``), where the serving sentinel reads them. Two parts of a JAX save have no
 meaning for torch and are left out: the AOT export of the compiled XLA
 scoring programs and the plan-fingerprint sidecar of the HLO auditor. The
-fault-injection hook of the fault runtime (``runtime/faults.py``) waits
-for that module's port.
+save's crash site ``workflow:save:save`` (``runtime/faults.py``) sits
+between the fingerprints and ``arrays.npz``: a kill there leaves the
+staging directory and the target untouched.
 """
 from __future__ import annotations
 
@@ -386,6 +387,10 @@ def save_model(model, path: str) -> None:
         fh.flush()
         os.fsync(fh.fileno())
     _save_drift_fingerprints(model, tmp)
+    # drill site: a kill here leaves a staged directory and the target
+    # untouched (or its previous model in place)
+    from ..runtime.faults import maybe_inject
+    maybe_inject("workflow", "save", "save")
     np.savez(os.path.join(tmp, ARRAYS_NPZ), **arrays)
     _fsync_file(os.path.join(tmp, ARRAYS_NPZ))
     if os.path.isdir(path):

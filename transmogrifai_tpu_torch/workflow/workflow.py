@@ -34,9 +34,13 @@ FitStagesUtil.scala:173-305). A ``Workflow`` computes on one ``device``
 - ``WorkflowModel.model_insights``, ``summary`` and ``summary_pretty``
   explain the fitted model (``insights/``).
 
+- ``train(resume_from=DIR)`` points the DAG's ModelSelector at a search
+  journal (``runtime/journal.py``): a search killed part way replays its
+  journaled family evaluations and dispatches only the rest.
+
 Estimator -> fitted-model DAG rewiring uses ``Feature.copy_with_new_stages``
-as the reference does (OpWorkflow.scala:347). Resumed searches and the
-lint pre-flight are not ported and raise.
+as the reference does (OpWorkflow.scala:347). The lint pre-flight is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -356,18 +360,33 @@ class Workflow:
               resume_from: Optional[str] = None) -> "WorkflowModel":
         """Fit all estimators and return the fitted model (reference
         OpWorkflow.train:332). The JAX package's lint pre-flight
-        (``validate="warn"`` or ``"strict"``) and resumed searches
-        (``resume_from``) raise; the default runs neither."""
+        (``validate="warn"`` or ``"strict"``) raises; the default runs
+        none.
+
+        ``resume_from`` points the DAG's ModelSelectors at a search
+        checkpoint directory: the family evaluations a previous, perhaps
+        killed, ``train()`` of the same search journaled there replay from
+        disk, only the missing work is dispatched, and the resumed search
+        picks the identical winner. The directory is written to as well,
+        so retrying ``train(resume_from=d)`` after crashes converges; the
+        same as ``ModelSelector(checkpoint_dir=...)``."""
         if validate != "off":
             raise not_ported(f"Workflow.train(validate={validate!r}), the "
                              f"lint pre-flight", "lint/")
-        if resume_from is not None:
-            raise not_ported("Workflow.train(resume_from=...)",
-                             "runtime/journal.py")
         if not self.result_features:
             raise ValueError("No result features set")
         if self._input_data is None:
             raise ValueError("No input data set")
+        if resume_from is not None:
+            from ..selector.selector import ModelSelector
+            selectors = [s for s in self.stages()
+                         if isinstance(s, ModelSelector)]
+            if not selectors:
+                raise ValueError(
+                    "resume_from requires a ModelSelector in the "
+                    "workflow DAG: there is no search to resume")
+            for s in selectors:
+                s.checkpoint_dir = resume_from
         _validate_distinct_uids(self.result_features)
         for stage in self.stages():
             dev = getattr(stage, "device", None)
